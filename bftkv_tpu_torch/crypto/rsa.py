@@ -1,0 +1,580 @@
+"""RSA primitives and the batched device domains of the port.
+
+Counterpart of ``bftkv_tpu/crypto/rsa.py``.  Key generation, PKCS#1
+v1.5 encoding, host signing and the host verify oracle are host Python
+(``pow``); the native modexp loader waits for a later slice.  The
+domains batch the replica's crypto onto the device:
+
+- :class:`VerifierDomain` — RSA e=65537 verifies through the RNS verify
+  chain (kernel K1);
+- :class:`SignerDomain` — CRT signing, both halves of every signature as
+  rows of one RNS modexp launch (kernel K2), then the Boneh–DeMillo–
+  Lipton fault check as one more K1 launch plus a host spot check.
+
+Only ``backend="rns"`` exists in this slice; the limb and ``pallas``
+backends and EC keys raise ``NotImplementedError`` naming the slice that
+brings them.  On ``device="cuda"`` a kernel error propagates: it is
+never answered by the CPU or by another backend.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import logging
+import random
+import secrets
+import subprocess
+import threading
+from collections import OrderedDict
+from dataclasses import dataclass
+
+import numpy as np
+
+from bftkv_tpu_torch import device as devmod
+from bftkv_tpu_torch import flags
+from bftkv_tpu_torch.metrics import registry as metrics
+from bftkv_tpu_torch.ops import bigint, limb
+
+log = logging.getLogger("bftkv_tpu_torch.crypto.rsa")
+
+# DigestInfo prefix for SHA-256 (RFC 8017 §9.2 note 1).
+_SHA256_PREFIX = bytes.fromhex("3031300d060960864801650304020105000420")
+
+F4 = 65537
+
+
+class InvalidSignature(ValueError):
+    """The message cannot carry a PKCS#1 v1.5 signature of this size."""
+
+
+@dataclass
+class PublicKey:
+    n: int
+    e: int = F4
+
+    @property
+    def size_bytes(self) -> int:
+        return (self.n.bit_length() + 7) // 8
+
+
+@dataclass
+class PrivateKey:
+    n: int
+    e: int
+    d: int
+    p: int
+    q: int
+
+    @property
+    def public(self) -> PublicKey:
+        return PublicKey(n=self.n, e=self.e)
+
+    @property
+    def size_bytes(self) -> int:
+        return (self.n.bit_length() + 7) // 8
+
+
+# -- key generation -----------------------------------------------------------
+
+
+def generate(bits: int = 2048, *, seed: int | None = None) -> PrivateKey:
+    """Generate an RSA key (setup path, never hot).
+
+    With ``seed`` the key is drawn from ``random.Random(seed)`` and is
+    reproducible — for benchmarks and smoke runs, never for real keys.
+    Without it: the ``openssl`` CLI, else the pure-Python generator on
+    the ``secrets`` source.
+    """
+    if seed is not None:
+        return _generate_py(bits, random.Random(seed))
+    try:
+        return _generate_openssl(bits)
+    except (OSError, subprocess.SubprocessError, ValueError):
+        return _generate_py(bits, secrets.SystemRandom())
+
+
+def _der_tlv(data: bytes, off: int) -> tuple[bytes, int]:
+    """Value bytes of the TLV at ``off`` plus the offset just past it."""
+    if off + 2 > len(data):
+        raise ValueError("der: truncated")
+    length = data[off + 1]
+    off += 2
+    if length & 0x80:
+        nlen = length & 0x7F
+        if nlen == 0 or off + nlen > len(data):
+            raise ValueError("der: bad length")
+        length = int.from_bytes(data[off : off + nlen], "big")
+        off += nlen
+    if off + length > len(data):
+        raise ValueError("der: truncated value")
+    return data[off : off + length], off + length
+
+
+def _der_ints(data: bytes) -> list[int]:
+    """INTEGERs of one DER SEQUENCE (flat walk)."""
+    if not data or data[0] != 0x30:
+        raise ValueError("der: not a SEQUENCE")
+    body, _ = _der_tlv(data, 0)
+    out: list[int] = []
+    off = 0
+    while off < len(body):
+        tag = body[off]
+        val, off = _der_tlv(body, off)
+        if tag == 0x02:
+            out.append(int.from_bytes(val, "big"))
+    return out
+
+
+def _pem_der(pem: bytes, marker: bytes) -> bytes:
+    import base64
+
+    start = pem.index(b"-----BEGIN " + marker + b"-----")
+    end = pem.index(b"-----END " + marker + b"-----")
+    return base64.b64decode(b"".join(pem[start:end].splitlines()[1:]))
+
+
+def _generate_openssl(bits: int) -> PrivateKey:
+    pem = subprocess.run(
+        ["openssl", "genrsa", str(bits)],
+        capture_output=True, check=True, timeout=120,
+    ).stdout
+    if b"BEGIN RSA PRIVATE KEY" in pem:  # PKCS#1 (openssl 1.x)
+        der = _pem_der(pem, b"RSA PRIVATE KEY")
+    else:  # PKCS#8 (openssl 3.x): the key rides in an OCTET STRING
+        der = _pem_der(pem, b"PRIVATE KEY")
+        body, _ = _der_tlv(der, 0)
+        off = 0
+        while off < len(body):
+            tag = body[off]
+            val, off = _der_tlv(body, off)
+            if tag == 0x04:
+                der = val
+                break
+        else:
+            raise ValueError("pkcs8: no key octet string")
+    ints = _der_ints(der)  # version, n, e, d, p, q, dP, dQ, qInv
+    if len(ints) < 6:
+        raise ValueError("pkcs1: short key")
+    _v, n, e, d, p, q = ints[:6]
+    return PrivateKey(n=n, e=e, d=d, p=p, q=q)
+
+
+def _is_probable_prime(n: int, rng, rounds: int = 40) -> bool:
+    if n < 2:
+        return False
+    for sp in (2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37, 41, 43, 47):
+        if n % sp == 0:
+            return n == sp
+    d, r = n - 1, 0
+    while d % 2 == 0:
+        d //= 2
+        r += 1
+    for _ in range(rounds):
+        a = rng.randrange(2, n - 1)
+        x = pow(a, d, n)
+        if x in (1, n - 1):
+            continue
+        for _ in range(r - 1):
+            x = x * x % n
+            if x == n - 1:
+                break
+        else:
+            return False
+    return True
+
+
+def _gen_prime(bits: int, rng, avoid: int = 0) -> int:
+    while True:
+        p = rng.getrandbits(bits) | (1 << (bits - 1)) | (1 << (bits - 2)) | 1
+        if p != avoid and p % F4 != 1 and _is_probable_prime(p, rng):
+            return p
+
+
+def _generate_py(bits: int, rng) -> PrivateKey:
+    while True:
+        p = _gen_prime(bits // 2, rng)
+        q = _gen_prime(bits - bits // 2, rng, avoid=p)
+        n = p * q
+        if n.bit_length() != bits:
+            continue
+        try:
+            d = pow(F4, -1, (p - 1) * (q - 1))
+        except ValueError:
+            continue
+        return PrivateKey(n=n, e=F4, d=d, p=p, q=q)
+
+
+# -- PKCS#1 v1.5 and the host oracle ------------------------------------------
+
+
+def emsa_pkcs1v15_sha256(message: bytes, em_len: int) -> int:
+    """EMSA-PKCS1-v1_5 encoding of SHA-256(message), as an integer."""
+    t = _SHA256_PREFIX + hashlib.sha256(message).digest()
+    if em_len < len(t) + 11:
+        raise InvalidSignature("modulus too short for PKCS#1 v1.5 SHA-256")
+    em = b"\x00\x01" + b"\xff" * (em_len - len(t) - 3) + b"\x00" + t
+    return int.from_bytes(em, "big")
+
+
+def _crt_pow_d(c: int, key) -> int:
+    """``c^d mod n`` via CRT with host ``pow``."""
+    m1 = pow(c, key.d % (key.p - 1), key.p)
+    m2 = pow(c, key.d % (key.q - 1), key.q)
+    h = (pow(key.q, -1, key.p) * (m1 - m2)) % key.p
+    return m2 + h * key.q
+
+
+def sign(message: bytes, key) -> bytes:
+    """PKCS#1 v1.5 signature over SHA-256(message), CRT on the host."""
+    m = emsa_pkcs1v15_sha256(message, key.size_bytes)
+    return _crt_pow_d(m, key).to_bytes(key.size_bytes, "big")
+
+
+def verify_host(message: bytes, sig: bytes, key) -> bool:
+    """Host oracle verify (off the hot path, and the tests' reference)."""
+    s = int.from_bytes(sig, "big")
+    if s >= key.n:
+        return False
+    return pow(s, key.e, key.n) == emsa_pkcs1v15_sha256(message, key.size_bytes)
+
+
+def _is_ec(key) -> bool:
+    """The reference's algorithm rule (``crypto/cert.py::is_ec``)."""
+    return hasattr(key, "curve")
+
+
+def _backend(backend: str | None) -> str:
+    backend = backend or "rns"
+    if backend in ("limb", "pallas"):
+        raise NotImplementedError(
+            f"backend {backend!r} arrives with the limb-backend slice "
+            "(ROADMAP M7); this slice ports backend='rns' only"
+        )
+    if backend != "rns":
+        raise ValueError(f"unknown backend {backend!r}")
+    return backend
+
+
+def _no_ec() -> NotImplementedError:
+    return NotImplementedError(
+        "EC P-256 keys arrive with the EC slice (ROADMAP M8); "
+        "this slice ports RSA only"
+    )
+
+
+class SignerDomain:
+    """Batched PKCS#1 v1.5 signing on the device via CRT.
+
+    Each signature is two half-width modexps (mod p and mod q); both
+    halves of every signature ride in one RNS modexp launch, followed by
+    a host-side CRT recombination and the fault check.  Below
+    ``host_threshold`` items the host signs directly.
+    """
+
+    HOST_CROSSOVER = 16
+    _CACHE_MAX = 1024  # distinct private keys in one trust domain: few
+
+    def __init__(
+        self,
+        host_threshold: int | None = None,
+        backend: str | None = None,
+        *,
+        device=None,
+    ):
+        self.device = devmod.resolve(device)
+        if host_threshold is None:
+            host_threshold = int(
+                flags.raw("BFTKV_HOST_SIGN_THRESHOLD", self.HOST_CROSSOVER)
+            )
+        self.host_threshold = host_threshold
+        self.backend = _backend(backend)
+        self._doms: "OrderedDict[int, bool]" = OrderedDict()
+        self._crt: "OrderedDict[int, tuple[int, int, int]]" = OrderedDict()
+        self._lock = threading.Lock()
+
+    def _eligible(self, prime: int, nlimbs: int) -> bool:
+        """The reference's ``MontgomeryDomain`` check, LRU-cached."""
+        with self._lock:
+            ok = self._doms.get(prime)
+            if ok is not None:
+                self._doms.move_to_end(prime)
+                return ok
+        try:
+            bigint.MontgomeryDomain(prime, nlimbs)
+            ok = True
+        except ValueError:
+            ok = False
+        with self._lock:
+            self._doms[prime] = ok
+            if len(self._doms) > self._CACHE_MAX:
+                self._doms.popitem(last=False)
+        return ok
+
+    def _crt_params(self, key) -> tuple[int, int, int]:
+        with self._lock:
+            p = self._crt.get(key.n)
+            if p is not None:
+                self._crt.move_to_end(key.n)
+                return p
+        p = (key.d % (key.p - 1), key.d % (key.q - 1), pow(key.q, -1, key.p))
+        with self._lock:
+            self._crt[key.n] = p
+            if len(self._crt) > self._CACHE_MAX:
+                self._crt.popitem(last=False)
+        return p
+
+    def _sign_group_rns(self, w: int, group: list, out: list) -> bool:
+        """One RNS modexp launch for a width group.  Returns False
+        (leaving ``out`` untouched) when a modulus cannot take the RNS
+        path; kernel errors propagate."""
+        from bftkv_tpu_torch.ops import rns as rns_ops
+
+        bases: list[int] = []
+        exps: list[int] = []
+        mods: list[int] = []
+        for _i, key, m, dp, dq, _qinv in group:
+            bases += [m, m]
+            exps += [dp, dq]
+            mods += [key.p, key.q]
+        vals = rns_ops.power_mod_rns(
+            bases, exps, mods, n_bits=w * 16, device=self.device
+        )
+        if vals is None:
+            return False
+        metrics.incr("sign.device", len(group))
+        sigs: list[tuple[int, object, int]] = []  # (item idx, key, s)
+        for j, (i, key, m, _dp, _dq, qinv) in enumerate(group):
+            m1, m2 = vals[2 * j], vals[2 * j + 1]
+            h = (qinv * (m1 - m2)) % key.p
+            sigs.append((i, key, m2 + h * key.q))
+        # Fault check (Boneh–DeMillo–Lipton): one silently wrong CRT half
+        # would let any observer factor the modulus via gcd(s^e − em, n).
+        # Verify every output before release and re-sign faulted items
+        # on the host.
+        ok = self._fault_check(sigs, group)
+        for (i, key, s), good, g in zip(sigs, ok, group):
+            if good:
+                out[i] = s.to_bytes(key.size_bytes, "big")
+            else:
+                metrics.incr("sign.fault")
+                log.error("RNS sign fault check failed; re-signing on host")
+                # Straight pow, no CRT: the most fault-immune route.
+                out[i] = pow(g[2], key.d, key.n).to_bytes(key.size_bytes, "big")
+        return True
+
+    def _fault_check(self, sigs: list, group: list) -> list[bool]:
+        """s^65537 ≡ em (mod n) for every produced signature, as one RNS
+        verify launch where the moduli allow, host ``pow`` otherwise."""
+        from bftkv_tpu_torch.ops import rns as rns_ops
+
+        ems = [g[2] for g in group]
+        ctx = rns_ops.context()
+        unique: dict[int, int] = {}
+        urows: list = []
+        idxs: list[int] = []
+        dig_s: list[np.ndarray] = []
+        dig_em: list[np.ndarray] = []
+        device_pos: list[int] = []
+        ok = [False] * len(sigs)
+        for pos, ((_i, key, s), em) in enumerate(zip(sigs, ems)):
+            kr = ctx.key_rows(key.n) if key.e == F4 else None
+            if kr is None:
+                ok[pos] = pow(s, key.e, key.n) == em
+                continue
+            u = unique.get(key.n)
+            if u is None:
+                u = unique[key.n] = len(urows)
+                urows.append(kr)
+            idxs.append(u)
+            dig_s.append(limb.int_to_limbs(s, 128))
+            dig_em.append(limb.int_to_limbs(em, 128))
+            device_pos.append(pos)
+        if device_pos:
+            k = len(device_pos)
+            padded = max(256, 1 << (k - 1).bit_length())
+            idxs += [0] * (padded - k)
+            dig_s += [np.zeros(128, dtype=np.uint32)] * (padded - k)
+            dig_em += [dig_em[0]] * (padded - k)
+            kpad = max(64, 1 << (len(urows) - 1).bit_length())
+            urows += [urows[0]] * (kpad - len(urows))
+            good = rns_ops.verify_e65537_rns_indexed(
+                np.stack(dig_s), np.stack(dig_em), idxs,
+                rns_ops.stack_key_rows(urows), device=self.device,
+            ).cpu().numpy()[:k]
+            for pos, g in zip(device_pos, good):
+                ok[pos] = bool(g)
+            # The check shares the device with the sign it polices; spot
+            # check one random item per batch on the host, so a
+            # correlated device defect cannot stay hidden.
+            spot = device_pos[secrets.randbelow(len(device_pos))]
+            _i, skey, sval = sigs[spot]
+            host_ok = pow(sval, skey.e, skey.n) == ems[spot]
+            if host_ok != ok[spot]:
+                metrics.incr("sign.fault_check_divergence")
+                log.error("device fault check diverged from host spot check")
+                ok[spot] = ok[spot] and host_ok
+        return ok
+
+    def sign_batch(self, items: list[tuple[bytes, "PrivateKey"]]) -> list[bytes]:
+        """[(message, key)] → [signature bytes], batched on the device."""
+        out: list[bytes | None] = [None] * len(items)
+        by_width: dict[int, list] = {}
+        host_idx: list[int] = []
+        if any(_is_ec(key) for _m, key in items):
+            raise _no_ec()
+        if len(items) < self.host_threshold:
+            host_idx = list(range(len(items)))
+        else:
+            for i, (message, key) in enumerate(items):
+                w = max(
+                    limb.nlimbs_for_bits(key.p.bit_length()),
+                    limb.nlimbs_for_bits(key.q.bit_length()),
+                )
+                if not (self._eligible(key.p, w) and self._eligible(key.q, w)):
+                    host_idx.append(i)
+                    continue
+                m = emsa_pkcs1v15_sha256(message, key.size_bytes)
+                dp, dq, qinv = self._crt_params(key)
+                by_width.setdefault(w, []).append((i, key, m, dp, dq, qinv))
+        for w, group in by_width.items():
+            if not self._sign_group_rns(w, group, out):
+                # A modulus the RNS bases cannot take (shares a channel
+                # prime): the host signs the group, as for ineligible keys.
+                host_idx += [g[0] for g in group]
+        for i in host_idx:
+            out[i] = sign(items[i][0], items[i][1])
+        if host_idx:
+            metrics.incr("sign.host", len(host_idx))
+        return out  # type: ignore[return-value]
+
+
+class VerifierDomain:
+    """Batched RSA e=65537 verification on the device.
+
+    Keys that cannot ride the device path — another exponent, a hostile
+    modulus (even, too wide, or sharing a factor with a channel prime),
+    or a signature ≥ n — are checked by the host oracle and fail closed;
+    they never raise out of the verification path.
+    """
+
+    _CACHE_MAX = 4096  # moduli are attacker-influenced (embedded certs)
+
+    #: Below this many items a batch verifies on host (0 forces every
+    #: item through the kernel: tests, profiling).
+    HOST_CROSSOVER = 192
+
+    def __init__(
+        self,
+        nlimbs: int = 128,
+        host_threshold: int | None = None,
+        backend: str | None = None,
+        *,
+        device=None,
+    ):
+        self.device = devmod.resolve(device)
+        self.nlimbs = nlimbs
+        if host_threshold is None:
+            host_threshold = int(
+                flags.raw("BFTKV_HOST_VERIFY_THRESHOLD", self.HOST_CROSSOVER)
+            )
+        self.host_threshold = host_threshold
+        self.backend = _backend(backend)
+        self._cache: "OrderedDict[int, bool]" = OrderedDict()
+        self._cache_lock = threading.Lock()
+
+    def _eligible(self, n: int) -> bool:
+        """``MontgomeryDomain(n, nlimbs)`` succeeds — LRU-bounded, since
+        hostile packets can embed arbitrary fresh moduli."""
+        with self._cache_lock:
+            ok = self._cache.get(n)
+            if ok is not None:
+                self._cache.move_to_end(n)
+                return ok
+        try:
+            bigint.MontgomeryDomain(n, self.nlimbs)
+            ok = True
+        except ValueError:
+            ok = False
+        with self._cache_lock:
+            self._cache[n] = ok
+            if len(self._cache) > self._CACHE_MAX:
+                self._cache.popitem(last=False)
+        return ok
+
+    def verify_batch(self, items: list[tuple[bytes, bytes, PublicKey]]) -> np.ndarray:
+        """[(message, sig, key)] → (batch,) bool."""
+        out = np.zeros((len(items),), dtype=bool)
+        device_idx: list[int] = []
+        device_items: list[tuple[bytes, bytes, PublicKey]] = []
+        for i, (message, sig_bytes, key) in enumerate(items):
+            if _is_ec(key):
+                raise _no_ec()
+            # 512-bit floor keeps the PKCS#1 encoding well-defined.
+            if key.e == F4 and key.n.bit_length() >= 512 and self._eligible(key.n):
+                device_idx.append(i)
+                device_items.append((message, sig_bytes, key))
+            else:
+                # Host oracle for odd exponents; fails closed on junk keys.
+                try:
+                    out[i] = key.n > 0 and verify_host(message, sig_bytes, key)
+                except (ValueError, ZeroDivisionError):
+                    out[i] = False
+        if device_items and len(device_items) < self.host_threshold:
+            metrics.incr("verify.host", len(device_items))
+            for j, (message, sig_bytes, key) in zip(device_idx, device_items):
+                out[j] = verify_host(message, sig_bytes, key)
+        elif device_items:
+            self._verify_rns(device_idx, device_items, out)
+        return out
+
+    def _verify_rns(self, device_idx, device_items, out) -> None:
+        """RNS device path with per-item host fallback for incapable keys.
+        Key rows are deduplicated on the host and gathered on the device."""
+        from bftkv_tpu_torch.ops import rns
+
+        ctx = rns.context()
+        unique: dict[int, int] = {}
+        urows: list = []
+        idxs, digit_rows, em_rows, keep_idx = [], [], [], []
+        for j, (message, sig_bytes, key) in zip(device_idx, device_items):
+            kr = ctx.key_rows(key.n)
+            s = int.from_bytes(sig_bytes, "big")
+            if kr is None or s >= key.n:
+                # Hostile modulus (or oversized sig): host oracle, failing
+                # closed on junk.
+                metrics.incr("verify.host")
+                try:
+                    out[j] = s < key.n and verify_host(message, sig_bytes, key)
+                except (ValueError, ZeroDivisionError):
+                    out[j] = False
+                continue
+            u = unique.get(key.n)
+            if u is None:
+                u = unique[key.n] = len(urows)
+                urows.append(kr)
+            idxs.append(u)
+            digit_rows.append(limb.int_to_limbs(s, 128))
+            em_rows.append(
+                limb.int_to_limbs(emsa_pkcs1v15_sha256(message, key.size_bytes), 128)
+            )
+            keep_idx.append(j)
+        if not idxs:
+            return
+        k = len(idxs)
+        metrics.incr("verify.device", k)
+        # Power-of-two buckets (floor 256), padding with row 0's key and
+        # sig digits of 0 — 0^e never equals a PKCS#1 encoding.
+        padded = max(256, 1 << (k - 1).bit_length())
+        for _ in range(padded - k):
+            idxs.append(0)
+            digit_rows.append(np.zeros(128, dtype=np.uint32))
+            em_rows.append(em_rows[0])
+        # Unique-key axis padded to a floor of 64, as the reference does.
+        kpad = max(64, 1 << (len(urows) - 1).bit_length())
+        urows += [urows[0]] * (kpad - len(urows))
+        with metrics.timer("verify.launch"):
+            ok = rns.verify_e65537_rns_indexed(
+                np.stack(digit_rows), np.stack(em_rows), idxs,
+                rns.stack_key_rows(urows), device=self.device,
+            ).cpu().numpy()[:k]
+        out[np.asarray(keep_idx)] = ok

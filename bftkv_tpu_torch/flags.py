@@ -1,0 +1,85 @@
+"""The port's registry of the ``BFTKV_*`` environment flags it reads.
+
+Same seam as ``bftkv_tpu/flags.py`` (:func:`raw`, :func:`get`,
+:func:`enabled`): every read goes through here, and reading an
+undeclared name raises ``KeyError``, so a flag cannot ship
+undocumented.  The port keeps its own registry because the reference's
+raises on names it does not declare and declares many the port does not
+read yet; each later slice adds the names it starts to read.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import NamedTuple
+
+__all__ = ["Flag", "FLAGS", "declared", "enabled", "get", "raw"]
+
+
+class Flag(NamedTuple):
+    name: str
+    default: str | None  # None = unset (the call site's fallback applies)
+    kind: str  # "switch" | "str" | "int"
+    doc: str
+
+
+FLAGS: dict[str, Flag] = {}
+
+
+def _flag(name: str, default: str | None, kind: str, doc: str) -> None:
+    if not name.startswith("BFTKV_") or name in FLAGS:
+        raise ValueError(f"bad or duplicate flag declaration {name!r}")
+    FLAGS[name] = Flag(name, default, kind, doc)
+
+
+_flag("BFTKV_HOST_VERIFY_THRESHOLD", None, "int",
+      "Batch size below which verifies stay on host (unset: "
+      "VerifierDomain.HOST_CROSSOVER, or the dispatcher's calibration).")
+_flag("BFTKV_HOST_SIGN_THRESHOLD", None, "int",
+      "Batch size below which signs stay on host (unset: "
+      "SignerDomain.HOST_CROSSOVER, or the dispatcher's calibration).")
+_flag("BFTKV_DISPATCH_CROSSOVER", None, "int",
+      "Operator override for the host/device verify crossover batch size "
+      "(0 or negative pins always-host; unset: measured by calibration).")
+
+
+def _check(name: str) -> Flag:
+    f = FLAGS.get(name)
+    if f is None:
+        raise KeyError(
+            f"undeclared BFTKV flag {name!r}: declare it in "
+            "bftkv_tpu_torch/flags.py before reading it"
+        )
+    return f
+
+
+def declared() -> dict[str, Flag]:
+    """Name → :class:`Flag` for every declared flag."""
+    return dict(FLAGS)
+
+
+def raw(name: str, default: str | None = None) -> str | None:
+    """The raw environment value, or ``default`` when unset."""
+    _check(name)
+    v = os.environ.get(name)
+    return default if v is None else v
+
+
+def get(name: str) -> str | None:
+    """Environment value, falling back to the registry default."""
+    f = _check(name)
+    v = os.environ.get(name)
+    return f.default if v is None else v
+
+
+def enabled(name: str, default: str | None = None) -> bool:
+    """Switch semantics of the reference: a set value is on unless it
+    lowercases to ``off``/``0``/``false``; unset falls back to
+    ``default``, then to the registry default (empty means off)."""
+    f = _check(name)
+    v = os.environ.get(name)
+    if v is None:
+        v = default if default is not None else (f.default or "")
+        if v == "":
+            return False
+    return v.lower() not in ("off", "0", "false")
