@@ -32,32 +32,32 @@ _I = ctypes.c_int
 _LAUNCH_ARGS = [_P, _P, _P, _I, _I] + [_P] * 6 + [_P] * 5 + [_P] * 3 + [_I] * 4 + [_P, _P]
 
 
-def library(verbose: bool = False) -> ctypes.CDLL:
+def library() -> ctypes.CDLL:
     """The loaded kernel library, built on the first call."""
     global _lib
     with _lock:
         if _lib is None:
-            _lib = _load(verbose)
+            _lib = _load()
         return _lib
 
 
-def _load(verbose: bool) -> ctypes.CDLL:
+def _load() -> ctypes.CDLL:
     from torch.utils import cpp_extension
 
     os.makedirs(BUILD_DIR, exist_ok=True)
-    flags = CUDA_FLAGS + (["-Xptxas=-v"] if verbose else [])
     path = cpp_extension.load(
         name="bftkv_rns_chain",
         sources=SOURCES,
-        extra_cuda_cflags=flags,
+        extra_cuda_cflags=CUDA_FLAGS,
         build_directory=BUILD_DIR,
         is_python_module=False,
-        verbose=verbose,
     )
     lib = ctypes.CDLL(path)
     for fn in (lib.rns_verify_launch, lib.rns_pow_launch):
         fn.argtypes = _LAUNCH_ARGS
         fn.restype = ctypes.c_int
+    lib.rns_kernel_attrs.argtypes = [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+    lib.rns_kernel_attrs.restype = ctypes.c_int
     lib.rns_error_string.argtypes = [ctypes.c_int]
     lib.rns_error_string.restype = ctypes.c_char_p
     return lib

@@ -10,7 +10,7 @@
 // _pow_kernel, bit for bit.  Residues are canonical integers in [0, p) with
 // p < 2^12, so exact uint32 arithmetic gives the same values as the
 // reference's f32 Barrett: a product of two residues is < 2^24, and a base
-// extension sum over k <= 256 channels of such products is < 2^32 (k = 188
+// extension sum over k <= 255 channels of such products is < 2^32 (k = 188
 // gives at most 3.15e9), so the kernels accumulate Sigma sigma_i * E[i][j]
 // directly in uint32 and reduce once, with no 6-bit split.
 //
@@ -511,6 +511,18 @@ int rns_pow_launch(const uint8_t* base_h, const uint8_t* nib_t, const int32_t* i
   const size_t smem = Smem<kPowRows>::bytes(k, digits, true);
   return (int)launch(rns_pow_kernel<kPowRows>, T, n_keys, kPowRows, k, smem,
                      (cudaStream_t)stream, base_h, nib_t, idx, key, cc, sigma_out);
+}
+
+// Registers and local-memory bytes (spills and stack) per thread of a kernel
+// as compiled: which = 0 for K1, 1 for K2.  Returns a cudaError_t value.
+int rns_kernel_attrs(int which, int* regs, int* local_bytes) {
+  cudaFuncAttributes a;
+  cudaError_t err = which == 0 ? cudaFuncGetAttributes(&a, rns_verify_kernel<kVerifyRows>)
+                               : cudaFuncGetAttributes(&a, rns_pow_kernel<kPowRows>);
+  if (err != cudaSuccess) return (int)err;
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
+  return 0;
 }
 
 const char* rns_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -20,6 +20,7 @@ them — it runs the plain PyTorch version in
 
 from __future__ import annotations
 
+import ctypes
 import threading
 
 import torch
@@ -27,7 +28,7 @@ import torch
 from bftkv_tpu_torch.ops import _build
 from bftkv_tpu_torch.ops import rns
 
-__all__ = ["LAUNCHES", "pow_cuda", "reset_launches", "verify_cuda"]
+__all__ = ["LAUNCHES", "kernel_attrs", "pow_cuda", "reset_launches", "verify_cuda"]
 
 #: Kernel launches per wrapper ("verify" = K1, "pow" = K2).
 LAUNCHES = {"verify": 0, "pow": 0}
@@ -38,6 +39,21 @@ def reset_launches() -> None:
     with _count_lock:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
+
+
+def kernel_attrs() -> dict[str, dict[str, int]]:
+    """Registers and local-memory bytes per thread of each kernel as built."""
+    lib = _build.library()
+    out = {}
+    for which, name in enumerate(LAUNCHES):
+        regs, local = ctypes.c_int(), ctypes.c_int()
+        rc = lib.rns_kernel_attrs(which, ctypes.byref(regs), ctypes.byref(local))
+        if rc != 0:
+            raise RuntimeError(
+                f"rns {name} kernel attributes: {lib.rns_error_string(rc).decode()} ({rc})"
+            )
+        out[name] = {"registers": regs.value, "local_bytes": local.value}
+    return out
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, dev) -> None:

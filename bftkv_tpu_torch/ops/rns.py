@@ -60,6 +60,9 @@ PR_BITS = 12
 PR = 1 << PR_BITS  # redundant modulus (power of two)
 _PR_MASK = PR - 1
 DIGITS = 128  # 16-bit digits per 2048-bit number
+# Largest context the CUDA kernels take (csrc/rns_chain.cu::bad_shape).
+MAX_CHANNELS = 255
+MAX_DIGITS = 256
 
 
 def _gen_primes(lo: int, hi: int) -> list[int]:
@@ -236,10 +239,10 @@ class _Consts:
         k = len(np.asarray(arrays["invMi_b"]))
         if p_all.shape != (2 * k,):
             raise ValueError(f"p_all shape {p_all.shape} != ({2 * k},)")
-        if k > 256:
-            # Σ over k terms of 12-bit products must stay below 2^32
-            # (the CUDA kernels accumulate in uint32).
-            raise ValueError(f"k={k} channels exceeds 256")
+        if k > MAX_CHANNELS:
+            # The CUDA kernels run k + 1 channel threads in a block of at
+            # most 256, and accumulate Σ over k 12-bit products in uint32.
+            raise ValueError(f"k={k} channels exceeds {MAX_CHANNELS}")
 
         def plane(name):
             lo, hi = arrays[name]
@@ -250,6 +253,8 @@ class _Consts:
             raise ValueError("extension matrices must be (k, k+1)")
         if D.shape[1] != 2 * k + 1 or D.shape[0] % 2:
             raise ValueError("conversion matrix must be (2·digits, 2k+1)")
+        if D.shape[0] // 2 > MAX_DIGITS:
+            raise ValueError(f"{D.shape[0] // 2} digits exceeds {MAX_DIGITS}")
         self.k = k
         self.digits = D.shape[0] // 2
         self.device = device

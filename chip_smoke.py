@@ -437,6 +437,9 @@ def main() -> int:
     )
     k1["phase_launches"] = {"verify": v_launch["verify"], "sign": s_launch["verify"]}
     k2["phase_launches"] = {"verify": v_launch["pow"], "sign": s_launch["pow"]}
+    attrs = cuda_rns.kernel_attrs()  # registers / local bytes per thread, as built
+    k1.update(attrs["verify"])
+    k2.update(attrs["pow"])
     print(json.dumps({
         "kernels": [k1, k2],
         "not_yet_ported": [{

@@ -19,7 +19,7 @@ import torch
 
 from bftkv_tpu_torch.crypto import rsa
 from bftkv_tpu_torch.ops import cuda_rns, limb, rns
-from torch_utils import moduli as _moduli
+from test_torch_utils import moduli as _moduli
 
 pytestmark = pytest.mark.cuda
 

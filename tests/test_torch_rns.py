@@ -24,8 +24,8 @@ from bftkv_tpu.ops import bigint as ref_bigint
 from bftkv_tpu.ops import limb as ref_limb
 from bftkv_tpu.ops import rns as ref_rns
 from bftkv_tpu_torch.ops import bigint, cuda_rns, limb, rns
-from torch_utils import moduli as _moduli
-from torch_utils import one_torch_thread  # noqa: F401  (fixture)
+from test_torch_utils import moduli as _moduli
+from test_torch_utils import one_torch_thread  # noqa: F401  (fixture)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -256,3 +256,13 @@ def test_consts_from_numpy_validates_arrays():
         rns.consts_from_numpy({k: v for k, v in arrays.items() if k != "_D"}, "cpu")
     with pytest.raises(ValueError):
         rns.key_rows_from_numpy((np.full((2, 3), 0.5, np.float32),) * 6, "cpu")
+
+
+def test_consts_refuse_contexts_the_kernels_do_not_take():
+    k = rns.MAX_CHANNELS + 1
+    p_all = np.arange(3, 3 + 4 * k, 2, dtype=np.float32)
+    arrays = {name: np.zeros(1, np.float32) for name in rns.CONTEXT_ARRAYS}
+    arrays.update(p_all=p_all, inv_all=np.float32(1.0) / p_all,
+                  invMi_b=np.ones(k, np.float32))
+    with pytest.raises(ValueError, match=f"k={k} channels exceeds {rns.MAX_CHANNELS}"):
+        rns.consts_from_numpy(arrays, "cpu")

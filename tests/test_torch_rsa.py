@@ -15,7 +15,7 @@ from bftkv_tpu.crypto import rsa as ref_rsa
 from bftkv_tpu_torch.crypto import rsa
 from bftkv_tpu_torch.metrics import registry as metrics
 from bftkv_tpu_torch.ops import rns
-from torch_utils import one_torch_thread  # noqa: F401  (fixture)
+from test_torch_utils import one_torch_thread  # noqa: F401  (fixture)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
