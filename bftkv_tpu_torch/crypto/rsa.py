@@ -5,16 +5,20 @@ v1.5 encoding, host signing and the host verify oracle are host Python
 (``pow``); the native modexp loader waits for a later slice.  The
 domains batch the replica's crypto onto the device:
 
-- :class:`VerifierDomain` — RSA e=65537 verifies through the RNS verify
-  chain (kernel K1);
+- :class:`VerifierDomain` — RSA e=65537 verifies, by backend: ``rns``
+  (default) through the RNS verify chain (kernel K1), ``limb`` through
+  the limb Montgomery engine (PyTorch ops, :mod:`ops.rsa`), ``pallas``
+  through the limb chain as kernel K3 (:mod:`ops.cuda_mont`);
 - :class:`SignerDomain` — CRT signing, both halves of every signature as
-  rows of one RNS modexp launch (kernel K2), then the Boneh–DeMillo–
-  Lipton fault check as one more K1 launch plus a host spot check.
+  rows of one modexp launch: ``rns`` (default) on kernel K2, ``limb`` on
+  the limb engine's ``power_batch``; then the Boneh–DeMillo–Lipton fault
+  check as one more K1 launch plus a host spot check.
 
-Only ``backend="rns"`` exists in this slice; the limb and ``pallas``
-backends and EC keys raise ``NotImplementedError`` naming the slice that
-brings them.  On ``device="cuda"`` a kernel error propagates: it is
-never answered by the CPU or by another backend.
+``BFTKV_VERIFY_BACKEND`` / ``BFTKV_SIGN_BACKEND`` pick the backend when
+the caller names none, as in the reference.  EC keys raise
+``NotImplementedError`` naming the slice that brings them.  On
+``device="cuda"`` a kernel error propagates: it is never answered by the
+CPU or by another backend.
 """
 
 from __future__ import annotations
@@ -29,11 +33,13 @@ from collections import OrderedDict
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from bftkv_tpu_torch import device as devmod
 from bftkv_tpu_torch import flags
 from bftkv_tpu_torch.metrics import registry as metrics
-from bftkv_tpu_torch.ops import bigint, limb
+from bftkv_tpu_torch.ops import bigint, cuda_mont, limb
+from bftkv_tpu_torch.ops import rsa as rsa_ops
 
 log = logging.getLogger("bftkv_tpu_torch.crypto.rsa")
 
@@ -243,15 +249,12 @@ def _is_ec(key) -> bool:
     return hasattr(key, "curve")
 
 
-def _backend(backend: str | None) -> str:
-    backend = backend or "rns"
-    if backend in ("limb", "pallas"):
-        raise NotImplementedError(
-            f"backend {backend!r} arrives with the limb-backend slice "
-            "(ROADMAP M7); this slice ports backend='rns' only"
-        )
-    if backend != "rns":
-        raise ValueError(f"unknown backend {backend!r}")
+def _backend(backend: str | None, flag: str, allowed: tuple[str, ...]) -> str:
+    """The caller's backend, else the flag's value (default ``rns``), as
+    the reference's domains read it."""
+    backend = backend or flags.raw(flag, "rns")
+    if backend not in allowed:
+        raise ValueError(f"unknown backend {backend!r} (one of {', '.join(allowed)})")
     return backend
 
 
@@ -266,9 +269,12 @@ class SignerDomain:
     """Batched PKCS#1 v1.5 signing on the device via CRT.
 
     Each signature is two half-width modexps (mod p and mod q); both
-    halves of every signature ride in one RNS modexp launch, followed by
-    a host-side CRT recombination and the fault check.  Below
-    ``host_threshold`` items the host signs directly.
+    halves of every signature ride as rows of one modexp launch — the RNS
+    kernel K2 (``backend="rns"``) or the limb engine's ``power_batch``
+    (``backend="limb"``, and RNS groups whose moduli the bases decline) —
+    followed by a host-side CRT recombination and the fault check.  Below
+    ``host_threshold`` items, and for keys no Montgomery domain takes,
+    the host signs directly.
     """
 
     HOST_CROSSOVER = 16
@@ -287,28 +293,10 @@ class SignerDomain:
                 flags.raw("BFTKV_HOST_SIGN_THRESHOLD", self.HOST_CROSSOVER)
             )
         self.host_threshold = host_threshold
-        self.backend = _backend(backend)
-        self._doms: "OrderedDict[int, bool]" = OrderedDict()
+        self.backend = _backend(backend, "BFTKV_SIGN_BACKEND", ("rns", "limb"))
+        self._doms = bigint.DomainCache(self._CACHE_MAX)
         self._crt: "OrderedDict[int, tuple[int, int, int]]" = OrderedDict()
         self._lock = threading.Lock()
-
-    def _eligible(self, prime: int, nlimbs: int) -> bool:
-        """The reference's ``MontgomeryDomain`` check, LRU-cached."""
-        with self._lock:
-            ok = self._doms.get(prime)
-            if ok is not None:
-                self._doms.move_to_end(prime)
-                return ok
-        try:
-            bigint.MontgomeryDomain(prime, nlimbs)
-            ok = True
-        except ValueError:
-            ok = False
-        with self._lock:
-            self._doms[prime] = ok
-            if len(self._doms) > self._CACHE_MAX:
-                self._doms.popitem(last=False)
-        return ok
 
     def _crt_params(self, key) -> tuple[int, int, int]:
         with self._lock:
@@ -332,7 +320,7 @@ class SignerDomain:
         bases: list[int] = []
         exps: list[int] = []
         mods: list[int] = []
-        for _i, key, m, dp, dq, _qinv in group:
+        for _i, key, m, _domp, _domq, dp, dq, _qinv in group:
             bases += [m, m]
             exps += [dp, dq]
             mods += [key.p, key.q]
@@ -341,9 +329,34 @@ class SignerDomain:
         )
         if vals is None:
             return False
+        self._finish_group(group, vals, out)
+        return True
+
+    def _sign_group_limb(self, w: int, group: list, out: list) -> None:
+        """One limb ``power_batch`` for a width group: rows are the CRT
+        halves with their own modulus, padded to a power of two (floor
+        32) with copies of row 0, as the reference pads."""
+        rows = []  # (base, exponent, domain) per CRT half
+        for _i, key, m, domp, domq, dp, dq, _qinv in group:
+            rows += [(m % key.p, dp, domp), (m % key.q, dq, domq)]
+        k = len(rows)
+        rows += [rows[0]] * (max(32, 1 << (k - 1).bit_length()) - k)
+        res = rsa_ops.power_batch(
+            limb.ints_to_limbs([b for b, _e, _d in rows], w),
+            limb.ints_to_limbs([e for _b, e, _d in rows], w),
+            np.stack([d.n for _b, _e, d in rows]),
+            np.stack([d.n_prime for _b, _e, d in rows]),
+            np.stack([d.r2 for _b, _e, d in rows]),
+            np.stack([d.one_mont for _b, _e, d in rows]),
+            device=self.device,
+        )
+        self._finish_group(group, limb.limbs_to_ints(res[:k].cpu().numpy()), out)
+
+    def _finish_group(self, group: list, vals: list[int], out: list) -> None:
+        """CRT recombination of the device's halves, then the fault check."""
         metrics.incr("sign.device", len(group))
         sigs: list[tuple[int, object, int]] = []  # (item idx, key, s)
-        for j, (i, key, m, _dp, _dq, qinv) in enumerate(group):
+        for j, (i, key, m, _domp, _domq, _dp, _dq, qinv) in enumerate(group):
             m1, m2 = vals[2 * j], vals[2 * j + 1]
             h = (qinv * (m1 - m2)) % key.p
             sigs.append((i, key, m2 + h * key.q))
@@ -357,10 +370,9 @@ class SignerDomain:
                 out[i] = s.to_bytes(key.size_bytes, "big")
             else:
                 metrics.incr("sign.fault")
-                log.error("RNS sign fault check failed; re-signing on host")
+                log.error("%s sign fault check failed; re-signing on host", self.backend)
                 # Straight pow, no CRT: the most fault-immune route.
                 out[i] = pow(g[2], key.d, key.n).to_bytes(key.size_bytes, "big")
-        return True
 
     def _fault_check(self, sigs: list, group: list) -> list[bool]:
         """s^65537 ≡ em (mod n) for every produced signature, as one RNS
@@ -430,17 +442,19 @@ class SignerDomain:
                     limb.nlimbs_for_bits(key.p.bit_length()),
                     limb.nlimbs_for_bits(key.q.bit_length()),
                 )
-                if not (self._eligible(key.p, w) and self._eligible(key.q, w)):
+                domp, domq = self._doms.get(key.p, w), self._doms.get(key.q, w)
+                if domp is None or domq is None:
                     host_idx.append(i)
                     continue
                 m = emsa_pkcs1v15_sha256(message, key.size_bytes)
                 dp, dq, qinv = self._crt_params(key)
-                by_width.setdefault(w, []).append((i, key, m, dp, dq, qinv))
+                by_width.setdefault(w, []).append((i, key, m, domp, domq, dp, dq, qinv))
         for w, group in by_width.items():
-            if not self._sign_group_rns(w, group, out):
-                # A modulus the RNS bases cannot take (shares a channel
-                # prime): the host signs the group, as for ineligible keys.
-                host_idx += [g[0] for g in group]
+            if self.backend == "rns" and self._sign_group_rns(w, group, out):
+                continue
+            # backend="limb", or a modulus the RNS bases cannot take
+            # (shares a channel prime): the limb engine signs the group.
+            self._sign_group_limb(w, group, out)
         for i in host_idx:
             out[i] = sign(items[i][0], items[i][1])
         if host_idx:
@@ -451,10 +465,12 @@ class SignerDomain:
 class VerifierDomain:
     """Batched RSA e=65537 verification on the device.
 
-    Keys that cannot ride the device path — another exponent, a hostile
-    modulus (even, too wide, or sharing a factor with a channel prime),
-    or a signature ≥ n — are checked by the host oracle and fail closed;
-    they never raise out of the verification path.
+    Keys that cannot ride the device path — another exponent, or a hostile
+    modulus (even, too wide, or, on ``rns``, sharing a factor with a
+    channel prime) — are checked by the host oracle and fail closed; they
+    never raise out of the verification path.  On ``rns`` a signature
+    ≥ n also goes to the host; the limb backends carry it as s = 0,
+    which never verifies, as the reference does.
     """
 
     _CACHE_MAX = 4096  # moduli are attacker-influenced (embedded certs)
@@ -478,28 +494,36 @@ class VerifierDomain:
                 flags.raw("BFTKV_HOST_VERIFY_THRESHOLD", self.HOST_CROSSOVER)
             )
         self.host_threshold = host_threshold
-        self.backend = _backend(backend)
-        self._cache: "OrderedDict[int, bool]" = OrderedDict()
-        self._cache_lock = threading.Lock()
+        self.backend = _backend(
+            backend, "BFTKV_VERIFY_BACKEND", ("rns", "limb", "pallas")
+        )
+        if self.backend == "pallas" and nlimbs != cuda_mont.L:
+            raise ValueError(
+                f"backend 'pallas' verifies 2048-bit moduli only "
+                f"(nlimbs={cuda_mont.L}), not nlimbs={nlimbs}"
+            )
+        self._doms = bigint.DomainCache(self._CACHE_MAX)
 
-    def _eligible(self, n: int) -> bool:
-        """``MontgomeryDomain(n, nlimbs)`` succeeds — LRU-bounded, since
-        hostile packets can embed arbitrary fresh moduli."""
-        with self._cache_lock:
-            ok = self._cache.get(n)
-            if ok is not None:
-                self._cache.move_to_end(n)
-                return ok
-        try:
-            bigint.MontgomeryDomain(n, self.nlimbs)
-            ok = True
-        except ValueError:
-            ok = False
-        with self._cache_lock:
-            self._cache[n] = ok
-            if len(self._cache) > self._CACHE_MAX:
-                self._cache.popitem(last=False)
-        return ok
+    def assemble(self, items: list[tuple[bytes, bytes, PublicKey]]) -> tuple[np.ndarray, ...]:
+        """items = [(message, sig, key)] → the (batch, nlimbs) digit arrays
+        sig, em, n, n′, r2 of the limb backends.
+
+        Every key must have e = 65537 and a Montgomery-compatible modulus
+        (``verify_batch`` pre-filters; direct callers own that check).
+        """
+        sigs, ems, ns, nps, r2s = [], [], [], [], []
+        for message, sig_bytes, key in items:
+            dom = self._doms.get(key.n, self.nlimbs)
+            s = int.from_bytes(sig_bytes, "big")
+            if s >= key.n:
+                s = 0  # forces a mismatch; keeps shapes static
+            em = emsa_pkcs1v15_sha256(message, key.size_bytes)
+            sigs.append(limb.int_to_limbs(s, self.nlimbs))
+            ems.append(limb.int_to_limbs(em, self.nlimbs))
+            ns.append(dom.n)
+            nps.append(dom.n_prime)
+            r2s.append(dom.r2)
+        return tuple(np.stack(a) for a in (sigs, ems, ns, nps, r2s))
 
     def verify_batch(self, items: list[tuple[bytes, bytes, PublicKey]]) -> np.ndarray:
         """[(message, sig, key)] → (batch,) bool."""
@@ -510,7 +534,8 @@ class VerifierDomain:
             if _is_ec(key):
                 raise _no_ec()
             # 512-bit floor keeps the PKCS#1 encoding well-defined.
-            if key.e == F4 and key.n.bit_length() >= 512 and self._eligible(key.n):
+            if (key.e == F4 and key.n.bit_length() >= 512
+                    and self._doms.get(key.n, self.nlimbs) is not None):
                 device_idx.append(i)
                 device_items.append((message, sig_bytes, key))
             else:
@@ -523,9 +548,35 @@ class VerifierDomain:
             metrics.incr("verify.host", len(device_items))
             for j, (message, sig_bytes, key) in zip(device_idx, device_items):
                 out[j] = verify_host(message, sig_bytes, key)
-        elif device_items:
+        elif device_items and self.backend == "rns":
             self._verify_rns(device_idx, device_items, out)
+        elif device_items:
+            self._verify_limb(device_idx, device_items, out)
         return out
+
+    def _verify_limb(self, device_idx, device_items, out) -> None:
+        """The ``limb`` and ``pallas`` backends: one launch for every item.
+        Power-of-two buckets (floor 256, a multiple of K3's 256-row tile);
+        pad rows carry sig = 0 against row 0's em and key, which never
+        verifies, and are sliced off."""
+        k = len(device_items)
+        metrics.incr("verify.device", k)
+        padded = max(256, 1 << (k - 1).bit_length())
+        sig, em, n, npr, r2 = (
+            np.concatenate([a, np.broadcast_to(
+                a[0] if j else np.zeros_like(a[0]), (padded - k,) + a.shape[1:]
+            )])
+            for j, a in enumerate(self.assemble(device_items))
+        )
+        with metrics.timer("verify.launch"):
+            if self.backend == "pallas":
+                ok = cuda_mont.verify_cuda(*(
+                    torch.from_numpy(a.astype(np.int32)).to(self.device)
+                    for a in (sig, em, n, npr, r2)
+                ))
+            else:
+                ok = rsa_ops.verify_batch_e65537(sig, em, n, npr, r2, device=self.device)
+            out[np.asarray(device_idx)] = ok.cpu().numpy()[:k]
 
     def _verify_rns(self, device_idx, device_items, out) -> None:
         """RNS device path with per-item host fallback for incapable keys.

@@ -41,6 +41,15 @@ _flag("BFTKV_HOST_SIGN_THRESHOLD", None, "int",
 _flag("BFTKV_DISPATCH_CROSSOVER", None, "int",
       "Operator override for the host/device verify crossover batch size "
       "(0 or negative pins always-host; unset: measured by calibration).")
+_flag("BFTKV_VERIFY_BACKEND", "rns", "str",
+      "RSA verify backend of VerifierDomain: `rns` (default, kernel K1), "
+      "`limb` (the limb Montgomery engine in PyTorch ops), `pallas` (the "
+      "limb chain as kernel K3; 2048-bit only).")
+_flag("BFTKV_SIGN_BACKEND", "rns", "str",
+      "RSA sign backend of SignerDomain: `rns` (default, kernel K2; groups "
+      "the RNS bases decline go to the limb engine) or `limb`.")
+_flag("BFTKV_TPU_MIN_MODEXP_BATCH", "4", "int",
+      "BatchModExp batches below this size run as host pow.")
 
 
 def _check(name: str) -> Flag:

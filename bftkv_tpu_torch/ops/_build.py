@@ -1,10 +1,12 @@
 """Builds the hand-written CUDA kernels at first use.
 
-``torch.utils.cpp_extension.load`` compiles ``csrc/rns_chain.cu`` from
-this checkout for ``sm_90a`` into ``bftkv_tpu_torch/_build/`` (listed in
-``.gitignore``) and loads it.  The source has a plain C interface and
-includes no PyTorch header, so the build takes seconds; the library is
-loaded with ``ctypes`` (``is_python_module=False``).  The build runs
+``torch.utils.cpp_extension.load`` compiles ``csrc/rns_chain.cu`` (K1,
+K2) and ``csrc/mont_chain.cu`` (K3) from this checkout for ``sm_90a``
+into one library under ``bftkv_tpu_torch/_build/`` (listed in
+``.gitignore``) and loads it; ninja runs one ``nvcc`` per source, in
+parallel.  The sources have a plain C interface and include no PyTorch
+header, so the build takes seconds; the library is loaded with
+``ctypes`` (``is_python_module=False``).  The build runs
 under a lock because dispatcher threads race to the first launch; a
 build error raises — there is no fallback to the plain versions.
 """
@@ -18,8 +20,8 @@ import threading
 __all__ = ["BUILD_DIR", "library"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCES = [os.path.join(_HERE, "csrc", "rns_chain.cu")]
-BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build", "rns_chain")
+SOURCES = [os.path.join(_HERE, "csrc", name) for name in ("rns_chain.cu", "mont_chain.cu")]
+BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build", "kernels")
 CUDA_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a"]
 
 _lock = threading.Lock()
@@ -46,7 +48,7 @@ def _load() -> ctypes.CDLL:
 
     os.makedirs(BUILD_DIR, exist_ok=True)
     path = cpp_extension.load(
-        name="bftkv_rns_chain",
+        name="bftkv_kernels",
         sources=SOURCES,
         extra_cuda_cflags=CUDA_FLAGS,
         build_directory=BUILD_DIR,
@@ -58,6 +60,13 @@ def _load() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.rns_kernel_attrs.argtypes = [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
     lib.rns_kernel_attrs.restype = ctypes.c_int
+    lib.rns_smem_plan.argtypes = [_I, _I, _I] + [ctypes.POINTER(_I)] * 3
+    lib.rns_smem_plan.restype = ctypes.c_int
+    # (sig, em, n, r2, n0p, T, out, stream)
+    lib.mont_verify_launch.argtypes = [_P] * 5 + [_I, _P, _P]
+    lib.mont_verify_launch.restype = ctypes.c_int
+    lib.mont_kernel_attrs.argtypes = [ctypes.POINTER(_I), ctypes.POINTER(_I)]
+    lib.mont_kernel_attrs.restype = ctypes.c_int
     lib.rns_error_string.argtypes = [ctypes.c_int]
     lib.rns_error_string.restype = ctypes.c_char_p
     return lib

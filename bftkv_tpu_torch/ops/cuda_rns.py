@@ -28,11 +28,17 @@ import torch
 from bftkv_tpu_torch.ops import _build
 from bftkv_tpu_torch.ops import rns
 
-__all__ = ["LAUNCHES", "kernel_attrs", "pow_cuda", "reset_launches", "verify_cuda"]
+__all__ = ["LAUNCHES", "kernel_attrs", "pow_cuda", "reset_launches", "smem_plan",
+           "verify_cuda"]
 
 #: Kernel launches per wrapper ("verify" = K1, "pow" = K2).
 LAUNCHES = {"verify": 0, "pow": 0}
 _count_lock = threading.Lock()
+
+#: The launchers' code for "the context's shared memory does not fit".
+_ERR_SHARED_MEMORY = -2
+#: Compiled variants: K1, K2 at 4 rows per block, K2 at 2 rows per block.
+_VARIANTS = ("verify", "pow", "pow_2rows")
 
 
 def reset_launches() -> None:
@@ -42,10 +48,10 @@ def reset_launches() -> None:
 
 
 def kernel_attrs() -> dict[str, dict[str, int]]:
-    """Registers and local-memory bytes per thread of each kernel as built."""
+    """Registers and local-memory bytes per thread of each variant as built."""
     lib = _build.library()
     out = {}
-    for which, name in enumerate(LAUNCHES):
+    for which, name in enumerate(_VARIANTS):
         regs, local = ctypes.c_int(), ctypes.c_int()
         rc = lib.rns_kernel_attrs(which, ctypes.byref(regs), ctypes.byref(local))
         if rc != 0:
@@ -54,6 +60,21 @@ def kernel_attrs() -> dict[str, dict[str, int]]:
             )
         out[name] = {"registers": regs.value, "local_bytes": local.value}
     return out
+
+
+def smem_plan(which: str, k: int, digits: int) -> dict[str, int]:
+    """The launcher's plan for ``which`` ("verify" or "pow") at (k, digits)
+    on the current device: rows per block (0: does not fit), the dynamic
+    shared memory it needs and the device's opt-in limit per block."""
+    lib = _build.library()
+    rows, need, limit = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    rc = lib.rns_smem_plan(
+        0 if which == "verify" else 1, k, digits,
+        ctypes.byref(rows), ctypes.byref(need), ctypes.byref(limit),
+    )
+    if rc != 0:
+        raise RuntimeError(f"rns smem plan: {lib.rns_error_string(rc).decode()} ({rc})")
+    return {"rows_per_block": rows.value, "smem_bytes": need.value, "smem_limit": limit.value}
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, dev) -> None:
@@ -102,6 +123,13 @@ def _launch(which: str, a, b, idx, ukey, cn, out_shape) -> torch.Tensor:
         cn.invMq_pr, cn.invM_pr, k, digits,
         out.data_ptr(), stream,
     )
+    if rc == _ERR_SHARED_MEMORY:
+        plan = smem_plan(which, k, digits)
+        raise RuntimeError(
+            f"rns {which} kernel at k={k}, {digits} digits needs "
+            f"{plan['smem_bytes']} bytes of shared memory per block; "
+            f"the device allows {plan['smem_limit']}"
+        )
     if rc != 0:
         raise RuntimeError(
             f"rns {which} kernel launch failed: "

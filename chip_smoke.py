@@ -1,24 +1,38 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: the replica's crypto plane.
 
-Drives the port's main path at the size of the 64-replica cluster and
+Drives the port's main paths at the size of the 64-replica cluster and
 holds every hand-written kernel against its plain PyTorch version:
 
 1. keys: 64 replica RSA-2048 keys and 4 writer keys, drawn from --seed
    (cached under bftkv_tpu_torch/_build/), outside every timed phase;
 2. build: the kernels from bftkv_tpu_torch/ops/csrc/ for sm_90a;
-3. verify phase: 64 threads, one per replica, submit their share of one
-   4096-item flush to VerifyDispatcher(max_batch=4096): about 93 writes x
-   44 verifies (writer signature + 43 collective entries), 1% forged by a
-   bit flip, a few hostile moduli (sharing a channel prime), a few s >= n.
-   Verdicts must equal host pow(s, 65537, n) == em;
-4. sign phase: 64 threads sign 256 collective shares through
+3. RNS verify phase: 64 threads, one per replica, submit their share of
+   one 4096-item flush to VerifyDispatcher(max_batch=4096): about 93
+   writes x 44 verifies (writer signature + 43 collective entries), 1%
+   forged by a bit flip, a few hostile moduli (sharing a channel prime), a
+   few s >= n.  Verdicts must equal host pow(s, 65537, n) == em;
+4. RNS sign phase: 64 threads sign 256 collective shares through
    SignDispatcher(max_batch=256): 512 half-width rows in one K2 launch,
-   then the fault check (one K1 launch).  Every signature must verify on
-   the host and equal host signing;
-5. each kernel against its plain version on the card, on the operands the
-   main path gave it: K1 verdicts and K2 sigma bit-identical;
-6. times: median of 5 timed flushes per phase, and kernel times by CUDA
-   events (K1 at T=4096, K2 at T=512), beside nvidia-smi's name and limit.
+   then the fault check (one K1 launch).  Every signature must equal host
+   signing;
+5. pallas verify phase: the same 4096 items through
+   VerifierDomain(backend="pallas"): one K3 launch per flush, every item
+   on the device (hostile moduli are odd and fit; s >= n rides as s = 0);
+6. limb sign phase: 256 shares through SignerDomain(backend="limb"): one
+   512-row limb power_batch (PyTorch ops) and one K1 fault check;
+7. BatchModExp phase: (a) 64 pairs of 2048-bit bases and exponents modulo
+   one replica modulus, K2 at k=188 (2 rows per block); (b) 8 pairs with
+   2300-bit exponents, the shape of threshold-RSA fragments, on the limb
+   path with the 256-limb exponent bucket.  Both must equal host pow;
+8. each kernel against its plain version on the card, on the operands the
+   main paths gave it: K1 verdicts, K2 sigma (k=94 and k=188) and K3's
+   whole (4096, 128) diff bit-identical;
+9. times: median of 5 timed flushes per verify/RNS-sign phase, 3 for the
+   limb sign, and kernel times by CUDA events, beside nvidia-smi's name
+   and power limit.
+
+Every phase sets the launch counts and counters to 0 just before its
+counted run and reads them just after.
 
 Run from the repository root:  python3 chip_smoke.py [--seed N]
 It exits non-zero, printing no result, without CUDA or on any failed check.
@@ -47,12 +61,17 @@ SUFF = 43  # collective entries per write at n=64, f=21
 VERIFY_FLUSH = 4096
 SIGN_SHARES = 256
 TIMED_REPS = 5
+LIMB_SIGN_REPS = 3
+MODEXP_PAIRS = 64  # 2048-bit pairs: K2 at k=188
+FRAGMENT_PAIRS = 8  # 2300-bit exponents: the limb path
+FRAGMENT_EXP_BITS = 2300
 
 # Card peaks (NVIDIA H100 SXM data sheet, dense): int8 tensor cores and HBM3.
 INT8_OPS_PER_S = 1979e12
 HBM_BYTES_PER_S = 3.35e12
 # An exact product of two 12-bit residues takes four int8 products on the
 # tensor cores (6-bit split, as the TPU kernels' bf16 planes): 8 ops per MAC.
+# K3's 16-bit digit products are counted the same way (four 8-bit products).
 OPS_PER_MAC = 8
 
 
@@ -217,17 +236,26 @@ def sign_phase(sd, replicas, tag: str):
     return [it for j in jobs for it in j], [s for r in results for s in r], dt
 
 
-class Recorder:
-    """Keeps the operands the main path hands each kernel wrapper."""
+def check_signatures(sign_items, sigs, what: str) -> None:
+    from bftkv_tpu_torch.crypto import rsa
 
-    def __init__(self, cuda_rns):
-        self.mod = cuda_rns
-        self.real = {"verify": cuda_rns.verify_cuda, "pow": cuda_rns.pow_cuda}
-        self.calls = {"verify": [], "pow": []}
+    for (m, key), sig in zip(sign_items, sigs):
+        check(rsa.verify_host(m, sig, key.public), f"{what}: a signature fails host verify")
+        check(sig == rsa.sign(m, key), f"{what}: a signature differs from host signing")
+
+
+class Recorder:
+    """Keeps the operands the main path hands the kernel wrappers
+    ``names`` of ``module``."""
+
+    def __init__(self, module, names):
+        self.mod = module
+        self.real = {name: getattr(module, name) for name in names}
+        self.calls = {name: [] for name in names}
 
     def __enter__(self):
         for name, fn in self.real.items():
-            setattr(self.mod, f"{name}_cuda", self._wrap(name, fn))
+            setattr(self.mod, name, self._wrap(name, fn))
         return self
 
     def _wrap(self, name, fn):
@@ -239,7 +267,28 @@ class Recorder:
 
     def __exit__(self, *exc):
         for name, fn in self.real.items():
-            setattr(self.mod, f"{name}_cuda", fn)
+            setattr(self.mod, name, fn)
+
+
+class Counted:
+    """A phase's counted run: launch counts and counters are set to 0 on
+    entry and read on exit (``launches``, ``snap``)."""
+
+    def __enter__(self):
+        from bftkv_tpu_torch.metrics import registry as metrics
+        from bftkv_tpu_torch.ops import cuda_mont, cuda_rns
+
+        metrics.reset()
+        cuda_rns.reset_launches()
+        cuda_mont.reset_launches()
+        return self
+
+    def __exit__(self, *exc):
+        from bftkv_tpu_torch.metrics import registry as metrics
+        from bftkv_tpu_torch.ops import cuda_mont, cuda_rns
+
+        self.launches = {**cuda_rns.LAUNCHES, **cuda_mont.LAUNCHES}
+        self.snap = metrics.snapshot()
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -265,32 +314,18 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def kernel_record(name, which, source, replaces, args, cn, launches, plain_fn,
-                  kernel_reps, plain_reps):
-    """Kernel vs plain version on one recorded operand set, and times."""
-    from bftkv_tpu_torch.ops import cuda_rns, rns
-
-    real = cuda_rns.verify_cuda if which == "verify" else cuda_rns.pow_cuda
-    a, b, idx, ukey, _cn = args
-    got = real(*args)
-    plain = plain_fn(cn, a, b, rns.gather_key(ukey, idx))
+def kernel_record(name, source, replaces, launches, kernel_fn, plain_fn, macs, n_bytes,
+                  kernel_reps, plain_reps, **extra):
+    """Kernel vs its plain version on one recorded operand set, and times."""
+    got = kernel_fn()
+    plain = plain_fn()
     torch.cuda.synchronize()
+    check(got.shape == plain.shape, f"{name}: shapes {tuple(got.shape)} != {tuple(plain.shape)}")
     err = int((got.long() - plain.long()).abs().max().item())
     check(err == 0, f"{name}: kernel and plain version differ (max abs err {err})")
-    t = a.shape[0]
-    k, digits = cn.k, cn.digits
-    if which == "verify":
-        macs_row = 2 * (2 * digits) * (2 * k + 1) + 18 * 2 * k * (k + 1)
-    else:
-        steps = 4 * digits
-        products = 2 + 14 + 5 * steps + 1
-        macs_row = (2 * digits) * (2 * k + 1) + products * 2 * k * (k + 1)
-    kc = cn.kern
-    consts_bytes = nbytes(*kc.values())
-    out_bytes = got.numel() * 4
-    b_ms, b_by = bound_ms(t * macs_row, nbytes(a, b, idx, *ukey) + consts_bytes + out_bytes)
-    ms = cuda_ms(lambda: real(*args), kernel_reps)
-    plain_ms = cuda_ms(lambda: plain_fn(cn, a, b, rns.gather_key(ukey, idx)), plain_reps)
+    del got, plain
+    torch.cuda.empty_cache()
+    b_ms, b_by = bound_ms(macs, n_bytes)
     return {
         "name": name,
         "route": "cuda",
@@ -298,14 +333,60 @@ def kernel_record(name, which, source, replaces, args, cn, launches, plain_fn,
         "replaces": replaces,
         "launches": launches,
         "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
+        "ms": cuda_ms(kernel_fn, kernel_reps),
+        "plain_ms": cuda_ms(plain_fn, plain_reps),
         "bound_ms": b_ms,
         "bound_by": b_by,
         "library_ms": None,
-        "rows": t,
         "matches_plain": True,
+        **extra,
     }
+
+
+def rns_record(name, which, replaces, args, launches, kernel_reps, plain_reps, **extra):
+    """K1/K2 on recorded (a, b, idx, ukey, cn) operands."""
+    from bftkv_tpu_torch.ops import cuda_rns, rns
+
+    a, b, idx, ukey, cn = args
+    real = cuda_rns.verify_cuda if which == "verify" else cuda_rns.pow_cuda
+    plain = rns._verify_kernel if which == "verify" else rns._pow_kernel
+    t, k, digits = a.shape[0], cn.k, cn.digits
+    if which == "verify":
+        # Two digit -> residue conversions, then 19 Montgomery products
+        # (to-Montgomery, 16 squarings, x s, from-Montgomery), two base
+        # extensions each.
+        macs_row = 2 * (2 * digits) * (2 * k + 1) + 19 * 2 * k * (k + 1)
+    else:
+        steps = 4 * digits
+        products = 2 + 14 + 5 * steps + 1
+        macs_row = (2 * digits) * (2 * k + 1) + products * 2 * k * (k + 1)
+    out_bytes = t * (4 if which == "verify" else 4 * k)
+    return kernel_record(
+        name, "bftkv_tpu_torch/ops/csrc/rns_chain.cu", replaces, launches,
+        lambda: real(*args), lambda: plain(cn, a, b, rns.gather_key(ukey, idx)),
+        t * macs_row, nbytes(a, b, idx, *ukey) + nbytes(*cn.kern.values()) + out_bytes,
+        kernel_reps, plain_reps, rows=t, k=k, digits=digits,
+        **cuda_rns.smem_plan(which, k, digits), **extra,
+    )
+
+
+def k3_record(args, launches):
+    """K3 on recorded (sig, em, n, n', r2) operands: the whole diff."""
+    from bftkv_tpu_torch.ops import cuda_mont
+    from bftkv_tpu_torch.ops import rsa as rsa_ops
+
+    t = args[0].shape[0]
+    # The reference's 16-bit digit multiply-accumulates per Montgomery
+    # product: 128^2 for a*b, 128*129/2 for m = t*n' mod R, 128^2 for m*n.
+    macs_row = 19 * (128 * 128 + 128 * 129 // 2 + 128 * 128)
+    return kernel_record(
+        "K3 mont_verify_kernel", "bftkv_tpu_torch/ops/csrc/mont_chain.cu",
+        "bftkv_tpu/ops/pallas_mont.py:174", launches,
+        lambda: cuda_mont.verify_diff(*args),
+        lambda: rsa_ops._verify_chain(*(a.long() for a in args)),
+        t * macs_row, 6 * nbytes(args[0]), kernel_reps=20, plain_reps=2,
+        rows=t, compared="(T, 128) diff",
+    )
 
 
 def main() -> int:
@@ -320,7 +401,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from bftkv_tpu_torch.crypto import rsa
     from bftkv_tpu_torch.metrics import registry as metrics
-    from bftkv_tpu_torch.ops import _build, cuda_rns, dispatch, rns
+    from bftkv_tpu_torch.ops import _build, cuda_mont, cuda_rns, dispatch, modexp, rns
 
     dev = torch.device("cuda", 0)
     build_dir = os.path.dirname(_build.BUILD_DIR)
@@ -337,11 +418,11 @@ def main() -> int:
           f"{len(items)} verify items ({n_forged} forged, {n_hostile} hostile moduli, "
           f"{n_big} with s >= n) in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 2. build
+    # 2. build (one nvcc per source, in parallel)
     t0 = time.perf_counter()
     _build.library()
-    print(f"build: {time.perf_counter() - t0:.2f} s (sm_90a, {_build.SOURCES[0]})",
-          flush=True)
+    print(f"build: {time.perf_counter() - t0:.2f} s (sm_90a, "
+          f"{', '.join(os.path.basename(s) for s in _build.SOURCES)})", flush=True)
 
     vd = dispatch.VerifyDispatcher(
         rsa.VerifierDomain(device=dev), max_batch=VERIFY_FLUSH, max_wait=2.0
@@ -349,14 +430,17 @@ def main() -> int:
     sd = dispatch.SignDispatcher(
         rsa.SignerDomain(device=dev), max_batch=SIGN_SHARES, max_wait=2.0
     ).start()
+    vd_p = dispatch.VerifyDispatcher(
+        rsa.VerifierDomain(backend="pallas", device=dev), max_batch=VERIFY_FLUSH, max_wait=2.0
+    ).start()
+    sd_l = dispatch.SignDispatcher(
+        rsa.SignerDomain(backend="limb", device=dev), max_batch=SIGN_SHARES, max_wait=2.0
+    ).start()
     try:
-        # 3. verify phase (counted: counts to 0 just before, read just after)
-        with Recorder(cuda_rns) as rec_v:
-            metrics.reset()
-            cuda_rns.reset_launches()
+        # 3. RNS verify phase (counted)
+        with Recorder(cuda_rns, ("verify_cuda", "pow_cuda")) as rec_v, Counted() as c_v:
             got, dt = verify_phase(vd, items)
-            v_launch = dict(cuda_rns.LAUNCHES)
-            v_snap = metrics.snapshot()
+        v_launch, v_snap = c_v.launches, c_v.snap
         check(got == expect, f"verify verdicts differ from host pow on "
               f"{sum(g != e for g, e in zip(got, expect))} items")
         check(v_snap.get("verify.device", 0) == rns_capable,
@@ -364,99 +448,173 @@ def main() -> int:
         check(v_snap.get("verify.host", 0) == len(items) - rns_capable,
               f"verify.host {v_snap.get('verify.host')} != {len(items) - rns_capable}")
         check(v_launch["verify"] >= 1, "K1 was not launched by the verify phase")
-        print(f"verify phase: {len(items)} items, {sum(expect)} valid, "
+        print(f"verify phase (rns): {len(items)} items, {sum(expect)} valid, "
               f"verify.device={v_snap.get('verify.device')} "
               f"verify.host={v_snap.get('verify.host')} "
               f"flushes={v_snap.get('dispatch.flushes')} launches={v_launch} "
               f"first run {dt * 1e3:.1f} ms", flush=True)
 
-        # 4. sign phase (counted)
-        with Recorder(cuda_rns) as rec_s:
-            metrics.reset()
-            cuda_rns.reset_launches()
+        # 4. RNS sign phase (counted)
+        with Recorder(cuda_rns, ("verify_cuda", "pow_cuda")) as rec_s, Counted() as c_s:
             sign_items, sigs, dt = sign_phase(sd, replicas, "counted")
-            s_launch = dict(cuda_rns.LAUNCHES)
-            s_snap = metrics.snapshot()
-        for (m, key), sig in zip(sign_items, sigs):
-            check(rsa.verify_host(m, sig, key.public), "a signature fails host verify")
-            check(sig == rsa.sign(m, key), "a signature differs from host signing")
+        s_launch, s_snap = c_s.launches, c_s.snap
+        check_signatures(sign_items, sigs, "rns sign")
         check(s_snap.get("sign.device", 0) == SIGN_SHARES,
               f"sign.device {s_snap.get('sign.device')} != {SIGN_SHARES}")
         check(s_snap.get("sign.fault", 0) == 0, f"sign.fault {s_snap.get('sign.fault')}")
         check(s_launch["pow"] >= 1, "K2 was not launched by the sign phase")
         check(s_launch["verify"] >= 1, "the fault check did not launch K1")
-        print(f"sign phase: {len(sigs)} signatures, sign.device={s_snap.get('sign.device')} "
+        print(f"sign phase (rns): {len(sigs)} signatures, sign.device={s_snap.get('sign.device')} "
               f"sign.fault={s_snap.get('sign.fault', 0)} "
               f"sign.fault_check_divergence={s_snap.get('sign.fault_check_divergence', 0)} "
               f"flushes={s_snap.get('signdispatch.flushes')} launches={s_launch} "
               f"first run {dt * 1e3:.1f} ms", flush=True)
 
-        # 6a. timed flushes (after the warm-up above); the verify.launch
+        # 5. pallas verify phase (counted): every item on the device, K3
+        with Recorder(cuda_mont, ("verify_cuda",)) as rec_p, Counted() as c_p:
+            got, dt = verify_phase(vd_p, items)
+        p_launch, p_snap = c_p.launches, c_p.snap
+        check(got == expect, f"pallas verdicts differ from host pow on "
+              f"{sum(g != e for g, e in zip(got, expect))} items")
+        check(p_snap.get("verify.device", 0) == len(items),
+              f"pallas verify.device {p_snap.get('verify.device')} != {len(items)}")
+        check(p_snap.get("verify.host", 0) == 0, f"pallas verify.host {p_snap.get('verify.host')}")
+        check(p_launch["mont_verify"] >= 1
+              and p_launch["mont_verify"] == p_snap.get("dispatch.flushes"),
+              f"K3 launches {p_launch['mont_verify']} != flushes {p_snap.get('dispatch.flushes')}")
+        check(p_launch["verify"] == p_launch["pow"] == 0, f"pallas phase launched {p_launch}")
+        print(f"verify phase (pallas): verify.device={p_snap.get('verify.device')} "
+              f"verify.host={p_snap.get('verify.host', 0)} "
+              f"flushes={p_snap.get('dispatch.flushes')} launches={p_launch} "
+              f"first run {dt * 1e3:.1f} ms", flush=True)
+
+        # 6. limb sign phase (counted): one 512-row power_batch, K1 fault check
+        with Counted() as c_l:
+            sign_items, sigs, dt = sign_phase(sd_l, replicas, "limb")
+        l_launch, l_snap = c_l.launches, c_l.snap
+        check_signatures(sign_items, sigs, "limb sign")
+        check(l_snap.get("sign.device", 0) == SIGN_SHARES,
+              f"limb sign.device {l_snap.get('sign.device')} != {SIGN_SHARES}")
+        check(l_snap.get("sign.fault", 0) == 0, f"limb sign.fault {l_snap.get('sign.fault')}")
+        check(l_launch["verify"] >= 1, "the limb sign's fault check did not launch K1")
+        check(l_launch["pow"] == 0, "the limb sign launched K2")
+        print(f"sign phase (limb): {len(sigs)} signatures, sign.device={l_snap.get('sign.device')} "
+              f"sign.fault={l_snap.get('sign.fault', 0)} "
+              f"flushes={l_snap.get('signdispatch.flushes')} launches={l_launch} "
+              f"first run {dt * 1e3:.1f} ms", flush=True)
+
+        # 9a. timed flushes (after the warm-up above); the verify.launch
         # timer splits a verify flush into the device call and the host.
         metrics.reset()
         v_times = [verify_phase(vd, items)[1] for _ in range(TIMED_REPS)]
         v_timed = metrics.snapshot()
         launch_ms = v_timed["verify.launch.sum"] / v_timed["verify.launch.count"] * 1e3
         s_times = [sign_phase(sd, replicas, f"timed{r}")[2] for r in range(TIMED_REPS)]
+        metrics.reset()
+        p_times = [verify_phase(vd_p, items)[1] for _ in range(TIMED_REPS)]
+        p_timed = metrics.snapshot()
+        p_launch_ms = p_timed["verify.launch.sum"] / p_timed["verify.launch.count"] * 1e3
+        l_times = [sign_phase(sd_l, replicas, f"limb{r}")[2] for r in range(LIMB_SIGN_REPS)]
     finally:
-        vd.stop()
-        sd.stop()
+        for d in (vd, sd, vd_p, sd_l):
+            d.stop()
+
+    # 7. BatchModExp phase (counted, each route timed once)
+    rng = random.Random(args.seed)
+    bme = modexp.BatchModExp(device=dev)
+    n = replicas[0].n
+    pairs = [(rng.getrandbits(2048), rng.getrandbits(2048)) for _ in range(MODEXP_PAIRS)]
+    with Recorder(cuda_rns, ("pow_cuda",)) as rec_m, Counted() as c_m:
+        t0 = time.perf_counter()
+        vals = bme.modexp(pairs, n)
+        m_dt = time.perf_counter() - t0
+    check(vals == [pow(b, e, n) for b, e in pairs], "BatchModExp (RNS, 2048-bit) != host pow")
+    check(c_m.snap.get("modexp.rns_staged", 0) == MODEXP_PAIRS,
+          f"modexp.rns_staged {c_m.snap.get('modexp.rns_staged')} != {MODEXP_PAIRS}")
+    check(c_m.launches["pow"] == 1, f"BatchModExp 2048-bit launched {c_m.launches}")
+    frags = [(rng.getrandbits(2048), rng.getrandbits(FRAGMENT_EXP_BITS) | (1 << (FRAGMENT_EXP_BITS - 1)))
+             for _ in range(FRAGMENT_PAIRS)]
+    with Counted() as c_f:
+        t0 = time.perf_counter()
+        vals = bme.modexp(frags, n)
+        f_dt = time.perf_counter() - t0
+    check(vals == [pow(b, e, n) for b, e in frags], "BatchModExp (limb, 2300-bit exponents) != host pow")
+    check("modexp.rns_staged" not in c_f.snap and c_f.launches["pow"] == 0,
+          f"the 2300-bit exponents did not take the limb path: {c_f.snap} {c_f.launches}")
+    print(f"BatchModExp: {MODEXP_PAIRS} 2048-bit pairs (RNS, K2 launches {c_m.launches['pow']}) "
+          f"{m_dt * 1e3:.1f} ms; {FRAGMENT_PAIRS} pairs with {FRAGMENT_EXP_BITS}-bit exponents "
+          f"(limb, 256-limb bucket) {f_dt * 1e3:.1f} ms", flush=True)
+
     v_med, s_med = statistics.median(v_times), statistics.median(s_times)
-    print(f"verify flush: median {v_med * 1e3:.3f} ms of {TIMED_REPS} "
+    p_med, l_med = statistics.median(p_times), statistics.median(l_times)
+    print(f"verify flush (rns): median {v_med * 1e3:.3f} ms of {TIMED_REPS} "
           f"({len(items) / v_med:.0f} verifies/s), all {[t * 1e3 for t in v_times]}; "
           f"device call (verify.launch, copies + K1 + sync) mean {launch_ms} ms",
           flush=True)
-    print(f"sign flush: median {s_med * 1e3:.3f} ms of {TIMED_REPS} "
+    print(f"sign flush (rns): median {s_med * 1e3:.3f} ms of {TIMED_REPS} "
           f"({SIGN_SHARES / s_med:.0f} signatures/s), all {[t * 1e3 for t in s_times]}",
           flush=True)
+    print(f"verify flush (pallas): median {p_med * 1e3:.3f} ms of {TIMED_REPS} "
+          f"({len(items) / p_med:.0f} verifies/s), all {[t * 1e3 for t in p_times]}; "
+          f"device call (verify.launch, copies + K3 + sync) mean {p_launch_ms} ms",
+          flush=True)
+    print(f"sign flush (limb): median {l_med * 1e3:.3f} ms of {LIMB_SIGN_REPS} "
+          f"({SIGN_SHARES / l_med:.0f} signatures/s), all {[t * 1e3 for t in l_times]}",
+          flush=True)
 
-    # 5. each kernel against its plain version, on the main path's operands
-    v_args = [a for a in rec_v.calls["verify"] if a[0].shape[0] == VERIFY_FLUSH]
+    # 8. each kernel against its plain version, on the main paths' operands
+    v_args = [a for a in rec_v.calls["verify_cuda"] if a[0].shape[0] == VERIFY_FLUSH]
     check(len(v_args) == 1, f"expected one {VERIFY_FLUSH}-row verify launch")
-    fc_args = rec_s.calls["verify"]
-    p_args = rec_s.calls["pow"]
+    p_args = rec_s.calls["pow_cuda"]
     check(len(p_args) == 1 and p_args[0][0].shape[0] == 2 * SIGN_SHARES,
           "expected one 512-row pow launch")
+    m_args = rec_m.calls["pow_cuda"]
+    check(len(m_args) == 1 and m_args[0][4].k == 188, "expected one k=188 pow launch")
+    k3_args = rec_p.calls["verify_cuda"]
+    check(len(k3_args) == 1 and k3_args[0][0].shape == (VERIFY_FLUSH, 128),
+          "expected one (4096, 128) K3 launch")
     cn_v = rns.consts(rns.DIGITS, 2048, dev)
-    cn_p = p_args[0][4]
-    for a in fc_args:  # the sign phase's fault-check operands, too
+    for a in rec_s.calls["verify_cuda"]:  # the sign phase's fault-check operands, too
         g = cuda_rns.verify_cuda(*a)
         pl = rns._verify_kernel(cn_v, a[0], a[1], rns.gather_key(a[3], a[2]))
         check(torch.equal(g, pl), "K1 differs from its plain version on fault-check operands")
-    k1 = kernel_record(
-        "K1 rns_verify_kernel", "verify", "bftkv_tpu_torch/ops/csrc/rns_chain.cu",
-        "bftkv_tpu/ops/pallas_rns.py:517", v_args[0], cn_v,
-        v_launch["verify"] + s_launch["verify"], rns._verify_kernel,
-        kernel_reps=20, plain_reps=3,
-    )
-    k2 = kernel_record(
-        "K2 rns_pow_kernel", "pow", "bftkv_tpu_torch/ops/csrc/rns_chain.cu",
-        "bftkv_tpu/ops/pallas_rns.py:403", p_args[0], cn_p,
-        v_launch["pow"] + s_launch["pow"], rns._pow_kernel,
-        kernel_reps=10, plain_reps=2,
-    )
-    k1["phase_launches"] = {"verify": v_launch["verify"], "sign": s_launch["verify"]}
-    k2["phase_launches"] = {"verify": v_launch["pow"], "sign": s_launch["pow"]}
-    attrs = cuda_rns.kernel_attrs()  # registers / local bytes per thread, as built
-    k1.update(attrs["verify"])
-    k2.update(attrs["pow"])
+    attrs = {**cuda_rns.kernel_attrs(), **cuda_mont.kernel_attrs()}
+    k1_launches = {"verify_rns": v_launch["verify"], "sign_rns": s_launch["verify"],
+                   "sign_limb": l_launch["verify"]}
+    kernels = [
+        rns_record("K1 rns_verify_kernel", "verify", "bftkv_tpu/ops/pallas_rns.py:517",
+                   v_args[0], sum(k1_launches.values()), 20, 3,
+                   phase_launches=k1_launches, **attrs["verify"]),
+        rns_record("K2 rns_pow_kernel (k=94)", "pow", "bftkv_tpu/ops/pallas_rns.py:403",
+                   p_args[0], s_launch["pow"], 10, 2,
+                   phase_launches={"sign_rns": s_launch["pow"]}, **attrs["pow"]),
+        rns_record("K2 rns_pow_kernel (k=188)", "pow", "bftkv_tpu/ops/pallas_rns.py:403",
+                   m_args[0], c_m.launches["pow"], 5, 1,
+                   phase_launches={"modexp_2048": c_m.launches["pow"]}, **attrs["pow_2rows"]),
+        k3_record(k3_args[0], p_launch["mont_verify"]),
+    ]
+    kernels[3].update(phase_launches={"verify_pallas": p_launch["mont_verify"]},
+                      **attrs["mont_verify"])
     print(json.dumps({
-        "kernels": [k1, k2],
-        "not_yet_ported": [{
-            "name": "K3 pallas_mont verify_e65537",
-            "replaces": "bftkv_tpu/ops/pallas_mont.py:174",
-            "status": "not yet ported (limb-backend slice, ROADMAP M7)",
-        }],
+        "kernels": kernels,
+        "not_yet_ported": [],
         "phases": {
             "verify_flush_ms_median": v_med * 1e3,
             "verify_items_per_s": len(items) / v_med,
             "verify_launch_ms_mean": launch_ms,
             "sign_flush_ms_median": s_med * 1e3,
             "signatures_per_s": SIGN_SHARES / s_med,
+            "pallas_verify_flush_ms_median": p_med * 1e3,
+            "pallas_verify_items_per_s": len(items) / p_med,
+            "pallas_verify_launch_ms_mean": p_launch_ms,
+            "limb_sign_flush_ms_median": l_med * 1e3,
+            "limb_signatures_per_s": SIGN_SHARES / l_med,
+            "modexp_2048_rns_ms": m_dt * 1e3,
+            "modexp_fragment_limb_ms": f_dt * 1e3,
         },
     }), flush=True)
 
-    # 6b. the card, as nvidia-smi reports it
+    # 9b. the card, as nvidia-smi reports it
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,

@@ -18,7 +18,9 @@ import pytest
 import torch
 
 from bftkv_tpu_torch.crypto import rsa
-from bftkv_tpu_torch.ops import cuda_rns, limb, rns
+from bftkv_tpu_torch.metrics import registry as metrics
+from bftkv_tpu_torch.ops import bigint, cuda_mont, cuda_rns, limb, modexp, rns
+from bftkv_tpu_torch.ops import rsa as rsa_ops
 from test_torch_utils import moduli as _moduli
 
 pytestmark = pytest.mark.cuda
@@ -98,3 +100,118 @@ def test_domains_on_card_match_host(dev):
     got = rsa.VerifierDomain(device=dev, host_threshold=0).verify_batch(vitems)
     np.testing.assert_array_equal(got, [i % 3 != 0 for i in range(6)])
     assert cuda_rns.LAUNCHES == {"verify": 2, "pow": 1}
+
+
+def _k3_operands(dev, n_rows: int, seed: int):
+    """Seeded K3 operands over three 2048-bit moduli: valid rows, random
+    (forged) rows, s = 0 rows and s >= n rows; plus the host verdicts."""
+    rng = random.Random(seed)
+    ns = [rng.getrandbits(2048) | 1 | (1 << 2047) for _ in range(3)]
+    doms = [bigint.MontgomeryDomain(n, 128) for n in ns]
+    idx = [rng.randrange(3) for _ in range(n_rows)]
+    sigs = [(0, rng.randrange(ns[i], 1 << 2048))[j % 2] if j % 7 == 0 else rng.randrange(ns[i])
+            for j, i in enumerate(idx)]
+    ems = [pow(s, 65537, ns[i]) if j % 3 else rng.getrandbits(2040)
+           for j, (s, i) in enumerate(zip(sigs, idx))]
+    t = lambda rows: torch.as_tensor(np.stack(rows).astype(np.int32), device=dev)
+    ops = (
+        t([limb.int_to_limbs(s, 128) for s in sigs]),
+        t([limb.int_to_limbs(e, 128) for e in ems]),
+        t([doms[i].n for i in idx]), t([doms[i].n_prime for i in idx]),
+        t([doms[i].r2 for i in idx]),
+    )
+    want = [pow(s, 65537, ns[i]) == e for s, e, i in zip(sigs, ems, idx)]
+    return ops, want
+
+
+def test_k3_matches_plain_on_card(dev):
+    ops, want = _k3_operands(dev, 512, seed=41)
+    cuda_mont.reset_launches()
+    got = cuda_mont.verify_diff(*ops)
+    plain = rsa_ops._verify_chain(*(a.long() for a in ops))
+    assert torch.equal(got.long(), plain)  # the whole diff, not only verdicts
+    assert cuda_mont.verify_cuda(*ops).cpu().tolist() == want
+    assert cuda_mont.LAUNCHES == {"mont_verify": 2}
+    with pytest.raises(ValueError, match="multiple of 256"):
+        cuda_mont.verify_cuda(*(a[:300] for a in ops))
+
+
+def test_k2_at_2048_bits_matches_plain_on_card(dev):
+    ctx = rns.context(128, 2048)
+    ns = _moduli(ctx, 2048, 3, seed=43)
+    rng = np.random.default_rng(44)
+    n_rows = 7  # not a multiple of the kernel's rows per block
+    idx = torch.as_tensor(rng.integers(0, 3, n_rows).astype(np.int32), device=dev)
+    bh = torch.as_tensor(rng.integers(0, 256, (n_rows, 256)).astype(np.uint8), device=dev)
+    nib = torch.as_tensor(rng.integers(0, 16, (512, n_rows)).astype(np.uint8), device=dev)
+    ukey = rns.key_rows_from_numpy(rns.stack_key_rows([ctx.key_rows(n) for n in ns]), dev)
+    cn = rns.consts(128, 2048, dev)
+    assert cuda_rns.smem_plan("pow", cn.k, 128)["rows_per_block"] == 2
+    got = cuda_rns.pow_cuda(bh, nib, idx, ukey, cn)
+    assert torch.equal(got.long(), rns._pow_kernel(cn, bh, nib, rns.gather_key(ukey, idx)))
+    r = random.Random(45)
+    rows = [ns[i % 3] for i in range(9)]
+    bases = [r.getrandbits(2048) for _ in rows]
+    exps = [r.getrandbits(2048) for _ in rows]
+    assert rns.power_mod_rns(bases, exps, rows, n_bits=2048, device=dev) == [
+        pow(b, e, m) for b, e, m in zip(bases, exps, rows)
+    ]
+
+
+def test_k2_refuses_a_context_the_card_cannot_hold(dev):
+    """k=255 channels at 256 digits: even 2 rows per block need more shared
+    memory than the card allows; the launch raises with the byte count."""
+    k, digits = 255, 256
+    p_all = np.arange(3, 3 + 4 * k, 2, dtype=np.float32)
+    z = lambda *shape: np.zeros(shape, np.float32)
+    arrays = dict(
+        p_all=p_all, inv_all=np.float32(1.0) / p_all, invMi_b=z(k), invMi_q=z(k),
+        _E1=(z(k, k + 1), z(k, k + 1)), _E2=(z(k, k + 1), z(k, k + 1)),
+        _D=(z(2 * digits, 2 * k + 1), z(2 * digits, 2 * k + 1)),
+        Mq_mod_b=z(k), invMq_pr=np.float32(1), invM_q=z(k), invM_pr=np.float32(1),
+    )
+    cn = rns.consts_from_numpy(arrays, dev)
+    ukey = rns.key_rows_from_numpy(
+        tuple(z(1, w) for w in (2 * k, 1, k, 2 * k, 2 * k, 1)), dev
+    )
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    before = dict(cuda_rns.LAUNCHES)
+    with pytest.raises(RuntimeError, match=r"k=255, 256 digits needs \d+ bytes"):
+        cuda_rns.pow_cuda(
+            torch.zeros((1, 2 * digits), dtype=torch.uint8, device=dev),
+            torch.zeros((4 * digits, 1), dtype=torch.uint8, device=dev), one, ukey, cn,
+        )
+    assert cuda_rns.LAUNCHES == before
+
+
+def test_limb_and_pallas_domains_on_card_match_host(dev):
+    keys = [rsa.generate(2048, seed=s) for s in (51, 52)]
+    items = [(b"m%d" % i, keys[i % 2]) for i in range(5)]
+    cuda_rns.reset_launches()
+    metrics.reset()
+    sigs = rsa.SignerDomain(device=dev, host_threshold=0, backend="limb").sign_batch(items)
+    assert sigs == [rsa.sign(m, k) for m, k in items]
+    assert metrics.snapshot()["sign.device"] == 5
+    assert cuda_rns.LAUNCHES == {"verify": 1, "pow": 0}  # the fault check only
+    vitems = [(m, s if i % 2 else s[:-1] + bytes([s[-1] ^ 1]), k.public)
+              for i, ((m, k), s) in enumerate(zip(items, sigs))]
+    want = [i % 2 == 1 for i in range(5)]
+    cuda_mont.reset_launches()
+    for backend, k3 in (("limb", 0), ("pallas", 1)):
+        dom = rsa.VerifierDomain(device=dev, host_threshold=0, backend=backend)
+        np.testing.assert_array_equal(dom.verify_batch(vitems), want)
+        assert cuda_mont.LAUNCHES == {"mont_verify": k3}
+
+
+def test_batch_modexp_on_card_matches_host_pow(dev):
+    rng = random.Random(53)
+    n = rng.getrandbits(2048) | 1 | (1 << 2047)
+    bme = modexp.BatchModExp(device=dev)
+    pairs = [(rng.getrandbits(2048), rng.getrandbits(2048)) for _ in range(6)]
+    cuda_rns.reset_launches()
+    assert bme.modexp(pairs, n) == [pow(b, e, n) for b, e in pairs]
+    assert cuda_rns.LAUNCHES["pow"] == 1  # RNS at k=188
+    n = rng.getrandbits(512) | 1 | (1 << 511)
+    pairs = [(rng.getrandbits(600), rng.getrandbits(2300)) for _ in range(4)]
+    assert bme.modexp(pairs, n) == [pow(b, e, n) for b, e in pairs]
+    assert cuda_rns.LAUNCHES["pow"] == 1  # the limb path launches no kernel

@@ -54,6 +54,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "before = set(sys.modules)\n"
         "import bftkv_tpu_torch, bftkv_tpu_torch.ops.rns, bftkv_tpu_torch.ops.cuda_rns\n"
         "import bftkv_tpu_torch.ops.dispatch, bftkv_tpu_torch.crypto.rsa\n"
+        "import bftkv_tpu_torch.ops.bigint, bftkv_tpu_torch.ops.rsa\n"
+        "import bftkv_tpu_torch.ops.cuda_mont, bftkv_tpu_torch.ops.modexp\n"
         "new = {m.split('.')[0] for m in set(sys.modules) - before}\n"
         "print(sorted(new & {'jax', 'jaxlib', 'bftkv_tpu'}))\n"
     )
@@ -67,9 +69,11 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
 
 def _entry_points():
     from bftkv_tpu_torch.crypto import rsa
-    from bftkv_tpu_torch.ops import dispatch, rns
+    from bftkv_tpu_torch.ops import bigint, dispatch, modexp, rns
+    from bftkv_tpu_torch.ops import rsa as rsa_ops
 
     ctx = rns.context(16, 256)
+    digits = np.zeros((256, 128), np.uint32)
     return {
         "verify_e65537_rns_indexed": lambda: rns.verify_e65537_rns_indexed(
             np.zeros((1, 128), np.uint32), np.zeros((1, 128), np.uint32), [0],
@@ -88,13 +92,24 @@ def _entry_points():
         "VerifyDispatcher": lambda: dispatch.VerifyDispatcher(device="cuda"),
         "SignDispatcher": lambda: dispatch.SignDispatcher(device="cuda"),
         "calibration": lambda: dispatch.calibration(device="cuda"),
+        "limbs_from_numpy": lambda: bigint.limbs_from_numpy(digits, "cuda"),
+        "verify_batch_e65537": lambda: rsa_ops.verify_batch_e65537(
+            *(digits,) * 5, device="cuda"
+        ),
+        "power_batch": lambda: rsa_ops.power_batch(*(digits,) * 6, device="cuda"),
+        "BatchModExp": lambda: modexp.BatchModExp(device="cuda"),
+        "VerifierDomain_limb": lambda: rsa.VerifierDomain(device="cuda", backend="limb"),
+        "VerifierDomain_pallas": lambda: rsa.VerifierDomain(device="cuda", backend="pallas"),
+        "SignerDomain_limb": lambda: rsa.SignerDomain(device="cuda", backend="limb"),
     }
 
 
 ENTRY_POINTS = [
-    "SignDispatcher", "SignerDomain", "VerifierDomain", "VerifyDispatcher",
-    "calibration", "consts_from_numpy", "key_rows_from_numpy",
-    "power_mod_rns", "verify_e65537_rns_indexed",
+    "BatchModExp", "SignDispatcher", "SignerDomain", "SignerDomain_limb",
+    "VerifierDomain", "VerifierDomain_limb", "VerifierDomain_pallas",
+    "VerifyDispatcher", "calibration", "consts_from_numpy", "key_rows_from_numpy",
+    "limbs_from_numpy", "power_batch", "power_mod_rns", "verify_batch_e65537",
+    "verify_e65537_rns_indexed",
 ]
 
 
@@ -129,6 +144,9 @@ def test_flag_seam():
         "BFTKV_HOST_VERIFY_THRESHOLD",
         "BFTKV_HOST_SIGN_THRESHOLD",
         "BFTKV_DISPATCH_CROSSOVER",
+        "BFTKV_VERIFY_BACKEND",
+        "BFTKV_SIGN_BACKEND",
+        "BFTKV_TPU_MIN_MODEXP_BATCH",
     }
     # Every declared flag is read somewhere in the port, and no BFTKV_*
     # name is read from the environment outside flags.py.
