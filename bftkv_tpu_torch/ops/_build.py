@@ -17,7 +17,7 @@ import ctypes
 import os
 import threading
 
-__all__ = ["BUILD_DIR", "library"]
+__all__ = ["BUILD_DIR", "library", "load"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [os.path.join(_HERE, "csrc", name) for name in ("rns_chain.cu", "mont_chain.cu")]
@@ -30,8 +30,9 @@ _lib: ctypes.CDLL | None = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # (halves_a, halves_b, idx, T, n_keys, 6 key-row arrays, 5 channel vectors,
-#  E1, E2, D, invMq_pr, invM_pr, k, digits, out, stream)
-_LAUNCH_ARGS = [_P, _P, _P, _I, _I] + [_P] * 6 + [_P] * 5 + [_P] * 3 + [_I] * 4 + [_P, _P]
+#  E1, E2, D, invMq_pr, invM_pr, k, digits, out, stream, smem_need, smem_limit)
+_LAUNCH_ARGS = ([_P, _P, _P, _I, _I] + [_P] * 6 + [_P] * 5 + [_P] * 3 + [_I] * 4 + [_P, _P]
+                + [ctypes.POINTER(_I)] * 2)
 
 
 def library() -> ctypes.CDLL:
@@ -39,19 +40,22 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            _lib = _load()
+            _lib = load()
         return _lib
 
 
-def _load() -> ctypes.CDLL:
+def load(name: str = "bftkv_kernels", build_dir: str = BUILD_DIR,
+         defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Builds the sources into ``build_dir`` (with extra ``-D`` ``defines``,
+    for a timing comparison of a compile-time variant) and loads them."""
     from torch.utils import cpp_extension
 
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(build_dir, exist_ok=True)
     path = cpp_extension.load(
-        name="bftkv_kernels",
+        name=name,
         sources=SOURCES,
-        extra_cuda_cflags=CUDA_FLAGS,
-        build_directory=BUILD_DIR,
+        extra_cuda_cflags=CUDA_FLAGS + [f"-D{d}" for d in defines],
+        build_directory=build_dir,
         is_python_module=False,
     )
     lib = ctypes.CDLL(path)
@@ -60,9 +64,7 @@ def _load() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.rns_kernel_attrs.argtypes = [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
     lib.rns_kernel_attrs.restype = ctypes.c_int
-    lib.rns_smem_plan.argtypes = [_I, _I, _I] + [ctypes.POINTER(_I)] * 3
-    lib.rns_smem_plan.restype = ctypes.c_int
-    # (sig, em, n, r2, n0p, T, out, stream)
+    # (sig, em, n, nprime, r2, T, out, stream)
     lib.mont_verify_launch.argtypes = [_P] * 5 + [_I, _P, _P]
     lib.mont_verify_launch.restype = ctypes.c_int
     lib.mont_kernel_attrs.argtypes = [ctypes.POINTER(_I), ctypes.POINTER(_I)]

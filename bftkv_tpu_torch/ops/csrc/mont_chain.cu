@@ -13,8 +13,8 @@
 // integrated operand scanning) with 64-bit multiply-adds and one final
 // conditional subtraction.  R = 2^2048 in both widths, so the reference's r2
 // serves unchanged, and n0' = -n^-1 mod 2^32 is the low 32 bits of its n' (the
-// wrapper derives it).  Both forms give the canonical v < n, so the diff is
-// bit-identical to the plain version.
+// kernel reads n'[0] | n'[1] << 16).  Both forms give the canonical v < n, so
+// the diff is bit-identical to the plain version.
 //
 // Design (a simple kernel that is right; making it fast is later work):
 // - one thread runs one row through the whole chain; its 64-word accumulator,
@@ -108,8 +108,8 @@ __device__ __forceinline__ void mont_mul(const uint32_t (&a)[kWords], const uint
 
 __global__ void __launch_bounds__(kRows)
 mont_verify_kernel(const int32_t* __restrict__ sig, const int32_t* __restrict__ em,
-                   const int32_t* __restrict__ n, const int32_t* __restrict__ r2,
-                   const int32_t* __restrict__ n0p, int T, int32_t* __restrict__ out) {
+                   const int32_t* __restrict__ n, const int32_t* __restrict__ nprime,
+                   const int32_t* __restrict__ r2, int T, int32_t* __restrict__ out) {
   __shared__ uint32_t b_all[kWords * kRows];   // multiplier of the current product
   __shared__ uint32_t sm_all[kWords * kRows];  // s in Montgomery form
   const int lane = threadIdx.x;
@@ -118,7 +118,8 @@ mont_verify_kernel(const int32_t* __restrict__ sig, const int32_t* __restrict__ 
   uint32_t* b = b_all + lane;
   uint32_t* sm = sm_all + lane;
   const size_t base = (size_t)row * kDigits;
-  const uint32_t n0 = (uint32_t)n0p[row];
+  const uint32_t n0 = ((uint32_t)nprime[base] & 0xFFFFu) |
+                      (((uint32_t)nprime[base + 1] & 0xFFFFu) << 16);
 
   uint32_t nn[kWords], acc[kWords];
   load_words(n + base, nn);
@@ -152,13 +153,13 @@ mont_verify_kernel(const int32_t* __restrict__ sig, const int32_t* __restrict__ 
 extern "C" {
 
 // Returns a cudaError_t value (0 = launched).  All operands are (T, 128) int32
-// 16-bit digits, row-major; n0p is (T,) int32, the low 32 bits of n'.
+// 16-bit digits, row-major.
 int mont_verify_launch(const int32_t* sig, const int32_t* em, const int32_t* n,
-                       const int32_t* r2, const int32_t* n0p, int T, int32_t* out,
+                       const int32_t* nprime, const int32_t* r2, int T, int32_t* out,
                        void* stream) {
   if (T <= 0) return (int)cudaErrorInvalidValue;
   const int grid = (T + kRows - 1) / kRows;
-  mont_verify_kernel<<<grid, kRows, 0, (cudaStream_t)stream>>>(sig, em, n, r2, n0p, T, out);
+  mont_verify_kernel<<<grid, kRows, 0, (cudaStream_t)stream>>>(sig, em, n, nprime, r2, T, out);
   return (int)cudaGetLastError();
 }
 

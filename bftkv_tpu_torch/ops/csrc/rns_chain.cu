@@ -452,48 +452,41 @@ rns_pow_kernel(const uint8_t* __restrict__ base_h, const uint8_t* __restrict__ n
 }
 
 constexpr int kVerifyRows = 8;
-// K2 runs 4 rows per block where their shared memory fits the card, else 2:
-// at k = 188 (2048-bit moduli) 4 rows need 254,848 B, over the H100's opt-in
-// 232,448 B, and 2 rows need 198,488 B.
-constexpr int kPowRows = 4;
-constexpr int kPowRowsSmall = 2;
-// Returned (instead of a cudaError_t) when no variant's shared memory fits.
+// K2 runs 2 rows per block.  At k = 188 (2048-bit moduli) 4 rows would need
+// 254,848 B of shared memory, over the H100's opt-in 232,448 B; 2 rows need
+// 198,488 B.  At k = 94 two rows per block are faster than four at T = 512 and
+// as fast at T = 4096 (PERF.md; timed by bftkv_tpu_torch/tools/time_k2_rows.py,
+// which builds this file with -DRNS_POW_ROWS=4 for the comparison).
+#ifndef RNS_POW_ROWS
+#define RNS_POW_ROWS 2
+#endif
+constexpr int kPowRows = RNS_POW_ROWS;
+// Returned (instead of a cudaError_t) when the block's shared memory does not
+// fit the device; the launcher has then written the need and the limit.
 constexpr int kErrSharedMemory = -2;
 
 int threads_for(int k) { return ((k + 1 + 31) / 32) * 32; }
 
-// Rows per block of kernel `which` (0 = K1, 1 = K2) at (k, digits) within the
-// current device's opt-in shared memory per block: 0 when none fits.  `need` is
-// the chosen variant's bytes, or the smallest variant's when none fits.
-cudaError_t plan(int which, int k, int digits, int* rows, size_t* need, size_t* limit) {
+// Launches `kernel` at R rows per block after checking its dynamic shared
+// memory against the device's opt-in limit per block.
+template <int R, typename Kernel>
+int launch(Kernel kernel, bool table, int T, int n_keys, int k, int digits,
+           cudaStream_t stream, const uint8_t* a, const uint8_t* b, const int32_t* idx,
+           KeyRows key, RnsConsts cc, int32_t* out, int* smem_need, int* smem_limit) {
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  *limit = (size_t)optin;
-  if (which == 0) {
-    *need = Smem<kVerifyRows>::bytes(k, digits, false);
-    *rows = *need <= *limit ? kVerifyRows : 0;
-  } else if ((*need = Smem<kPowRows>::bytes(k, digits, true)) <= *limit) {
-    *rows = kPowRows;
-  } else {
-    *need = Smem<kPowRowsSmall>::bytes(k, digits, true);
-    *rows = *need <= *limit ? kPowRowsSmall : 0;
-  }
-  return cudaSuccess;
-}
-
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, int T, int n_keys, int rows, int k, size_t smem,
-                   cudaStream_t stream, const uint8_t* a, const uint8_t* b, const int32_t* idx,
-                   KeyRows key, RnsConsts cc, int32_t* out) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int grid = (T + rows - 1) / rows;
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = Smem<R>::bytes(k, digits, table);
+  *smem_need = (int)smem;
+  *smem_limit = optin;
+  if (smem > (size_t)optin) return kErrSharedMemory;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = (T + R - 1) / R;
   kernel<<<grid, threads_for(k), smem, stream>>>(a, b, idx, T, n_keys, key, cc, out);
-  return cudaGetLastError();
+  return (int)cudaGetLastError();
 }
 
 bool bad_shape(int T, int n_keys, int k, int digits) {
@@ -507,8 +500,9 @@ bool bad_shape(int T, int n_keys, int k, int digits) {
 extern "C" {
 
 // Both launchers return a cudaError_t value (0 = launched), or
-// kErrSharedMemory when the context's shared memory does not fit the card
-// (rns_smem_plan then says how much it needs).
+// kErrSharedMemory when the block's shared memory does not fit the card.
+// They write the dynamic shared memory the launch needs and the device's
+// opt-in limit per block to smem_need and smem_limit.
 int rns_verify_launch(const uint8_t* sig_h, const uint8_t* em_h, const int32_t* idx, int T,
                       int n_keys, const int32_t* n_all, const int32_t* n_r, const int32_t* neg_ninv_b,
                       const int32_t* ninv_all, const int32_t* m2_all, const int32_t* m2_r,
@@ -516,18 +510,14 @@ int rns_verify_launch(const uint8_t* sig_h, const uint8_t* em_h, const int32_t* 
                       const int32_t* Mq_mod_b, const int32_t* invM_q,
                       const uint16_t* E1, const uint16_t* E2, const uint16_t* D,
                       int invMq_pr, int invM_pr, int k, int digits,
-                      int32_t* out, void* stream) {
+                      int32_t* out, void* stream, int* smem_need, int* smem_limit) {
   if (bad_shape(T, n_keys, k, digits)) return (int)cudaErrorInvalidValue;
-  int rows = 0;
-  size_t smem = 0, limit = 0;
-  const cudaError_t err = plan(0, k, digits, &rows, &smem, &limit);
-  if (err != cudaSuccess) return (int)err;
-  if (rows == 0) return kErrSharedMemory;
   const KeyRows key{n_all, n_r, neg_ninv_b, ninv_all, m2_all, m2_r};
   const RnsConsts cc{p_all, invMi_b, invMi_q, Mq_mod_b, invM_q, E1, E2, D,
                      (uint32_t)invMq_pr, (uint32_t)invM_pr, k, digits};
-  return (int)launch(rns_verify_kernel<kVerifyRows>, T, n_keys, kVerifyRows, k, smem,
-                     (cudaStream_t)stream, sig_h, em_h, idx, key, cc, out);
+  return launch<kVerifyRows>(rns_verify_kernel<kVerifyRows>, false, T, n_keys, k, digits,
+                             (cudaStream_t)stream, sig_h, em_h, idx, key, cc, out,
+                             smem_need, smem_limit);
 }
 
 int rns_pow_launch(const uint8_t* base_h, const uint8_t* nib_t, const int32_t* idx, int T,
@@ -537,43 +527,22 @@ int rns_pow_launch(const uint8_t* base_h, const uint8_t* nib_t, const int32_t* i
                    const int32_t* Mq_mod_b, const int32_t* invM_q,
                    const uint16_t* E1, const uint16_t* E2, const uint16_t* D,
                    int invMq_pr, int invM_pr, int k, int digits,
-                   int32_t* sigma_out, void* stream) {
+                   int32_t* sigma_out, void* stream, int* smem_need, int* smem_limit) {
   if (bad_shape(T, n_keys, k, digits)) return (int)cudaErrorInvalidValue;
-  int rows = 0;
-  size_t smem = 0, limit = 0;
-  const cudaError_t err = plan(1, k, digits, &rows, &smem, &limit);
-  if (err != cudaSuccess) return (int)err;
-  if (rows == 0) return kErrSharedMemory;
   const KeyRows key{n_all, n_r, neg_ninv_b, ninv_all, m2_all, m2_r};
   const RnsConsts cc{p_all, invMi_b, invMi_q, Mq_mod_b, invM_q, E1, E2, D,
                      (uint32_t)invMq_pr, (uint32_t)invM_pr, k, digits};
-  if (rows == kPowRows) {
-    return (int)launch(rns_pow_kernel<kPowRows>, T, n_keys, kPowRows, k, smem,
-                       (cudaStream_t)stream, base_h, nib_t, idx, key, cc, sigma_out);
-  }
-  return (int)launch(rns_pow_kernel<kPowRowsSmall>, T, n_keys, kPowRowsSmall, k, smem,
-                     (cudaStream_t)stream, base_h, nib_t, idx, key, cc, sigma_out);
-}
-
-// The launchers' shared-memory plan for kernel `which` (0 = K1, 1 = K2) at
-// (k, digits): rows per block (0 = does not fit), the bytes it needs and the
-// device's opt-in limit.  Returns a cudaError_t value.
-int rns_smem_plan(int which, int k, int digits, int* rows, int* need, int* limit) {
-  size_t n = 0, l = 0;
-  const cudaError_t err = plan(which, k, digits, rows, &n, &l);
-  *need = (int)n;
-  *limit = (int)l;
-  return (int)err;
+  return launch<kPowRows>(rns_pow_kernel<kPowRows>, true, T, n_keys, k, digits,
+                          (cudaStream_t)stream, base_h, nib_t, idx, key, cc, sigma_out,
+                          smem_need, smem_limit);
 }
 
 // Registers and local-memory bytes (spills and stack) per thread of a kernel
-// as compiled: which = 0 for K1, 1 for K2 at 4 rows per block, 2 for K2 at 2.
-// Returns a cudaError_t value.
+// as compiled: which = 0 for K1, 1 for K2.  Returns a cudaError_t value.
 int rns_kernel_attrs(int which, int* regs, int* local_bytes) {
   cudaFuncAttributes a;
-  cudaError_t err = which == 0   ? cudaFuncGetAttributes(&a, rns_verify_kernel<kVerifyRows>)
-                    : which == 1 ? cudaFuncGetAttributes(&a, rns_pow_kernel<kPowRows>)
-                                 : cudaFuncGetAttributes(&a, rns_pow_kernel<kPowRowsSmall>);
+  const cudaError_t err = which == 0 ? cudaFuncGetAttributes(&a, rns_verify_kernel<kVerifyRows>)
+                                     : cudaFuncGetAttributes(&a, rns_pow_kernel<kPowRows>);
   if (err != cudaSuccess) return (int)err;
   *regs = a.numRegs;
   *local_bytes = (int)a.localSizeBytes;

@@ -22,8 +22,8 @@ import torch
 
 from bftkv_tpu_torch.ops import _build
 
-__all__ = ["LAUNCHES", "TILE", "kernel_attrs", "n0_prime", "reset_launches",
-           "verify_cuda", "verify_diff"]
+__all__ = ["LAUNCHES", "TILE", "kernel_attrs", "reset_launches", "verify_cuda",
+           "verify_diff"]
 
 L = 128  # 16-bit digits of a 2048-bit number: the kernel is 2048-bit only
 TILE = 256  # rows per tile of the reference kernel
@@ -48,13 +48,6 @@ def kernel_attrs() -> dict[str, dict[str, int]]:
             f"mont_verify kernel attributes: {lib.rns_error_string(rc).decode()} ({rc})"
         )
     return {"mont_verify": {"registers": regs.value, "local_bytes": local.value}}
-
-
-def n0_prime(nprime: torch.Tensor) -> torch.Tensor:
-    """(T,) int32 bit patterns of n0' = −n⁻¹ mod 2^32: the low two digits
-    of n' = −n⁻¹ mod 2^2048, the constant of the kernel's 32-bit CIOS."""
-    x = nprime[:, 0].long() | (nprime[:, 1].long() << 16)
-    return (x - ((x >> 31) << 32)).to(torch.int32)
 
 
 def _check(ops) -> None:
@@ -84,12 +77,11 @@ def verify_diff(sig, em, n, nprime, r2) -> torch.Tensor:
     if sig.device.type != "cuda":
         raise ValueError(f"unsupported device {sig.device}")
     out = torch.empty_like(sig)
-    n0 = n0_prime(nprime)
     lib = _build.library()
     stream = torch.cuda.current_stream(sig.device).cuda_stream
     rc = lib.mont_verify_launch(
-        sig.data_ptr(), em.data_ptr(), n.data_ptr(), r2.data_ptr(),
-        n0.data_ptr(), sig.shape[0], out.data_ptr(), stream,
+        sig.data_ptr(), em.data_ptr(), n.data_ptr(), nprime.data_ptr(),
+        r2.data_ptr(), sig.shape[0], out.data_ptr(), stream,
     )
     if rc != 0:
         raise RuntimeError(

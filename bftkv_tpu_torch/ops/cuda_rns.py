@@ -28,17 +28,16 @@ import torch
 from bftkv_tpu_torch.ops import _build
 from bftkv_tpu_torch.ops import rns
 
-__all__ = ["LAUNCHES", "kernel_attrs", "pow_cuda", "reset_launches", "smem_plan",
-           "verify_cuda"]
+__all__ = ["LAUNCHES", "kernel_attrs", "pow_cuda", "reset_launches", "verify_cuda"]
 
 #: Kernel launches per wrapper ("verify" = K1, "pow" = K2).
 LAUNCHES = {"verify": 0, "pow": 0}
 _count_lock = threading.Lock()
 
-#: The launchers' code for "the context's shared memory does not fit".
+#: The launchers' code for "the block's shared memory does not fit the card".
 _ERR_SHARED_MEMORY = -2
-#: Compiled variants: K1, K2 at 4 rows per block, K2 at 2 rows per block.
-_VARIANTS = ("verify", "pow", "pow_2rows")
+#: The kernels in ``rns_kernel_attrs``' order.
+_KERNELS = ("verify", "pow")
 
 
 def reset_launches() -> None:
@@ -48,10 +47,10 @@ def reset_launches() -> None:
 
 
 def kernel_attrs() -> dict[str, dict[str, int]]:
-    """Registers and local-memory bytes per thread of each variant as built."""
+    """Registers and local-memory bytes per thread of each kernel as built."""
     lib = _build.library()
     out = {}
-    for which, name in enumerate(_VARIANTS):
+    for which, name in enumerate(_KERNELS):
         regs, local = ctypes.c_int(), ctypes.c_int()
         rc = lib.rns_kernel_attrs(which, ctypes.byref(regs), ctypes.byref(local))
         if rc != 0:
@@ -60,21 +59,6 @@ def kernel_attrs() -> dict[str, dict[str, int]]:
             )
         out[name] = {"registers": regs.value, "local_bytes": local.value}
     return out
-
-
-def smem_plan(which: str, k: int, digits: int) -> dict[str, int]:
-    """The launcher's plan for ``which`` ("verify" or "pow") at (k, digits)
-    on the current device: rows per block (0: does not fit), the dynamic
-    shared memory it needs and the device's opt-in limit per block."""
-    lib = _build.library()
-    rows, need, limit = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    rc = lib.rns_smem_plan(
-        0 if which == "verify" else 1, k, digits,
-        ctypes.byref(rows), ctypes.byref(need), ctypes.byref(limit),
-    )
-    if rc != 0:
-        raise RuntimeError(f"rns smem plan: {lib.rns_error_string(rc).decode()} ({rc})")
-    return {"rows_per_block": rows.value, "smem_bytes": need.value, "smem_limit": limit.value}
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, dev) -> None:
@@ -113,6 +97,7 @@ def _launch(which: str, a, b, idx, ukey, cn, out_shape) -> torch.Tensor:
     lib = _build.library()
     fn = lib.rns_verify_launch if which == "verify" else lib.rns_pow_launch
     stream = torch.cuda.current_stream(dev).cuda_stream
+    need, limit = ctypes.c_int(), ctypes.c_int()
     rc = fn(
         a.data_ptr(), b.data_ptr(), idx.data_ptr(), t, n_keys,
         *(u.data_ptr() for u in ukey),
@@ -121,14 +106,12 @@ def _launch(which: str, a, b, idx, ukey, cn, out_shape) -> torch.Tensor:
         kc["invM_q"].data_ptr(),
         kc["E1"].data_ptr(), kc["E2"].data_ptr(), kc["D"].data_ptr(),
         cn.invMq_pr, cn.invM_pr, k, digits,
-        out.data_ptr(), stream,
+        out.data_ptr(), stream, ctypes.byref(need), ctypes.byref(limit),
     )
     if rc == _ERR_SHARED_MEMORY:
-        plan = smem_plan(which, k, digits)
         raise RuntimeError(
-            f"rns {which} kernel at k={k}, {digits} digits needs "
-            f"{plan['smem_bytes']} bytes of shared memory per block; "
-            f"the device allows {plan['smem_limit']}"
+            f"rns {which} kernel at k={k}, {digits} digits needs {need.value} bytes "
+            f"of shared memory per block; the device allows {limit.value}"
         )
     if rc != 0:
         raise RuntimeError(

@@ -365,8 +365,7 @@ def rns_record(name, which, replaces, args, launches, kernel_reps, plain_reps, *
         name, "bftkv_tpu_torch/ops/csrc/rns_chain.cu", replaces, launches,
         lambda: real(*args), lambda: plain(cn, a, b, rns.gather_key(ukey, idx)),
         t * macs_row, nbytes(a, b, idx, *ukey) + nbytes(*cn.kern.values()) + out_bytes,
-        kernel_reps, plain_reps, rows=t, k=k, digits=digits,
-        **cuda_rns.smem_plan(which, k, digits), **extra,
+        kernel_reps, plain_reps, rows=t, k=k, digits=digits, **extra,
     )
 
 
@@ -376,16 +375,23 @@ def k3_record(args, launches):
     from bftkv_tpu_torch.ops import rsa as rsa_ops
 
     t = args[0].shape[0]
-    # The reference's 16-bit digit multiply-accumulates per Montgomery
-    # product: 128^2 for a*b, 128*129/2 for m = t*n' mod R, 128^2 for m*n.
-    macs_row = 19 * (128 * 128 + 128 * 129 // 2 + 128 * 128)
+    n_bytes = 6 * nbytes(args[0])
+    # What the chain needs, in 16-bit digit multiply-accumulates (L = 128)
+    # with digit-serial Montgomery reduction (L for the m digits, L^2 for
+    # m*n): s*r2 and x*s are general products (2L^2 + L), the 16 squarings
+    # need L(L+1)/2 + L + L^2, from-Montgomery (x*1) is the reduction alone.
+    L = 128
+    macs_row = 2 * (2 * L * L + L) + 16 * (L * (L + 1) // 2 + L + L * L) + (L * L + L)
+    # A second figure: 19 full products of L^2 (a*b) + L(L+1)/2 (m = t*n' mod
+    # R as a half product) + L^2 (m*n), which overcounts the chain's work.
+    full_products_ms = bound_ms(t * 19 * (2 * L * L + L * (L + 1) // 2), n_bytes)[0]
     return kernel_record(
         "K3 mont_verify_kernel", "bftkv_tpu_torch/ops/csrc/mont_chain.cu",
         "bftkv_tpu/ops/pallas_mont.py:174", launches,
         lambda: cuda_mont.verify_diff(*args),
         lambda: rsa_ops._verify_chain(*(a.long() for a in args)),
-        t * macs_row, 6 * nbytes(args[0]), kernel_reps=20, plain_reps=2,
-        rows=t, compared="(T, 128) diff",
+        t * macs_row, n_bytes, kernel_reps=20, plain_reps=2,
+        rows=t, compared="(T, 128) diff", bound_ms_19_full_products=full_products_ms,
     )
 
 
@@ -590,7 +596,7 @@ def main() -> int:
                    phase_launches={"sign_rns": s_launch["pow"]}, **attrs["pow"]),
         rns_record("K2 rns_pow_kernel (k=188)", "pow", "bftkv_tpu/ops/pallas_rns.py:403",
                    m_args[0], c_m.launches["pow"], 5, 1,
-                   phase_launches={"modexp_2048": c_m.launches["pow"]}, **attrs["pow_2rows"]),
+                   phase_launches={"modexp_2048": c_m.launches["pow"]}, **attrs["pow"]),
         k3_record(k3_args[0], p_launch["mont_verify"]),
     ]
     kernels[3].update(phase_launches={"verify_pallas": p_launch["mont_verify"]},

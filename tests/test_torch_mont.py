@@ -250,8 +250,11 @@ def test_k3_wrapper_on_cpu_runs_the_plain_chain(k3_case):
 
 
 def test_k3_n0_prime_is_the_low_word_of_n_prime():
+    """K3 takes n0' = n'[0] | n'[1] << 16 from the int32 digit rows it is
+    given (``mont_chain.cu``); on the reference's n' that is -n^-1 mod 2^32."""
     ns = [_odd(2048) for _ in range(6)] + [(1 << 2048) - 1, (1 << 2047) + 1]
-    nprime = np.stack([ref_bigint.MontgomeryDomain(n, 128).n_prime for n in ns])
-    n0 = cuda_mont.n0_prime(torch.as_tensor(nprime.astype(np.int32)))
-    assert n0.dtype == torch.int32
-    assert [int(v) % (1 << 32) for v in n0] == [(-pow(n, -1, 1 << 32)) % (1 << 32) for n in ns]
+    nprime = torch.as_tensor(
+        np.stack([ref_bigint.MontgomeryDomain(n, 128).n_prime for n in ns]).astype(np.int32)
+    )
+    n0 = (nprime[:, 0].long() & 0xFFFF) | ((nprime[:, 1].long() & 0xFFFF) << 16)
+    assert n0.tolist() == [(-pow(n, -1, 1 << 32)) % (1 << 32) for n in ns]
