@@ -1,7 +1,7 @@
 """Builds the hand-written CUDA kernels at first use.
 
-``torch.utils.cpp_extension.load`` compiles ``csrc/rns_chain.cu`` (K1,
-K2) and ``csrc/mont_chain.cu`` (K3) from this checkout for ``sm_90a``
+``torch.utils.cpp_extension.load`` compiles ``csrc/rns_chain.cu`` (K1),
+``csrc/rns_pow.cu`` (K2) and ``csrc/mont_chain.cu`` (K3) from this checkout for ``sm_90a``
 into one library under ``bftkv_tpu_torch/_build/`` (listed in
 ``.gitignore``) and loads it; ninja runs one ``nvcc`` per source, in
 parallel.  The sources have a plain C interface and include no PyTorch
@@ -20,7 +20,7 @@ import threading
 __all__ = ["BUILD_DIR", "library", "load"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCES = [os.path.join(_HERE, "csrc", name) for name in ("rns_chain.cu", "mont_chain.cu")]
+SOURCES = [os.path.join(_HERE, "csrc", name) for name in ("rns_chain.cu", "rns_pow.cu", "mont_chain.cu")]
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build", "kernels")
 CUDA_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a"]
 
@@ -33,6 +33,11 @@ _I = ctypes.c_int
 #  E1, E2, D, invMq_pr, invM_pr, k, digits, out, stream, smem_need, smem_limit)
 _LAUNCH_ARGS = ([_P, _P, _P, _I, _I] + [_P] * 6 + [_P] * 5 + [_P] * 3 + [_I] * 4 + [_P, _P]
                 + [ctypes.POINTER(_I)] * 2)
+# K2: (base_h, nib_t, idx, T, n_keys, 6 key-row arrays, 5 channel vectors,
+#  mu_all and 4 Shoup vectors, E1, E2, E_mma, D, invMq_pr, invM_pr, k, digits,
+#  sigma_out, stream, smem_need, smem_limit)
+_POW_ARGS = ([_P, _P, _P, _I, _I] + [_P] * 6 + [_P] * 5 + [_P] * 5 + [_P] * 4 + [_I] * 4
+             + [_P, _P] + [ctypes.POINTER(_I)] * 2)
 
 
 def library() -> ctypes.CDLL:
@@ -59,11 +64,14 @@ def load(name: str = "bftkv_kernels", build_dir: str = BUILD_DIR,
         is_python_module=False,
     )
     lib = ctypes.CDLL(path)
-    for fn in (lib.rns_verify_launch, lib.rns_pow_launch):
-        fn.argtypes = _LAUNCH_ARGS
-        fn.restype = ctypes.c_int
-    lib.rns_kernel_attrs.argtypes = [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+    lib.rns_verify_launch.argtypes = _LAUNCH_ARGS
+    lib.rns_verify_launch.restype = ctypes.c_int
+    lib.rns_pow_launch.argtypes = _POW_ARGS
+    lib.rns_pow_launch.restype = ctypes.c_int
+    lib.rns_kernel_attrs.argtypes = [ctypes.POINTER(_I)] * 2
     lib.rns_kernel_attrs.restype = ctypes.c_int
+    lib.rns_pow_attrs.argtypes = [ctypes.POINTER(_I)] * 3
+    lib.rns_pow_attrs.restype = ctypes.c_int
     # (sig, em, n, nprime, r2, T, out, stream)
     lib.mont_verify_launch.argtypes = [_P] * 5 + [_I, _P, _P]
     lib.mont_verify_launch.restype = ctypes.c_int

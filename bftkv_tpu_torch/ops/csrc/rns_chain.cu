@@ -1,13 +1,11 @@
-// Fused RNS Montgomery chains for Hopper (sm_90a): the port's K1 and K2.
+// Fused RNS Montgomery chain for Hopper (sm_90a): the port's K1.
 //
 // K1 rns_verify_kernel replaces bftkv_tpu/ops/pallas_rns.py::_verify_body
 //    (pallas_call at pallas_rns.py:517): RSA-2048 e=65537 verify in RNS.
-// K2 rns_pow_kernel replaces bftkv_tpu/ops/pallas_rns.py::_pow_body
-//    (pallas_call at pallas_rns.py:403): fixed-4-bit-window modexp in RNS,
-//    returning the CRT coefficients sigma over base B.
+// (K2, the windowed modexp, is in rns_pow.cu.)
 //
-// What they compute is the reference's ops/rns.py::_verify_kernel and
-// _pow_kernel, bit for bit.  Residues are canonical integers in [0, p) with
+// What it computes is the reference's ops/rns.py::_verify_kernel, bit for
+// bit.  Residues are canonical integers in [0, p) with
 // p < 2^12, so exact uint32 arithmetic gives the same values as the
 // reference's f32 Barrett: a product of two residues is < 2^24, and a base
 // extension sum over k <= 255 channels of such products is < 2^32 (k = 188
@@ -24,12 +22,8 @@
 // - the two extension matrices E1, E2 (k x (k+1) uint16) are staged in shared
 //   memory once per block; sigma vectors are broadcast from shared memory;
 // - the digit -> residue matrix D is read from global memory (L2 resident).
-// Bound: integer multiply-adds (about 1.5 M per verify row, 23 M per 1024-bit
-// modexp row), i.e. operations, not bytes; each row reads a few hundred bytes.
-//
-// K2 is constant-time in the secret exponent: the window entry is chosen by
-// an arithmetic one-hot blend over all 16 table entries (as pallas_rns.py:
-// 324-333); no branch, index or shared-memory address depends on a nibble.
+// Bound: integer multiply-adds (about 1.5 M per verify row), i.e. operations,
+// not bytes; each row reads a few hundred bytes.
 //
 // Rows past the batch end compute on a clamped copy of the last row and are
 // never stored; every row below the batch end is written (fail closed).
@@ -74,21 +68,18 @@ struct Smem {
   uint32_t* rr;      // (R) redundant channel of the product
   uint32_t* alpha;   // (R) Shenoy correction
   uint32_t* misc;    // (2R) verify: alpha of channel 0, mismatch flag
-  uint32_t* tab;     // pow only: (16, 2k+1, R) window table
   uint16_t* E1;      // (k, k+1)
   uint16_t* E2;      // (k, k+1)
 
-  __host__ __device__ static size_t words(int k, int digits, bool table) {
-    size_t w = 2 * (size_t)k * R + 2 * (size_t)digits * R +
-               (2 * (size_t)k + 1) * R + 4 * (size_t)R;
-    if (table) w += 16 * (2 * (size_t)k + 1) * R;
-    return w;
+  __host__ __device__ static size_t words(int k, int digits) {
+    return 2 * (size_t)k * R + 2 * (size_t)digits * R +
+           (2 * (size_t)k + 1) * R + 4 * (size_t)R;
   }
-  __host__ __device__ static size_t bytes(int k, int digits, bool table) {
+  __host__ __device__ static size_t bytes(int k, int digits) {
     size_t e = 2 * (size_t)k * (k + 1) * sizeof(uint16_t);
-    return words(k, digits, table) * sizeof(uint32_t) + e;
+    return words(k, digits) * sizeof(uint32_t) + e;
   }
-  __device__ void carve(unsigned char* raw, int k, int digits, bool table) {
+  __device__ void carve(unsigned char* raw, int k, int digits) {
     uint32_t* w = reinterpret_cast<uint32_t*>(raw);
     sig1 = w;   w += (size_t)k * R;
     sig2 = w;   w += (size_t)k * R;
@@ -97,8 +88,6 @@ struct Smem {
     rr = w;     w += R;
     alpha = w;  w += R;
     misc = w;   w += 2 * R;
-    tab = w;
-    if (table) w += 16 * (2 * (size_t)k + 1) * R;
     E1 = reinterpret_cast<uint16_t*>(w);
     E2 = E1 + (size_t)k * (k + 1);
   }
@@ -262,8 +251,8 @@ struct Chain {
 
 // Rows of this block (clamped: rows past T compute but are never stored) and
 // their key rows.  A key index outside [0, n_keys) is clamped so no read
-// leaves the key table, and reported in the returned bit mask: the verify
-// kernel fails such rows closed.  (The entry points refuse such indices.)
+// leaves the key table, and reported in the returned bit mask: the kernel
+// fails such rows closed.  (The entry points refuse such indices.)
 template <int R>
 __device__ __forceinline__ unsigned block_rows(int T, const int32_t* idx, int n_keys,
                                                int (&row)[R], int (&kid)[R]) {
@@ -287,7 +276,7 @@ rns_verify_kernel(const uint8_t* __restrict__ sig_h, const uint8_t* __restrict__
                   RnsConsts cc, int32_t* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Chain<R> ch;
-  ch.s.carve(smem_raw, cc.k, cc.digits, false);
+  ch.s.carve(smem_raw, cc.k, cc.digits);
   int row[R], kid[R];
   const unsigned bad_idx = block_rows<R>(T, idx, n_keys, row, kid);
   ch.init(cc, key, kid);
@@ -355,112 +344,7 @@ rns_verify_kernel(const uint8_t* __restrict__ sig_h, const uint8_t* __restrict__
   }
 }
 
-template <int R>
-__global__ void __launch_bounds__(256, 1)
-rns_pow_kernel(const uint8_t* __restrict__ base_h, const uint8_t* __restrict__ nib_t,
-               const int32_t* __restrict__ idx, int T, int n_keys, KeyRows key,
-               RnsConsts cc, int32_t* __restrict__ sigma_out) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Chain<R> ch;
-  ch.s.carve(smem_raw, cc.k, cc.digits, true);
-  int row[R], kid[R];
-  block_rows<R>(T, idx, n_keys, row, kid);
-  ch.init(cc, key, kid);
-  ch.stage_matrices();
-  const int k = cc.k, nch = 2 * k + 1;
-  const int cc_ = ch.chan ? ch.ch : 0;
-
-  uint32_t xb[R], xq[R], xr[R];
-  ch.load_halves(base_h, row);
-  ch.to_residues(xb, xq, xr);
-
-  uint32_t mb[R], mq[R], mr[R], ob[R], oq[R], orr[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const size_t base = (size_t)kid[r] * 2 * k;
-    mb[r] = (uint32_t)key.m2_all[base + cc_];
-    mq[r] = (uint32_t)key.m2_all[base + k + cc_];
-    mr[r] = (uint32_t)key.m2_r[kid[r]];
-    ob[r] = 1u; oq[r] = 1u; orr[r] = 1u;
-  }
-  ch.mont(xb, xq, xr, mb, mq, mr, xb, xq, xr);      // base in Montgomery form
-  ch.mont(mb, mq, mr, ob, oq, orr, ob, oq, orr);    // M mod N: the Montgomery one
-
-  // 16-entry window table t[w] = base^w (Montgomery form), in shared memory.
-  // Channel ch's entries are written and read by thread ch only; the
-  // redundant channel's by thread 0 (read by all after the barrier below).
-  uint32_t tb[R], tq[R], tr[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) { tb[r] = ob[r]; tq[r] = oq[r]; tr[r] = orr[r]; }
-  for (int w = 0; w < 16; ++w) {
-    if (w >= 2) ch.mont(tb, tq, tr, xb, xq, xr, tb, tq, tr);
-    else if (w == 1) {
-#pragma unroll
-      for (int r = 0; r < R; ++r) { tb[r] = xb[r]; tq[r] = xq[r]; tr[r] = xr[r]; }
-    }
-    uint32_t* t = ch.s.tab + (size_t)w * nch * R;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (ch.chan) {
-        t[ch.ch * R + r] = tb[r];
-        t[(k + ch.ch) * R + r] = tq[r];
-      }
-      if (threadIdx.x == 0) t[2 * k * R + r] = tr[r];
-    }
-  }
-  __syncthreads();
-
-  // acc = one; per nibble (most significant first): acc^16 * t[nibble].
-  uint32_t ab[R], aq[R], ar[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) { ab[r] = ob[r]; aq[r] = oq[r]; ar[r] = orr[r]; }
-  const int steps = 4 * cc.digits;
-  for (int st = 0; st < steps; ++st) {
-    for (int i = 0; i < 4; ++i) ch.mont(ab, aq, ar, ab, aq, ar, ab, aq, ar);
-    uint32_t nib[R], sb[R], sq[R], sr[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      nib[r] = nib_t[(size_t)st * T + row[r]];
-      sb[r] = 0u; sq[r] = 0u; sr[r] = 0u;
-    }
-    // Constant-time select: every entry is read, the mask is arithmetic.
-    for (int w = 0; w < 16; ++w) {
-      const uint32_t* t = ch.s.tab + (size_t)w * nch * R;
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const uint32_t m = 0u - (uint32_t)(nib[r] == (uint32_t)w);
-        sb[r] |= m & t[cc_ * R + r];
-        sq[r] |= m & t[(k + cc_) * R + r];
-        sr[r] |= m & t[2 * k * R + r];
-      }
-    }
-    ch.mont(ab, aq, ar, sb, sq, sr, ab, aq, ar);
-  }
-#pragma unroll
-  for (int r = 0; r < R; ++r) { ob[r] = 1u; oq[r] = 1u; orr[r] = 1u; }
-  ch.mont(ab, aq, ar, ob, oq, orr, ab, aq, ar);     // out of Montgomery form
-
-  const int row0 = blockIdx.x * R;
-  if (ch.chan) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (row0 + r < T) {
-        sigma_out[(size_t)(row0 + r) * k + ch.ch] = (int32_t)((ab[r] * ch.invMi_b) % ch.pb);
-      }
-    }
-  }
-}
-
 constexpr int kVerifyRows = 8;
-// K2 runs 2 rows per block.  At k = 188 (2048-bit moduli) 4 rows would need
-// 254,848 B of shared memory, over the H100's opt-in 232,448 B; 2 rows need
-// 198,488 B.  At k = 94 two rows per block are faster than four at T = 512 and
-// as fast at T = 4096 (PERF.md; timed by bftkv_tpu_torch/tools/time_k2_rows.py,
-// which builds this file with -DRNS_POW_ROWS=4 for the comparison).
-#ifndef RNS_POW_ROWS
-#define RNS_POW_ROWS 2
-#endif
-constexpr int kPowRows = RNS_POW_ROWS;
 // Returned (instead of a cudaError_t) when the block's shared memory does not
 // fit the device; the launcher has then written the need and the limit.
 constexpr int kErrSharedMemory = -2;
@@ -470,7 +354,7 @@ int threads_for(int k) { return ((k + 1 + 31) / 32) * 32; }
 // Launches `kernel` at R rows per block after checking its dynamic shared
 // memory against the device's opt-in limit per block.
 template <int R, typename Kernel>
-int launch(Kernel kernel, bool table, int T, int n_keys, int k, int digits,
+int launch(Kernel kernel, int T, int n_keys, int k, int digits,
            cudaStream_t stream, const uint8_t* a, const uint8_t* b, const int32_t* idx,
            KeyRows key, RnsConsts cc, int32_t* out, int* smem_need, int* smem_limit) {
   int dev = 0, optin = 0;
@@ -478,7 +362,7 @@ int launch(Kernel kernel, bool table, int T, int n_keys, int k, int digits,
   if (err != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = Smem<R>::bytes(k, digits, table);
+  const size_t smem = Smem<R>::bytes(k, digits);
   *smem_need = (int)smem;
   *smem_limit = optin;
   if (smem > (size_t)optin) return kErrSharedMemory;
@@ -491,7 +375,7 @@ int launch(Kernel kernel, bool table, int T, int n_keys, int k, int digits,
 
 bool bad_shape(int T, int n_keys, int k, int digits) {
   // k <= 255 keeps every extension sum below 2^32 and the k + 1 channel
-  // threads within the kernels' 256-thread launch bound.
+  // threads within the kernel's 256-thread launch bound.
   return T <= 0 || n_keys <= 0 || k <= 0 || k > 255 || digits <= 0 || digits > 256;
 }
 
@@ -499,9 +383,9 @@ bool bad_shape(int T, int n_keys, int k, int digits) {
 
 extern "C" {
 
-// Both launchers return a cudaError_t value (0 = launched), or
+// The launcher returns a cudaError_t value (0 = launched), or
 // kErrSharedMemory when the block's shared memory does not fit the card.
-// They write the dynamic shared memory the launch needs and the device's
+// It writes the dynamic shared memory the launch needs and the device's
 // opt-in limit per block to smem_need and smem_limit.
 int rns_verify_launch(const uint8_t* sig_h, const uint8_t* em_h, const int32_t* idx, int T,
                       int n_keys, const int32_t* n_all, const int32_t* n_r, const int32_t* neg_ninv_b,
@@ -515,34 +399,16 @@ int rns_verify_launch(const uint8_t* sig_h, const uint8_t* em_h, const int32_t* 
   const KeyRows key{n_all, n_r, neg_ninv_b, ninv_all, m2_all, m2_r};
   const RnsConsts cc{p_all, invMi_b, invMi_q, Mq_mod_b, invM_q, E1, E2, D,
                      (uint32_t)invMq_pr, (uint32_t)invM_pr, k, digits};
-  return launch<kVerifyRows>(rns_verify_kernel<kVerifyRows>, false, T, n_keys, k, digits,
+  return launch<kVerifyRows>(rns_verify_kernel<kVerifyRows>, T, n_keys, k, digits,
                              (cudaStream_t)stream, sig_h, em_h, idx, key, cc, out,
                              smem_need, smem_limit);
 }
 
-int rns_pow_launch(const uint8_t* base_h, const uint8_t* nib_t, const int32_t* idx, int T,
-                   int n_keys, const int32_t* n_all, const int32_t* n_r, const int32_t* neg_ninv_b,
-                   const int32_t* ninv_all, const int32_t* m2_all, const int32_t* m2_r,
-                   const int32_t* p_all, const int32_t* invMi_b, const int32_t* invMi_q,
-                   const int32_t* Mq_mod_b, const int32_t* invM_q,
-                   const uint16_t* E1, const uint16_t* E2, const uint16_t* D,
-                   int invMq_pr, int invM_pr, int k, int digits,
-                   int32_t* sigma_out, void* stream, int* smem_need, int* smem_limit) {
-  if (bad_shape(T, n_keys, k, digits)) return (int)cudaErrorInvalidValue;
-  const KeyRows key{n_all, n_r, neg_ninv_b, ninv_all, m2_all, m2_r};
-  const RnsConsts cc{p_all, invMi_b, invMi_q, Mq_mod_b, invM_q, E1, E2, D,
-                     (uint32_t)invMq_pr, (uint32_t)invM_pr, k, digits};
-  return launch<kPowRows>(rns_pow_kernel<kPowRows>, true, T, n_keys, k, digits,
-                          (cudaStream_t)stream, base_h, nib_t, idx, key, cc, sigma_out,
-                          smem_need, smem_limit);
-}
-
-// Registers and local-memory bytes (spills and stack) per thread of a kernel
-// as compiled: which = 0 for K1, 1 for K2.  Returns a cudaError_t value.
-int rns_kernel_attrs(int which, int* regs, int* local_bytes) {
+// Registers and local-memory bytes (spills and stack) per thread of K1 as
+// compiled.  Returns a cudaError_t value.
+int rns_kernel_attrs(int* regs, int* local_bytes) {
   cudaFuncAttributes a;
-  const cudaError_t err = which == 0 ? cudaFuncGetAttributes(&a, rns_verify_kernel<kVerifyRows>)
-                                     : cudaFuncGetAttributes(&a, rns_pow_kernel<kPowRows>);
+  const cudaError_t err = cudaFuncGetAttributes(&a, rns_verify_kernel<kVerifyRows>);
   if (err != cudaSuccess) return (int)err;
   *regs = a.numRegs;
   *local_bytes = (int)a.localSizeBytes;

@@ -2,7 +2,7 @@
 
 - :func:`verify_cuda` — K1, ``csrc/rns_chain.cu::rns_verify_kernel``,
   replaces ``pallas_rns.py::_verify_body`` (entry ``verify_pallas``);
-- :func:`pow_cuda` — K2, ``csrc/rns_chain.cu::rns_pow_kernel``, replaces
+- :func:`pow_cuda` — K2, ``csrc/rns_pow.cu::rns_pow_kernel``, replaces
   ``pallas_rns.py::_pow_body`` (entry ``pow_pallas``).
 
 Each takes device tensors: the (T, ·) operands, the (T,) key index, the
@@ -36,9 +36,6 @@ _count_lock = threading.Lock()
 
 #: The launchers' code for "the block's shared memory does not fit the card".
 _ERR_SHARED_MEMORY = -2
-#: The kernels in ``rns_kernel_attrs``' order.
-_KERNELS = ("verify", "pow")
-
 
 def reset_launches() -> None:
     with _count_lock:
@@ -47,17 +44,21 @@ def reset_launches() -> None:
 
 
 def kernel_attrs() -> dict[str, dict[str, int]]:
-    """Registers and local-memory bytes per thread of each kernel as built."""
+    """Registers and local-memory bytes per thread of each kernel as built,
+    and K2's rows per block."""
     lib = _build.library()
+    regs, local, rows = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     out = {}
-    for which, name in enumerate(_KERNELS):
-        regs, local = ctypes.c_int(), ctypes.c_int()
-        rc = lib.rns_kernel_attrs(which, ctypes.byref(regs), ctypes.byref(local))
+    for name, rc in (
+        ("verify", lib.rns_kernel_attrs(ctypes.byref(regs), ctypes.byref(local))),
+        ("pow", lib.rns_pow_attrs(ctypes.byref(regs), ctypes.byref(local), ctypes.byref(rows))),
+    ):
         if rc != 0:
             raise RuntimeError(
                 f"rns {name} kernel attributes: {lib.rns_error_string(rc).decode()} ({rc})"
             )
         out[name] = {"registers": regs.value, "local_bytes": local.value}
+    out["pow"]["rows_per_block"] = rows.value
     return out
 
 
@@ -95,16 +96,19 @@ def _launch(which: str, a, b, idx, ukey, cn, out_shape) -> torch.Tensor:
     kc = cn.kern
     out = torch.empty(out_shape, dtype=torch.int32, device=dev)
     lib = _build.library()
-    fn = lib.rns_verify_launch if which == "verify" else lib.rns_pow_launch
     stream = torch.cuda.current_stream(dev).cuda_stream
     need, limit = ctypes.c_int(), ctypes.c_int()
+    ptrs = lambda *names: [kc[n].data_ptr() for n in names]
+    chans = ptrs("p_all", "invMi_b", "invMi_q", "Mq_mod_b", "invM_q")
+    if which == "verify":
+        fn, mats = lib.rns_verify_launch, ptrs("E1", "E2", "D")
+    else:
+        fn = lib.rns_pow_launch
+        chans += ptrs("mu_all", "invMi_b_sh", "invMi_q_sh", "Mq_mod_b_sh", "invM_q_sh")
+        mats = ptrs("E1", "E2", "E_mma", "D")
     rc = fn(
         a.data_ptr(), b.data_ptr(), idx.data_ptr(), t, n_keys,
-        *(u.data_ptr() for u in ukey),
-        kc["p_all"].data_ptr(), kc["invMi_b"].data_ptr(),
-        kc["invMi_q"].data_ptr(), kc["Mq_mod_b"].data_ptr(),
-        kc["invM_q"].data_ptr(),
-        kc["E1"].data_ptr(), kc["E2"].data_ptr(), kc["D"].data_ptr(),
+        *(u.data_ptr() for u in ukey), *chans, *mats,
         cn.invMq_pr, cn.invM_pr, k, digits,
         out.data_ptr(), stream, ctypes.byref(need), ctypes.byref(limit),
     )

@@ -222,9 +222,86 @@ def _exact_int(a, name: str) -> np.ndarray:
     return out
 
 
+def barrett_mu(p) -> np.ndarray:
+    """μ_p = ⌊2^32/p⌋ (uint64 values < 2^32 for p ≥ 2).  K2 reduces an
+    x < 2^32 as q = umulhi(x, μ_p), r = x − q·p, one conditional
+    subtraction of p."""
+    p = np.asarray(p, dtype=np.uint64)
+    if (p < 2).any():
+        raise ValueError("Barrett reciprocals need p >= 2")
+    return (np.uint64(1) << np.uint64(32)) // p
+
+
+def shoup_w(w, p) -> np.ndarray:
+    """w′ = ⌊w·2^32/p⌋ for a fixed multiplier w < p.  K2 reduces a·w
+    (a < 2^32) as q = umulhi(a, w′), r = a·w − q·p mod 2^32, one
+    conditional subtraction of p."""
+    w = np.asarray(w, dtype=np.uint64)
+    p = np.asarray(p, dtype=np.uint64)
+    if (w >= p).any():
+        raise ValueError("Shoup multipliers must be reduced: w < p")
+    return (w << np.uint64(32)) // p
+
+
+#: K2's tensor-core tile: mma.sync m16n8k32 (M channels out, K channels in).
+MMA_M, MMA_K = 16, 32
+
+
+def mma_dims(k: int) -> tuple[int, int]:
+    """(M_pad, K_pad): the k+1 extension outputs (B′ or B, then 2^12) and
+    the k inputs, padded to whole tensor-core tiles."""
+    return -(-(k + 1) // MMA_M) * MMA_M, -(-k // MMA_K) * MMA_K
+
+
+def _fragment_index(m_pad: int, k_pad: int):
+    """(row, col) of A = (M_pad, K_pad) for each byte of the fragment
+    order (M tile, K step, lane, 16 bytes): lane = 4g + t holds the s8
+    words (g, 4t), (g+8, 4t), (g, 16+4t), (g+8, 16+4t) of its tile, four
+    consecutive K entries per word, lowest first — PTX's A layout of
+    mma.m16n8k32 (row-major A)."""
+    mt, ks, lane, byte = np.meshgrid(
+        np.arange(m_pad // MMA_M), np.arange(k_pad // MMA_K), np.arange(32),
+        np.arange(16), indexing="ij",
+    )
+    g, t = lane >> 2, lane & 3
+    word, b = byte >> 2, byte & 3
+    row = mt * MMA_M + g + 8 * (word & 1)
+    col = ks * MMA_K + 16 * (word >> 1) + 4 * t + b
+    return row, col
+
+
+def mma_planes(E1: np.ndarray, E2: np.ndarray) -> np.ndarray:
+    """K2's A operands: for each extension matrix E (k, k+1), A = Eᵀ zero
+    padded to (M_pad, K_pad), split into 6-bit planes (lo, hi), each
+    entry < 64, as int8 in fragment order.  Shape (2 extensions, 2
+    planes, M_pad/16, K_pad/32, 32 lanes, 16 bytes)."""
+    k = E1.shape[0]
+    m_pad, k_pad = mma_dims(k)
+    row, col = _fragment_index(m_pad, k_pad)
+    out = []
+    for E in (E1, E2):
+        a = np.zeros((m_pad, k_pad), dtype=np.int64)
+        a[: k + 1, :k] = np.asarray(E, dtype=np.int64).T
+        out.append([(a & 63)[row, col], (a >> 6)[row, col]])
+    return np.asarray(out, dtype=np.int8)
+
+
+def mma_unpack(planes: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
+    """Inverse of :func:`mma_planes`: the two padded (M_pad, K_pad) int64
+    matrices A = Eᵀ, planes recombined (lo + 64·hi)."""
+    m_pad, k_pad = mma_dims(k)
+    row, col = _fragment_index(m_pad, k_pad)
+    out = []
+    for e in range(2):
+        a = np.zeros((m_pad, k_pad), dtype=np.int64)
+        a[row, col] = planes[e, 0].astype(np.int64) + 64 * planes[e, 1].astype(np.int64)
+        out.append(a)
+    return out[0], out[1]
+
+
 class _Consts:
     """Context constants as int64 tensors on one device, plus the packed
-    int32/int16 forms the CUDA kernels read (``kern``)."""
+    int32/int16/int8 forms the CUDA kernels read (``kern``)."""
 
     def __init__(self, arrays: dict, device: torch.device):
         missing = [n for n in CONTEXT_ARRAYS if n not in arrays]
@@ -273,6 +350,8 @@ class _Consts:
         self.E1f, self.E2f, self.Df = f64(E1), f64(E2), f64(D)
         t32 = lambda a: torch.as_tensor(a, dtype=torch.int32, device=device)
         t16 = lambda a: torch.as_tensor(a, dtype=torch.int16, device=device)
+        u32 = lambda a: t32(np.asarray(a, dtype=np.uint32).view(np.int32))
+        pb, pq = p_all[:k], p_all[k:]
         self.kern = {
             "p_all": t32(p_all),
             "invMi_b": t32(vec("invMi_b")),
@@ -282,6 +361,15 @@ class _Consts:
             "E1": t16(E1),  # entries < 2^12: the kernel reads them as uint16
             "E2": t16(E2),
             "D": t16(D),
+            # K2's reciprocals, as uint32 bit patterns: Barrett's μ_p per
+            # channel of [B | B'], Shoup's w' of each fixed multiplier.
+            "mu_all": u32(barrett_mu(p_all)),
+            "invMi_b_sh": u32(shoup_w(vec("invMi_b"), pb)),
+            "invMi_q_sh": u32(shoup_w(vec("invMi_q"), pq)),
+            "Mq_mod_b_sh": u32(shoup_w(vec("Mq_mod_b"), pb)),
+            "invM_q_sh": u32(shoup_w(vec("invM_q"), pq)),
+            # K2's extension matrices as int8 6-bit planes in mma fragment order.
+            "E_mma": torch.as_tensor(mma_planes(E1, E2), device=device),
         }
 
 

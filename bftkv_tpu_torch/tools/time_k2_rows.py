@@ -1,21 +1,28 @@
-"""Times K2 (``rns_pow_kernel``) at 2 and at 4 rows per block on one GPU.
+"""Times K2 (``rns_pow_kernel``) at candidate rows per block, and against
+an earlier K2, on one GPU.
 
-The library builds K2 at 2 rows per block (``RNS_POW_ROWS`` in
-``ops/csrc/rns_chain.cu``), the most that fits the card's shared memory
-at 2048-bit moduli.  This script builds a second copy at 4 rows per block
-(``-DRNS_POW_ROWS=4``, under ``bftkv_tpu_torch/_build/kernels_pow4/``)
-and times both on the same seeded operands of the RNS sign shape (k=94,
-64 digits: 1024-bit CRT halves) at T=512 and T=4096, interleaved
-(2, 4, 4, 2 rows) by CUDA events.  Both must agree with each other and
-with the plain version bit for bit.  At k=188 the 4-row copy must refuse
-to launch, naming the byte count.
+The library builds K2 at one rows-per-block count (``RNS_POW_ROWS`` in
+``ops/csrc/rns_pow.cu``).  This script builds a copy of the kernels for
+each other count in ``--rows`` (``-DRNS_POW_ROWS=R``, under
+``bftkv_tpu_torch/_build/kernels_rowsR/``) and, with ``--parent FILE``,
+an earlier K2 from a copy of its source (a ``rns_chain.cu`` whose
+``rns_pow_launch`` takes the E1/E2 uint16 matrices and no reciprocals).
+It times them on the same seeded operands at the main path's two shapes
+(k=94, 64 digits, T=512: the RNS sign flush; k=188, 128 digits, T=64:
+2048-bit ``BatchModExp``) and at k=94, T=4096, in turns (parent, then
+each count, then back in reverse order) by CUDA events.  Every variant
+must agree with the plain version bit for bit; one that cannot launch
+(shared memory) is recorded with its error.
 
-Run from the repository root:  python3 -m bftkv_tpu_torch.tools.time_k2_rows
+Run from the repository root:
+    python3 -m bftkv_tpu_torch.tools.time_k2_rows [--rows 2,4,8] [--parent FILE]
 It prints one JSON object, with the card's name and power limit.
 """
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
 import os
 import subprocess
@@ -27,6 +34,7 @@ import torch
 from bftkv_tpu_torch.ops import _build, cuda_rns, rns
 
 REPS = 10
+SHAPES = ((64, 1024, 512), (128, 2048, 64), (64, 1024, 4096))  # (digits, n_bits, T)
 
 
 def _moduli(ctx, bits: int, count: int, seed: int) -> list[int]:
@@ -63,60 +71,106 @@ def _ms(fn) -> float:
     return start.elapsed_time(end) / REPS
 
 
+def _parent_pow(path: str):
+    """Builds an earlier K2 from ``path`` and returns (launch, attrs)."""
+    from torch.utils import cpp_extension
+
+    build_dir = os.path.join(os.path.dirname(_build.BUILD_DIR), "kernels_parent")
+    os.makedirs(build_dir, exist_ok=True)
+    lib = ctypes.CDLL(cpp_extension.load(
+        name="bftkv_parent_k2", sources=[os.path.abspath(path)],
+        extra_cuda_cflags=_build.CUDA_FLAGS, build_directory=build_dir,
+        is_python_module=False,
+    ))
+    lib.rns_pow_launch.argtypes = _build._LAUNCH_ARGS
+    lib.rns_pow_launch.restype = ctypes.c_int
+    lib.rns_kernel_attrs.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    lib.rns_kernel_attrs(1, ctypes.byref(regs), ctypes.byref(local))
+
+    def launch(bh, nib, idx, ukey, cn):
+        kc = cn.kern
+        out = torch.empty((bh.shape[0], cn.k), dtype=torch.int32, device=bh.device)
+        need, limit = ctypes.c_int(), ctypes.c_int()
+        rc = lib.rns_pow_launch(
+            bh.data_ptr(), nib.data_ptr(), idx.data_ptr(), bh.shape[0], ukey[0].shape[0],
+            *(u.data_ptr() for u in ukey),
+            *(kc[n].data_ptr() for n in ("p_all", "invMi_b", "invMi_q", "Mq_mod_b", "invM_q",
+                                         "E1", "E2", "D")),
+            cn.invMq_pr, cn.invM_pr, cn.k, cn.digits, out.data_ptr(),
+            torch.cuda.current_stream(bh.device).cuda_stream,
+            ctypes.byref(need), ctypes.byref(limit),
+        )
+        if rc != 0:
+            raise RuntimeError(f"parent K2 launch failed ({rc}), smem {need.value}/{limit.value}")
+        return out
+
+    return launch, {"registers": regs.value, "local_bytes": local.value}
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--rows", default="", help="comma-separated rows per block to build besides the library's")
+    ap.add_argument("--parent", default="", help="source of an earlier K2 to time against")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("time_k2_rows: needs one CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
-    libs = {
-        2: _build.library(),
-        4: _build.load("bftkv_kernels_pow4",
-                       os.path.join(os.path.dirname(_build.BUILD_DIR), "kernels_pow4"),
-                       defines=("RNS_POW_ROWS=4",)),
-    }
-
-    def pow_with(rows, args):
-        _build._lib = libs[rows]  # the wrappers launch through _build.library()
-        try:
-            return cuda_rns.pow_cuda(*args)
-        finally:
-            _build._lib = libs[2]
-
+    base = _build.library()
+    built = cuda_rns.kernel_attrs()["pow"]["rows_per_block"]
+    libs = {built: base}
+    for r in sorted({int(x) for x in args.rows.split(",") if x} - {built}):
+        libs[r] = _build.load(f"bftkv_kernels_rows{r}",
+                              os.path.join(os.path.dirname(_build.BUILD_DIR), f"kernels_rows{r}"),
+                              defines=(f"RNS_POW_ROWS={r}",))
+    variants = {}
     attrs = {}
-    for rows in (2, 4):
-        _build._lib = libs[rows]
-        attrs[rows] = cuda_rns.kernel_attrs()["pow"]
-    _build._lib = libs[2]
-
-    out = {"rows_attrs": {str(r): a for r, a in attrs.items()}, "k94": []}
-    for t in (512, 4096):
-        args = _operands(64, 1024, t, 128, dev, seed=94 + t)
-        got = {r: pow_with(r, args) for r in (2, 4)}
-        plain = rns._pow_kernel(args[4], args[0], args[1], rns.gather_key(args[3], args[2]))
-        same = torch.equal(got[2], got[4]) and torch.equal(got[2].long(), plain)
+    for r, lib in libs.items():
+        def pow_with(*a, lib=lib):
+            _build._lib = lib  # the wrappers launch through _build.library()
+            try:
+                return cuda_rns.pow_cuda(*a)
+            finally:
+                _build._lib = base
+        _build._lib = lib
+        attrs[f"rows{r}"] = cuda_rns.kernel_attrs()["pow"]
+        _build._lib = base
+        variants[f"rows{r}"] = pow_with
+    if args.parent:
+        variants["parent"], attrs["parent"] = _parent_pow(args.parent)
+    order = list(variants)
+    order = order[-1:] + order[:-1] if args.parent else order  # parent first
+    out = {"built_rows": built, "attrs": attrs, "shapes": []}
+    ok = True
+    for digits, n_bits, t in SHAPES:
+        a = _operands(digits, n_bits, t, 8, dev, seed=digits + t)
+        plain = rns._pow_kernel(a[4], a[0], a[1], rns.gather_key(a[3], a[2]))
+        rec = {"k": a[4].k, "digits": digits, "rows": t, "ms": {}, "errors": {}, "bit_identical": {}}
+        live = []
+        for name in order:
+            try:
+                got = variants[name](*a)
+                torch.cuda.synchronize()
+            except RuntimeError as e:
+                rec["errors"][name] = str(e)
+                continue
+            same = torch.equal(got.long(), plain)
+            rec["bit_identical"][name] = same
+            ok = ok and same
+            live.append(name)
         del plain
-        times = {2: [], 4: []}
-        for r in (2, 4, 4, 2):
-            times[r].append(_ms(lambda: pow_with(r, args)))
-        out["k94"].append({"rows": t, "bit_identical": same,
-                           "ms_2rows": times[2], "ms_4rows": times[4]})
-        if not same:
-            print(json.dumps(out), flush=True)
-            print("time_k2_rows: the 2-row and 4-row kernels disagree", file=sys.stderr)
-            return 1
-    args = _operands(128, 2048, 64, 8, dev, seed=188)
-    try:
-        pow_with(4, args)
-        out["k188_4rows"] = "launched"
-    except RuntimeError as e:
-        out["k188_4rows"] = str(e)
-    out["k188_2rows_ms"] = _ms(lambda: pow_with(2, args))
+        for name in live + live[::-1]:
+            rec["ms"].setdefault(name, []).append(_ms(lambda: variants[name](*a)))
+        out["shapes"].append(rec)
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
     print(json.dumps(out), flush=True)
-    return 0 if "needs" in out["k188_4rows"] else 1
+    if not ok:
+        print("time_k2_rows: a K2 variant disagrees with the plain version", file=sys.stderr)
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

@@ -21,7 +21,7 @@ holds every hand-written kernel against its plain PyTorch version:
 6. limb sign phase: 256 shares through SignerDomain(backend="limb"): one
    512-row limb power_batch (PyTorch ops) and one K1 fault check;
 7. BatchModExp phase: (a) 64 pairs of 2048-bit bases and exponents modulo
-   one replica modulus, K2 at k=188 (2 rows per block); (b) 8 pairs with
+   one replica modulus, K2 at k=188; (b) 8 pairs with
    2300-bit exponents, the shape of threshold-RSA fragments, on the limb
    path with the 256-limb exponent bucket.  Both must equal host pow;
 8. each kernel against its plain version on the card, on the operands the
@@ -73,6 +73,10 @@ HBM_BYTES_PER_S = 3.35e12
 # tensor cores (6-bit split, as the TPU kernels' bf16 planes): 8 ops per MAC.
 # K3's 16-bit digit products are counted the same way (four 8-bit products).
 OPS_PER_MAC = 8
+# The parent's K2 (CUDA cores, rns_chain.cu, 2 rows per block) at the main
+# path's two shapes: PERF.md section 6, PR 2 review pass, H100 80GB HBM3, 700 W.
+K2_EARLIER_MS = {94: 3.6543, 188: 10.935}
+K2_EARLIER_OF = "parent kernel (rns_chain.cu::rns_pow_kernel), PERF.md, PR 2 review pass"
 
 
 def fail(msg: str) -> None:
@@ -362,7 +366,8 @@ def rns_record(name, which, replaces, args, launches, kernel_reps, plain_reps, *
         macs_row = (2 * digits) * (2 * k + 1) + products * 2 * k * (k + 1)
     out_bytes = t * (4 if which == "verify" else 4 * k)
     return kernel_record(
-        name, "bftkv_tpu_torch/ops/csrc/rns_chain.cu", replaces, launches,
+        name, f"bftkv_tpu_torch/ops/csrc/{'rns_chain' if which == 'verify' else 'rns_pow'}.cu",
+        replaces, launches,
         lambda: real(*args), lambda: plain(cn, a, b, rns.gather_key(ukey, idx)),
         t * macs_row, nbytes(a, b, idx, *ukey) + nbytes(*cn.kern.values()) + out_bytes,
         kernel_reps, plain_reps, rows=t, k=k, digits=digits, **extra,
@@ -593,10 +598,12 @@ def main() -> int:
                    phase_launches=k1_launches, **attrs["verify"]),
         rns_record("K2 rns_pow_kernel (k=94)", "pow", "bftkv_tpu/ops/pallas_rns.py:403",
                    p_args[0], s_launch["pow"], 10, 2,
-                   phase_launches={"sign_rns": s_launch["pow"]}, **attrs["pow"]),
+                   phase_launches={"sign_rns": s_launch["pow"]},
+                   earlier_ms=K2_EARLIER_MS[94], earlier_ms_of=K2_EARLIER_OF, **attrs["pow"]),
         rns_record("K2 rns_pow_kernel (k=188)", "pow", "bftkv_tpu/ops/pallas_rns.py:403",
                    m_args[0], c_m.launches["pow"], 5, 1,
-                   phase_launches={"modexp_2048": c_m.launches["pow"]}, **attrs["pow"]),
+                   phase_launches={"modexp_2048": c_m.launches["pow"]},
+                   earlier_ms=K2_EARLIER_MS[188], earlier_ms_of=K2_EARLIER_OF, **attrs["pow"]),
         k3_record(k3_args[0], p_launch["mont_verify"]),
     ]
     kernels[3].update(phase_launches={"verify_pallas": p_launch["mont_verify"]},
