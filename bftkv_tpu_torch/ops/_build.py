@@ -34,9 +34,9 @@ _I = ctypes.c_int
 _LAUNCH_ARGS = ([_P, _P, _P, _I, _I] + [_P] * 6 + [_P] * 5 + [_P] * 3 + [_I] * 4 + [_P, _P]
                 + [ctypes.POINTER(_I)] * 2)
 # K2: (base_h, nib_t, idx, T, n_keys, 6 key-row arrays, 5 channel vectors,
-#  mu_all and 4 Shoup vectors, E1, E2, E_mma, D, invMq_pr, invM_pr, k, digits,
+#  mu_all and 4 Shoup vectors, E_mma, D, invMq_pr, invM_pr, k, digits,
 #  sigma_out, stream, smem_need, smem_limit)
-_POW_ARGS = ([_P, _P, _P, _I, _I] + [_P] * 6 + [_P] * 5 + [_P] * 5 + [_P] * 4 + [_I] * 4
+_POW_ARGS = ([_P, _P, _P, _I, _I] + [_P] * 6 + [_P] * 5 + [_P] * 5 + [_P] * 2 + [_I] * 4
              + [_P, _P] + [ctypes.POINTER(_I)] * 2)
 
 

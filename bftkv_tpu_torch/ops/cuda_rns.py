@@ -47,12 +47,15 @@ def kernel_attrs() -> dict[str, dict[str, int]]:
     """Registers and local-memory bytes per thread of each kernel as built,
     and K2's rows per block."""
     lib = _build.library()
-    regs, local, rows = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    rows = ctypes.c_int()
+    calls = {
+        "verify": lambda regs, local: lib.rns_kernel_attrs(regs, local),
+        "pow": lambda regs, local: lib.rns_pow_attrs(regs, local, ctypes.byref(rows)),
+    }
     out = {}
-    for name, rc in (
-        ("verify", lib.rns_kernel_attrs(ctypes.byref(regs), ctypes.byref(local))),
-        ("pow", lib.rns_pow_attrs(ctypes.byref(regs), ctypes.byref(local), ctypes.byref(rows))),
-    ):
+    for name, call in calls.items():
+        regs, local = ctypes.c_int(), ctypes.c_int()
+        rc = call(ctypes.byref(regs), ctypes.byref(local))
         if rc != 0:
             raise RuntimeError(
                 f"rns {name} kernel attributes: {lib.rns_error_string(rc).decode()} ({rc})"
@@ -105,7 +108,7 @@ def _launch(which: str, a, b, idx, ukey, cn, out_shape) -> torch.Tensor:
     else:
         fn = lib.rns_pow_launch
         chans += ptrs("mu_all", "invMi_b_sh", "invMi_q_sh", "Mq_mod_b_sh", "invM_q_sh")
-        mats = ptrs("E1", "E2", "E_mma", "D")
+        mats = ptrs("E_mma", "D")
     rc = fn(
         a.data_ptr(), b.data_ptr(), idx.data_ptr(), t, n_keys,
         *(u.data_ptr() for u in ukey), *chans, *mats,

@@ -60,7 +60,10 @@ PR_BITS = 12
 PR = 1 << PR_BITS  # redundant modulus (power of two)
 _PR_MASK = PR - 1
 DIGITS = 128  # 16-bit digits per 2048-bit number
-# Largest context the CUDA kernels take (csrc/rns_chain.cu::bad_shape).
+# Largest context the CUDA kernels take (csrc/rns_chain.cu::bad_shape and
+# rns_pow.cu::rns_pow_launch): K1 runs k + 1 channel threads in a block of at
+# most 256; K2 runs one warp per 16 of the k + 1 extension outputs, at most
+# 16 warps; both sum k products of 12-bit residues exactly in uint32.
 MAX_CHANNELS = 255
 MAX_DIGITS = 256
 
@@ -317,8 +320,6 @@ class _Consts:
         if p_all.shape != (2 * k,):
             raise ValueError(f"p_all shape {p_all.shape} != ({2 * k},)")
         if k > MAX_CHANNELS:
-            # The CUDA kernels run k + 1 channel threads in a block of at
-            # most 256, and accumulate Σ over k 12-bit products in uint32.
             raise ValueError(f"k={k} channels exceeds {MAX_CHANNELS}")
 
         def plane(name):

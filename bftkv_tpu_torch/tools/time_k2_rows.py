@@ -14,8 +14,18 @@ each count, then back in reverse order) by CUDA events.  Every variant
 must agree with the plain version bit for bit; one that cannot launch
 (shared memory) is recorded with its error.
 
+With ``--phases`` it also builds K2 with ``-DRNS_POW_PHASES`` (clock64
+marks in each Montgomery product, block 0 only) and reports, at the two
+main-path shapes, the cycles per product each warp spends in each phase:
+``outside`` (the window select and nibble loads between products),
+``elem_a`` (d = a*b, sigma1), ``sync_a``, ``ext1`` (B -> B' on the
+tensor cores), ``elem_b`` (r, sigma2, the redundant channel), ``sync_b``,
+``ext2`` (B' -> B, alpha), ``sync_c_elem_c`` (the correction).  The
+marks themselves cost cycles, so the instrumented kernel's time is
+reported beside them.
+
 Run from the repository root:
-    python3 -m bftkv_tpu_torch.tools.time_k2_rows [--rows 2,4,8] [--parent FILE]
+    python3 -m bftkv_tpu_torch.tools.time_k2_rows [--rows 2,4,8] [--parent FILE] [--phases]
 It prints one JSON object, with the card's name and power limit.
 """
 
@@ -108,10 +118,44 @@ def _parent_pow(path: str):
     return launch, {"registers": regs.value, "local_bytes": local.value}
 
 
+PHASES = ("outside", "elem_a", "sync_a", "ext1", "elem_b", "sync_b", "ext2", "sync_c_elem_c")
+
+
+def _phases(rows: int, dev) -> list[dict]:
+    """Block 0's phase clocks of an instrumented K2 at the main-path shapes."""
+    lib = _build.load(f"bftkv_kernels_phases{rows}",
+                      os.path.join(os.path.dirname(_build.BUILD_DIR), f"kernels_phases{rows}"),
+                      defines=(f"RNS_POW_ROWS={rows}", "RNS_POW_PHASES"))
+    lib.rns_pow_phases.argtypes = [ctypes.c_void_p]
+    lib.rns_pow_phases.restype = ctypes.c_int
+    base = _build._lib
+    recs = []
+    for digits, n_bits, t in SHAPES[:2]:
+        a = _operands(digits, n_bits, t, 8, dev, seed=digits + t)
+        _build._lib = lib
+        try:
+            ms = _ms(lambda: cuda_rns.pow_cuda(*a))
+        finally:
+            _build._lib = base
+        buf = np.zeros((16, len(PHASES)), dtype=np.uint64)
+        rc = lib.rns_pow_phases(buf.ctypes.data)
+        if rc != 0:
+            raise RuntimeError(f"rns_pow_phases failed ({rc})")
+        k = a[4].k
+        warps = (k + 1 + 15) // 16
+        products = 17 + 20 * digits
+        per = buf[:warps].astype(np.float64).mean(axis=0) / products
+        recs.append({"k": k, "rows": t, "instrumented_ms": ms, "products_per_row": products,
+                     "cycles_per_product": dict(zip(PHASES, per.tolist())),
+                     "total_cycles_per_product": float(per.sum())})
+    return recs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", default="", help="comma-separated rows per block to build besides the library's")
     ap.add_argument("--parent", default="", help="source of an earlier K2 to time against")
+    ap.add_argument("--phases", action="store_true", help="report K2's phase clocks")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("time_k2_rows: needs one CUDA device", file=sys.stderr)
@@ -163,6 +207,8 @@ def main() -> int:
         for name in live + live[::-1]:
             rec["ms"].setdefault(name, []).append(_ms(lambda: variants[name](*a)))
         out["shapes"].append(rec)
+    if args.phases:
+        out["phases"] = _phases(built, dev)
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
