@@ -88,10 +88,10 @@ struct KeyRows {             // unique key rows (K, .), gathered through idx
 // words) | window table (16 x R x tstride words), which first holds the digit
 // halves (2*digits x 8 words) and the converted residues ((2k+1) x 8 words)].
 struct Geo {
-  int k, digits, mt, ks, sstride, tstride;
+  int mt, ks, sstride, tstride;
   size_t e_bytes, sig_bytes, tab_bytes;
 
-  __host__ __device__ Geo(int k_, int digits_, int rows) : k(k_), digits(digits_) {
+  __host__ __device__ Geo(int k, int digits, int rows) {
     mt = (k + 1 + 15) / 16;
     ks = (k + 31) / 32;
     sstride = ks * 32 + 16;   // conflict-free B-fragment reads across the 8 slots

@@ -48,14 +48,13 @@ def kernel_attrs() -> dict[str, dict[str, int]]:
     and K2's rows per block."""
     lib = _build.library()
     rows = ctypes.c_int()
-    calls = {
-        "verify": lambda regs, local: lib.rns_kernel_attrs(regs, local),
-        "pow": lambda regs, local: lib.rns_pow_attrs(regs, local, ctypes.byref(rows)),
-    }
     out = {}
-    for name, call in calls.items():
+    for name, fn, extra in (
+        ("verify", lib.rns_kernel_attrs, ()),
+        ("pow", lib.rns_pow_attrs, (ctypes.byref(rows),)),
+    ):
         regs, local = ctypes.c_int(), ctypes.c_int()
-        rc = call(ctypes.byref(regs), ctypes.byref(local))
+        rc = fn(ctypes.byref(regs), ctypes.byref(local), *extra)
         if rc != 0:
             raise RuntimeError(
                 f"rns {name} kernel attributes: {lib.rns_error_string(rc).decode()} ({rc})"

@@ -289,19 +289,6 @@ def mma_planes(E1: np.ndarray, E2: np.ndarray) -> np.ndarray:
     return np.asarray(out, dtype=np.int8)
 
 
-def mma_unpack(planes: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
-    """Inverse of :func:`mma_planes`: the two padded (M_pad, K_pad) int64
-    matrices A = Eᵀ, planes recombined (lo + 64·hi)."""
-    m_pad, k_pad = mma_dims(k)
-    row, col = _fragment_index(m_pad, k_pad)
-    out = []
-    for e in range(2):
-        a = np.zeros((m_pad, k_pad), dtype=np.int64)
-        a[row, col] = planes[e, 0].astype(np.int64) + 64 * planes[e, 1].astype(np.int64)
-        out.append(a)
-    return out[0], out[1]
-
-
 class _Consts:
     """Context constants as int64 tensors on one device, plus the packed
     int32/int16/int8 forms the CUDA kernels read (``kern``)."""

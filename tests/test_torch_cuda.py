@@ -157,9 +157,28 @@ def test_k2_at_2048_bits_matches_plain_on_card(dev):
     ]
 
 
+@pytest.mark.parametrize("digits,n_bits", [(64, 1024), (128, 2048)])
+@pytest.mark.parametrize("size", ["one_row", "rows_per_block_plus_one"])
+def test_k2_small_batches_match_plain_on_card(dev, digits, n_bits, size):
+    """T = 1, and T = R + 1 (R = K2's rows per block): one block with a
+    single stored row, and a last block whose slots repeat one row."""
+    rows = 1 if size == "one_row" else cuda_rns.kernel_attrs()["pow"]["rows_per_block"] + 1
+    ctx = rns.context(digits, n_bits)
+    ns = _moduli(ctx, n_bits, 2, seed=47)
+    rng = np.random.default_rng(48 + rows)
+    idx = torch.as_tensor(rng.integers(0, 2, rows).astype(np.int32), device=dev)
+    bh = torch.as_tensor(rng.integers(0, 256, (rows, 2 * digits)).astype(np.uint8), device=dev)
+    nib = torch.as_tensor(rng.integers(0, 16, (4 * digits, rows)).astype(np.uint8), device=dev)
+    ukey = rns.key_rows_from_numpy(rns.stack_key_rows([ctx.key_rows(n) for n in ns]), dev)
+    cn = rns.consts(digits, n_bits, dev)
+    got = cuda_rns.pow_cuda(bh, nib, idx, ukey, cn)
+    assert torch.equal(got.long(), rns._pow_kernel(cn, bh, nib, rns.gather_key(ukey, idx)))
+
+
 def test_k2_refuses_a_context_the_card_cannot_hold(dev):
-    """k=255 channels at 256 digits: even 2 rows per block need more shared
-    memory than the card allows; the launch raises with the byte count."""
+    """k=255 channels at 256 digits: K2's int8 extension planes alone
+    (4 x 256 x 256 bytes) exceed the shared memory the card allows a
+    block; the launch raises with the byte count."""
     k, digits = 255, 256
     p_all = np.arange(3, 3 + 4 * k, 2, dtype=np.float32)
     z = lambda *shape: np.zeros(shape, np.float32)

@@ -117,6 +117,21 @@ def test_shoup_with_the_per_row_key_constants_is_exact(digits, n_bits):
                                           (a * w[:, None]) % ps[:, None])
 
 
+def _unpack_a(plane: np.ndarray) -> np.ndarray:
+    """One int8 plane in fragment order (mt, ks, 32 lanes, 16 bytes) →
+    the (16·mt, 32·ks) A matrix, by PTX's A layout (see mma_m16n8k32)."""
+    mt, ks = plane.shape[:2]
+    a = np.zeros((16 * mt, 32 * ks), np.int64)
+    for lane in range(32):
+        grp, tid = lane >> 2, lane & 3
+        for r in range(4):
+            rows = np.arange(mt)[:, None] * 16 + grp + 8 * (r & 1)
+            cols = np.arange(ks)[None, :] * 32 + 4 * tid + 16 * (r >> 1)
+            for b in range(4):
+                a[rows, cols + b] = plane[:, :, lane, 4 * r + b]
+    return a
+
+
 @pytest.mark.parametrize("digits,n_bits", CONTEXTS)
 def test_mma_planes_unpack_to_the_extension_matrices(digits, n_bits):
     cn = _cn(digits, n_bits)
@@ -125,7 +140,9 @@ def test_mma_planes_unpack_to_the_extension_matrices(digits, n_bits):
     m_pad, k_pad = rns.mma_dims(k)
     assert planes.shape == (2, 2, m_pad // 16, k_pad // 32, 32, 16)
     assert planes.dtype == np.int8 and planes.min() >= 0 and planes.max() < 64
-    for a, E in zip(rns.mma_unpack(planes, k), (cn.E1f, cn.E2f)):
+    for e, E in enumerate((cn.E1f, cn.E2f)):
+        a = _unpack_a(planes[e, 0]) + 64 * _unpack_a(planes[e, 1])
+        assert a.shape == (m_pad, k_pad)
         np.testing.assert_array_equal(a[: k + 1, :k].T, E.numpy().astype(np.int64))
         assert not a[k + 1 :].any() and not a[:, k:].any()  # padding is zero
 
