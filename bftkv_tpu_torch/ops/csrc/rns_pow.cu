@@ -128,14 +128,6 @@ __device__ __forceinline__ void mma_s8(uint32_t (&c)[4], const uint4& a, uint32_
       : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
 }
 
-#ifdef RNS_POW_PHASES
-// Phase clocks of block 0, for time_k2_rows.py --phases: per warp, the cycles
-// spent in each phase of the Montgomery products (mont's marks), summed over
-// the chain.  Built only with -DRNS_POW_PHASES.
-constexpr int kPhases = 8;
-__device__ unsigned long long g_pow_phases[kMaxWarps][kPhases];
-#endif
-
 // One number at this thread's 4 (channel h, slot c) pairs, p = 2h + c: its B
 // and B' residues, and per slot its redundant residue (meaningful at the
 // thread that holds channel j = k).
@@ -158,16 +150,6 @@ struct Chain {
   uint32_t invMi_b[2], invMi_b_sh[2], invMi_q[2], invMi_q_sh[2];
   uint32_t Mq_b[2], Mq_b_sh[2], invM_q[2], invM_q_sh[2];
   uint32_t nninv[4], nninv_sh[4], nq[4], nq_sh[4], nr[2];
-#ifdef RNS_POW_PHASES
-  mutable unsigned long long ph_last, ph[kPhases];
-  __device__ void mark(int i) const {
-    const unsigned long long now = clock64();
-    ph[i] += now - ph_last;
-    ph_last = now;
-  }
-#else
-  __device__ void mark(int) const {}
-#endif
 
   __device__ Chain(const PowConsts& cc, unsigned char* raw) : c(cc), geo(cc.k, cc.digits, R) {
     sE = reinterpret_cast<const uint4*>(raw);
@@ -178,10 +160,6 @@ struct Chain {
     warp = threadIdx.x >> 5;
     g = lane >> 2;
     t = lane & 3;
-#ifdef RNS_POW_PHASES
-    for (int i = 0; i < kPhases; ++i) ph[i] = 0ull;
-    ph_last = clock64();
-#endif
   }
 
   __device__ void init(const KeyRows& key, const int (&kid)[2]) {
@@ -264,7 +242,6 @@ struct Chain {
   // before the first barrier, so o may alias a or b.
   __device__ __forceinline__ void mont(const Num& a, const Num& b, Num& o) const {
     uint32_t dq[4], dr[2], rq[4], rr[2], S[4];
-    mark(0);  // since the last product: table select, nibbles
 #pragma unroll
     for (int p = 0; p < 4; ++p) {
       const int h = p >> 1;
@@ -275,11 +252,8 @@ struct Chain {
     }
 #pragma unroll
     for (int cs = 0; cs < 2; ++cs) dr[cs] = (a.r[cs] * b.r[cs]) & kPrMask;
-    mark(1);
     __syncthreads();
-    mark(2);
     extend(0, S);  // q^ = Sigma sigma_i M_i over B' and 2^12
-    mark(3);
 #pragma unroll
     for (int p = 0; p < 4; ++p) {
       const int h = p >> 1;
@@ -294,9 +268,7 @@ struct Chain {
       const uint32_t qr = red_of(S, cs) & kPrMask;
       rr[cs] = (((dr[cs] + qr * nr[cs]) & kPrMask) * c.invM_pr) & kPrMask;
     }
-    mark(4);
     __syncthreads();
-    mark(5);
     extend(1, S);  // exact return extension B' -> B and 2^12
     if (red[0] || red[1]) {
 #pragma unroll
@@ -309,7 +281,6 @@ struct Chain {
     uint32_t eb[4];
 #pragma unroll
     for (int p = 0; p < 4; ++p) eb[p] = barrett(S[p], pb[p >> 1], mub[p >> 1]);
-    mark(6);
     __syncthreads();
 #pragma unroll
     for (int p = 0; p < 4; ++p) {
@@ -320,7 +291,6 @@ struct Chain {
     }
 #pragma unroll
     for (int cs = 0; cs < 2; ++cs) o.r[cs] = rr[cs];
-    mark(7);
   }
 
   // Table entry w of this thread's pair p (an address of position only).
@@ -466,10 +436,6 @@ rns_pow_kernel(const uint8_t* __restrict__ base_h, const uint8_t* __restrict__ n
           (int32_t)shoup(acc.b[p], ch.invMi_b[h], ch.invMi_b_sh[h], ch.pb[h]);
     }
   }
-#ifdef RNS_POW_PHASES
-  if (blockIdx.x == 0 && ch.lane == 0)
-    for (int i = 0; i < kPhases; ++i) g_pow_phases[ch.warp][i] = ch.ph[i];
-#endif
 }
 
 // Rows per block.  At k = 188 (2048-bit moduli) 8 rows would need 254,496 B
@@ -541,12 +507,5 @@ int rns_pow_attrs(int* regs, int* local_bytes, int* rows_per_block) {
   *rows_per_block = kPowRows;
   return 0;
 }
-
-#ifdef RNS_POW_PHASES
-// Copies block 0's phase clocks (kMaxWarps x kPhases cycles) to out.
-int rns_pow_phases(unsigned long long* out) {
-  return (int)cudaMemcpyFromSymbol(out, g_pow_phases, sizeof(g_pow_phases));
-}
-#endif
 
 }  // extern "C"

@@ -1,38 +1,23 @@
-"""Times K2 (``rns_pow_kernel``) at candidate rows per block, and against
-an earlier K2, on one GPU.
+"""Times K2 (``rns_pow_kernel``) at candidate rows per block on one GPU.
 
 The library builds K2 at one rows-per-block count (``RNS_POW_ROWS`` in
 ``ops/csrc/rns_pow.cu``).  This script builds a copy of the kernels for
 each other count in ``--rows`` (``-DRNS_POW_ROWS=R``, under
-``bftkv_tpu_torch/_build/kernels_rowsR/``) and, with ``--parent FILE``,
-an earlier K2 from a copy of its source (a ``rns_chain.cu`` whose
-``rns_pow_launch`` takes the E1/E2 uint16 matrices and no reciprocals).
-It times them on the same seeded operands at the main path's two shapes
-(k=94, 64 digits, T=512: the RNS sign flush; k=188, 128 digits, T=64:
-2048-bit ``BatchModExp``) and at k=94, T=4096, in turns (parent, then
-each count, then back in reverse order) by CUDA events.  Every variant
-must agree with the plain version bit for bit; one that cannot launch
-(shared memory) is recorded with its error.
-
-With ``--phases`` it also builds K2 with ``-DRNS_POW_PHASES`` (clock64
-marks in each Montgomery product, block 0 only) and reports, at the two
-main-path shapes, the cycles per product each warp spends in each phase:
-``outside`` (the window select and nibble loads between products),
-``elem_a`` (d = a*b, sigma1), ``sync_a``, ``ext1`` (B -> B' on the
-tensor cores), ``elem_b`` (r, sigma2, the redundant channel), ``sync_b``,
-``ext2`` (B' -> B, alpha), ``sync_c_elem_c`` (the correction).  The
-marks themselves cost cycles, so the instrumented kernel's time is
-reported beside them.
+``bftkv_tpu_torch/_build/kernels_rowsR/``) and times them on the same
+seeded operands at the main path's two shapes (k=94, 64 digits, T=512:
+the RNS sign flush; k=188, 128 digits, T=64: 2048-bit ``BatchModExp``)
+and at k=94, T=4096, in turns (each count, then back in reverse order)
+by CUDA events.  Every count must agree with the plain version bit for
+bit; one that cannot launch (shared memory) is recorded with its error.
 
 Run from the repository root:
-    python3 -m bftkv_tpu_torch.tools.time_k2_rows [--rows 2,4,8] [--parent FILE] [--phases]
+    python3 -m bftkv_tpu_torch.tools.time_k2_rows [--rows 2,4,8]
 It prints one JSON object, with the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
 import subprocess
@@ -81,81 +66,9 @@ def _ms(fn) -> float:
     return start.elapsed_time(end) / REPS
 
 
-def _parent_pow(path: str):
-    """Builds an earlier K2 from ``path`` and returns (launch, attrs)."""
-    from torch.utils import cpp_extension
-
-    build_dir = os.path.join(os.path.dirname(_build.BUILD_DIR), "kernels_parent")
-    os.makedirs(build_dir, exist_ok=True)
-    lib = ctypes.CDLL(cpp_extension.load(
-        name="bftkv_parent_k2", sources=[os.path.abspath(path)],
-        extra_cuda_cflags=_build.CUDA_FLAGS, build_directory=build_dir,
-        is_python_module=False,
-    ))
-    lib.rns_pow_launch.argtypes = _build._LAUNCH_ARGS
-    lib.rns_pow_launch.restype = ctypes.c_int
-    lib.rns_kernel_attrs.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2
-    regs, local = ctypes.c_int(), ctypes.c_int()
-    lib.rns_kernel_attrs(1, ctypes.byref(regs), ctypes.byref(local))
-
-    def launch(bh, nib, idx, ukey, cn):
-        kc = cn.kern
-        out = torch.empty((bh.shape[0], cn.k), dtype=torch.int32, device=bh.device)
-        need, limit = ctypes.c_int(), ctypes.c_int()
-        rc = lib.rns_pow_launch(
-            bh.data_ptr(), nib.data_ptr(), idx.data_ptr(), bh.shape[0], ukey[0].shape[0],
-            *(u.data_ptr() for u in ukey),
-            *(kc[n].data_ptr() for n in ("p_all", "invMi_b", "invMi_q", "Mq_mod_b", "invM_q",
-                                         "E1", "E2", "D")),
-            cn.invMq_pr, cn.invM_pr, cn.k, cn.digits, out.data_ptr(),
-            torch.cuda.current_stream(bh.device).cuda_stream,
-            ctypes.byref(need), ctypes.byref(limit),
-        )
-        if rc != 0:
-            raise RuntimeError(f"parent K2 launch failed ({rc}), smem {need.value}/{limit.value}")
-        return out
-
-    return launch, {"registers": regs.value, "local_bytes": local.value}
-
-
-PHASES = ("outside", "elem_a", "sync_a", "ext1", "elem_b", "sync_b", "ext2", "sync_c_elem_c")
-
-
-def _phases(rows: int, dev) -> list[dict]:
-    """Block 0's phase clocks of an instrumented K2 at the main-path shapes."""
-    lib = _build.load(f"bftkv_kernels_phases{rows}",
-                      os.path.join(os.path.dirname(_build.BUILD_DIR), f"kernels_phases{rows}"),
-                      defines=(f"RNS_POW_ROWS={rows}", "RNS_POW_PHASES"))
-    lib.rns_pow_phases.argtypes = [ctypes.c_void_p]
-    lib.rns_pow_phases.restype = ctypes.c_int
-    base = _build._lib
-    recs = []
-    for digits, n_bits, t in SHAPES[:2]:
-        a = _operands(digits, n_bits, t, 8, dev, seed=digits + t)
-        _build._lib = lib
-        try:
-            ms = _ms(lambda: cuda_rns.pow_cuda(*a))
-        finally:
-            _build._lib = base
-        buf = np.zeros((16, len(PHASES)), dtype=np.uint64)
-        rc = lib.rns_pow_phases(buf.ctypes.data)
-        if rc != 0:
-            raise RuntimeError(f"rns_pow_phases failed ({rc})")
-        k = a[4].k
-        warps = (k + 1 + 15) // 16
-        products = 17 + 20 * digits
-        per = buf[:warps].astype(np.float64).mean(axis=0) / products
-        recs.append({"k": k, "rows": t, "instrumented_ms": ms, "products_per_row": products,
-                     "cycles_per_product": dict(zip(PHASES, per.tolist())),
-                     "total_cycles_per_product": float(per.sum())})
-    return recs
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", default="", help="comma-separated rows per block to build besides the library's")
-    ap.add_argument("--parent", default="", help="source of an earlier K2 to time against")
-    ap.add_argument("--phases", action="store_true", help="report K2's phase clocks")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("time_k2_rows: needs one CUDA device", file=sys.stderr)
@@ -181,10 +94,7 @@ def main() -> int:
         attrs[f"rows{r}"] = cuda_rns.kernel_attrs()["pow"]
         _build._lib = base
         variants[f"rows{r}"] = pow_with
-    if args.parent:
-        variants["parent"], attrs["parent"] = _parent_pow(args.parent)
     order = list(variants)
-    order = order[-1:] + order[:-1] if args.parent else order  # parent first
     out = {"built_rows": built, "attrs": attrs, "shapes": []}
     ok = True
     for digits, n_bits, t in SHAPES:
@@ -207,8 +117,6 @@ def main() -> int:
         for name in live + live[::-1]:
             rec["ms"].setdefault(name, []).append(_ms(lambda: variants[name](*a)))
         out["shapes"].append(rec)
-    if args.phases:
-        out["phases"] = _phases(built, dev)
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,

@@ -69,14 +69,16 @@ FRAGMENT_EXP_BITS = 2300
 # Card peaks (NVIDIA H100 SXM data sheet, dense): int8 tensor cores and HBM3.
 INT8_OPS_PER_S = 1979e12
 HBM_BYTES_PER_S = 3.35e12
-# An exact product of two 12-bit residues takes four int8 products on the
-# tensor cores (6-bit split, as the TPU kernels' bf16 planes): 8 ops per MAC.
-# K3's 16-bit digit products are counted the same way (four 8-bit products).
-OPS_PER_MAC = 8
+# An exact product of two 12-bit residues (K1, K2) takes three int8 products
+# on the tensor cores: 6-bit planes lo, hi and Karatsuba's (lo+hi)*(lo+hi),
+# whose byte sums stay below 127: 6 ops per MAC.  K3's 16-bit digit products
+# take four 8-bit products: 8 ops per MAC.
+RNS_OPS_PER_MAC = 6
+MONT_OPS_PER_MAC = 8
 # The parent's K2 (CUDA cores, rns_chain.cu, 2 rows per block) at the main
-# path's two shapes: PERF.md section 6, PR 2 review pass, H100 80GB HBM3, 700 W.
+# path's two shapes, as PERF.md records them (not measured by this script).
 K2_EARLIER_MS = {94: 3.6543, 188: 10.935}
-K2_EARLIER_OF = "parent kernel (rns_chain.cu::rns_pow_kernel), PERF.md, PR 2 review pass"
+K2_EARLIER_OF = "PERF.md section 6, PR 2 review pass, H100 80GB HBM3, 700 W"
 
 
 def fail(msg: str) -> None:
@@ -308,8 +310,8 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(macs: int, nbytes: int) -> tuple[float, str]:
-    t_ops = macs * OPS_PER_MAC / INT8_OPS_PER_S * 1e3
+def bound_ms(macs: int, nbytes: int, ops_per_mac: int) -> tuple[float, str]:
+    t_ops = macs * ops_per_mac / INT8_OPS_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -319,7 +321,7 @@ def nbytes(*tensors) -> int:
 
 
 def kernel_record(name, source, replaces, launches, kernel_fn, plain_fn, macs, n_bytes,
-                  kernel_reps, plain_reps, **extra):
+                  ops_per_mac, kernel_reps, plain_reps, **extra):
     """Kernel vs its plain version on one recorded operand set, and times."""
     got = kernel_fn()
     plain = plain_fn()
@@ -329,7 +331,7 @@ def kernel_record(name, source, replaces, launches, kernel_fn, plain_fn, macs, n
     check(err == 0, f"{name}: kernel and plain version differ (max abs err {err})")
     del got, plain
     torch.cuda.empty_cache()
-    b_ms, b_by = bound_ms(macs, n_bytes)
+    b_ms, b_by = bound_ms(macs, n_bytes, ops_per_mac)
     return {
         "name": name,
         "route": "cuda",
@@ -370,7 +372,7 @@ def rns_record(name, which, replaces, args, launches, kernel_reps, plain_reps, *
         replaces, launches,
         lambda: real(*args), lambda: plain(cn, a, b, rns.gather_key(ukey, idx)),
         t * macs_row, nbytes(a, b, idx, *ukey) + nbytes(*cn.kern.values()) + out_bytes,
-        kernel_reps, plain_reps, rows=t, k=k, digits=digits, **extra,
+        RNS_OPS_PER_MAC, kernel_reps, plain_reps, rows=t, k=k, digits=digits, **extra,
     )
 
 
@@ -389,13 +391,14 @@ def k3_record(args, launches):
     macs_row = 2 * (2 * L * L + L) + 16 * (L * (L + 1) // 2 + L + L * L) + (L * L + L)
     # A second figure: 19 full products of L^2 (a*b) + L(L+1)/2 (m = t*n' mod
     # R as a half product) + L^2 (m*n), which overcounts the chain's work.
-    full_products_ms = bound_ms(t * 19 * (2 * L * L + L * (L + 1) // 2), n_bytes)[0]
+    full_products_ms = bound_ms(t * 19 * (2 * L * L + L * (L + 1) // 2), n_bytes,
+                                MONT_OPS_PER_MAC)[0]
     return kernel_record(
         "K3 mont_verify_kernel", "bftkv_tpu_torch/ops/csrc/mont_chain.cu",
         "bftkv_tpu/ops/pallas_mont.py:174", launches,
         lambda: cuda_mont.verify_diff(*args),
         lambda: rsa_ops._verify_chain(*(a.long() for a in args)),
-        t * macs_row, n_bytes, kernel_reps=20, plain_reps=2,
+        t * macs_row, n_bytes, MONT_OPS_PER_MAC, kernel_reps=20, plain_reps=2,
         rows=t, compared="(T, 128) diff", bound_ms_19_full_products=full_products_ms,
     )
 
@@ -598,16 +601,18 @@ def main() -> int:
                    phase_launches=k1_launches, **attrs["verify"]),
         rns_record("K2 rns_pow_kernel (k=94)", "pow", "bftkv_tpu/ops/pallas_rns.py:403",
                    p_args[0], s_launch["pow"], 10, 2,
-                   phase_launches={"sign_rns": s_launch["pow"]},
-                   earlier_ms=K2_EARLIER_MS[94], earlier_ms_of=K2_EARLIER_OF, **attrs["pow"]),
+                   phase_launches={"sign_rns": s_launch["pow"]}, **attrs["pow"]),
         rns_record("K2 rns_pow_kernel (k=188)", "pow", "bftkv_tpu/ops/pallas_rns.py:403",
                    m_args[0], c_m.launches["pow"], 5, 1,
-                   phase_launches={"modexp_2048": c_m.launches["pow"]},
-                   earlier_ms=K2_EARLIER_MS[188], earlier_ms_of=K2_EARLIER_OF, **attrs["pow"]),
+                   phase_launches={"modexp_2048": c_m.launches["pow"]}, **attrs["pow"]),
         k3_record(k3_args[0], p_launch["mont_verify"]),
     ]
     kernels[3].update(phase_launches={"verify_pallas": p_launch["mont_verify"]},
                       **attrs["mont_verify"])
+    print(f"K2 before its redesign, not measured in this run ({K2_EARLIER_OF}): "
+          + ", ".join(f"k={k} {ms} ms" for k, ms in K2_EARLIER_MS.items())
+          + "; this run: " + ", ".join(f"k={r['k']} {r['ms']:.4f} ms" for r in kernels[1:3]),
+          flush=True)
     print(json.dumps({
         "kernels": kernels,
         "not_yet_ported": [],
