@@ -78,7 +78,7 @@ MONT_OPS_PER_MAC = 8
 # The parent's K2 (CUDA cores, rns_chain.cu, 2 rows per block) at the main
 # path's two shapes, as PERF.md records them (not measured by this script).
 K2_EARLIER_MS = {94: 3.6543, 188: 10.935}
-K2_EARLIER_OF = "PERF.md section 6, PR 2 review pass, H100 80GB HBM3, 700 W"
+K2_EARLIER_OF = "PERF.md section 6, the CUDA-core kernel it replaced, H100 80GB HBM3, 700 W"
 
 
 def fail(msg: str) -> None:
