@@ -2,6 +2,7 @@
 
 ``torch.utils.cpp_extension.load`` compiles ``csrc/rns_chain.cu`` (K1),
 ``csrc/rns_pow.cu`` (K2) and ``csrc/mont_chain.cu`` (K3) from this checkout for ``sm_90a``
+(K1 and K2 include ``csrc/rns_mma.cuh``, their shared Montgomery product)
 into one library under ``bftkv_tpu_torch/_build/`` (listed in
 ``.gitignore``) and loads it; ninja runs one ``nvcc`` per source, in
 parallel.  The sources have a plain C interface and include no PyTorch
@@ -17,7 +18,7 @@ import ctypes
 import os
 import threading
 
-__all__ = ["BUILD_DIR", "library", "load"]
+__all__ = ["BUILD_DIR", "bind", "build", "library", "load"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [os.path.join(_HERE, "csrc", name) for name in ("rns_chain.cu", "rns_pow.cu", "mont_chain.cu")]
@@ -29,15 +30,11 @@ _lib: ctypes.CDLL | None = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# (halves_a, halves_b, idx, T, n_keys, 6 key-row arrays, 5 channel vectors,
-#  E1, E2, D, invMq_pr, invM_pr, k, digits, out, stream, smem_need, smem_limit)
-_LAUNCH_ARGS = ([_P, _P, _P, _I, _I] + [_P] * 6 + [_P] * 5 + [_P] * 3 + [_I] * 4 + [_P, _P]
-                + [ctypes.POINTER(_I)] * 2)
-# K2: (base_h, nib_t, idx, T, n_keys, 6 key-row arrays, 5 channel vectors,
-#  mu_all and 4 Shoup vectors, E_mma, D, invMq_pr, invM_pr, k, digits,
-#  sigma_out, stream, smem_need, smem_limit)
-_POW_ARGS = ([_P, _P, _P, _I, _I] + [_P] * 6 + [_P] * 5 + [_P] * 5 + [_P] * 2 + [_I] * 4
-             + [_P, _P] + [ctypes.POINTER(_I)] * 2)
+# K1 and K2: (halves, em_halves | nibbles, idx, T, n_keys, 6 key-row
+#  arrays, 5 channel vectors, mu_all and 4 Shoup vectors, E_mma, D,
+#  invMq_pr, invM_pr, k, digits, out, stream, smem_need, smem_limit)
+_LAUNCH_ARGS = ([_P, _P, _P, _I, _I] + [_P] * 6 + [_P] * 10 + [_P] * 2 + [_I] * 4
+                + [_P, _P] + [ctypes.POINTER(_I)] * 2)
 
 
 def library() -> ctypes.CDLL:
@@ -49,29 +46,37 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
-def load(name: str = "bftkv_kernels", build_dir: str = BUILD_DIR,
-         defines: tuple[str, ...] = ()) -> ctypes.CDLL:
-    """Builds the sources into ``build_dir`` (with extra ``-D`` ``defines``,
-    for a timing comparison of a compile-time variant) and loads them."""
+def build(name: str, build_dir: str, sources: list[str] = SOURCES,
+          defines: tuple[str, ...] = ()) -> str:
+    """Compiles ``sources`` (with extra ``-D`` ``defines``) into a shared
+    library under ``build_dir``; returns its path."""
     from torch.utils import cpp_extension
 
     os.makedirs(build_dir, exist_ok=True)
-    path = cpp_extension.load(
+    return cpp_extension.load(
         name=name,
-        sources=SOURCES,
+        sources=sources,
         extra_cuda_cflags=CUDA_FLAGS + [f"-D{d}" for d in defines],
         build_directory=build_dir,
         is_python_module=False,
     )
-    lib = ctypes.CDLL(path)
-    lib.rns_verify_launch.argtypes = _LAUNCH_ARGS
-    lib.rns_verify_launch.restype = ctypes.c_int
-    lib.rns_pow_launch.argtypes = _POW_ARGS
-    lib.rns_pow_launch.restype = ctypes.c_int
-    lib.rns_kernel_attrs.argtypes = [ctypes.POINTER(_I)] * 2
-    lib.rns_kernel_attrs.restype = ctypes.c_int
-    lib.rns_pow_attrs.argtypes = [ctypes.POINTER(_I)] * 3
-    lib.rns_pow_attrs.restype = ctypes.c_int
+
+
+def load(name: str = "bftkv_kernels", build_dir: str = BUILD_DIR,
+         defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Builds the sources into ``build_dir`` (with extra ``-D`` ``defines``,
+    for a timing comparison of a compile-time variant) and loads them."""
+    return bind(ctypes.CDLL(build(name, build_dir, defines=defines)))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C interface of the kernel library ``lib``."""
+    for fn in (lib.rns_verify_launch, lib.rns_pow_launch):
+        fn.argtypes = _LAUNCH_ARGS
+        fn.restype = ctypes.c_int
+    for fn in (lib.rns_verify_attrs, lib.rns_pow_attrs):
+        fn.argtypes = [ctypes.POINTER(_I)] * 3
+        fn.restype = ctypes.c_int
     # (sig, em, n, nprime, r2, T, out, stream)
     lib.mont_verify_launch.argtypes = [_P] * 5 + [_I, _P, _P]
     lib.mont_verify_launch.restype = ctypes.c_int

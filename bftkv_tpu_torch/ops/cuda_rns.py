@@ -5,6 +5,9 @@
 - :func:`pow_cuda` — K2, ``csrc/rns_pow.cu::rns_pow_kernel``, replaces
   ``pallas_rns.py::_pow_body`` (entry ``pow_pallas``).
 
+Both run their RNS Montgomery products through one device
+implementation, ``csrc/rns_mma.cuh``, and take the same arguments.
+
 Each takes device tensors: the (T, ·) operands, the (T,) key index, the
 (K, ·) int32 unique key rows of :func:`rns.key_rows_from_numpy` and
 the :class:`rns._Consts` of the context.  For CUDA tensors it launches
@@ -45,22 +48,18 @@ def reset_launches() -> None:
 
 def kernel_attrs() -> dict[str, dict[str, int]]:
     """Registers and local-memory bytes per thread of each kernel as built,
-    and K2's rows per block."""
+    and its rows per block."""
     lib = _build.library()
-    rows = ctypes.c_int()
     out = {}
-    for name, fn, extra in (
-        ("verify", lib.rns_kernel_attrs, ()),
-        ("pow", lib.rns_pow_attrs, (ctypes.byref(rows),)),
-    ):
-        regs, local = ctypes.c_int(), ctypes.c_int()
-        rc = fn(ctypes.byref(regs), ctypes.byref(local), *extra)
+    for name, fn in (("verify", lib.rns_verify_attrs), ("pow", lib.rns_pow_attrs)):
+        regs, local, rows = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        rc = fn(ctypes.byref(regs), ctypes.byref(local), ctypes.byref(rows))
         if rc != 0:
             raise RuntimeError(
                 f"rns {name} kernel attributes: {lib.rns_error_string(rc).decode()} ({rc})"
             )
-        out[name] = {"registers": regs.value, "local_bytes": local.value}
-    out["pow"]["rows_per_block"] = rows.value
+        out[name] = {"registers": regs.value, "local_bytes": local.value,
+                     "rows_per_block": rows.value}
     return out
 
 
@@ -75,7 +74,9 @@ def _check(t: torch.Tensor, name: str, dtype, shape, dev) -> None:
         raise ValueError(f"{name}: not contiguous")
 
 
-def _launch(which: str, a, b, idx, ukey, cn, out_shape) -> torch.Tensor:
+def _launch(which: str, a, b, idx, ukey, cn, out: torch.Tensor) -> torch.Tensor:
+    """Launches K1 (``which="verify"``) or K2 into ``out``, which the
+    caller allocates: (T,) or (T, k) int32 on the operands' device."""
     dev = a.device
     if cn.device != dev:
         raise ValueError(f"constants on {cn.device}, operands on {dev}")
@@ -90,29 +91,27 @@ def _launch(which: str, a, b, idx, ukey, cn, out_shape) -> torch.Tensor:
     _check(a, "halves", torch.uint8, (t, 2 * digits), dev)
     if which == "verify":
         _check(b, "em_halves", torch.uint8, (t, 2 * digits), dev)
+        _check(out, "out", torch.int32, (t,), dev)
     else:
         _check(b, "nibbles", torch.uint8, (4 * digits, t), dev)
+        _check(out, "out", torch.int32, (t, k), dev)
     _check(idx, "idx", torch.int32, (t,), dev)
     if t == 0 or n_keys == 0:
         raise ValueError(f"empty launch: {t} rows, {n_keys} key rows")
     kc = cn.kern
-    out = torch.empty(out_shape, dtype=torch.int32, device=dev)
     lib = _build.library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    fn = lib.rns_verify_launch if which == "verify" else lib.rns_pow_launch
     need, limit = ctypes.c_int(), ctypes.c_int()
-    ptrs = lambda *names: [kc[n].data_ptr() for n in names]
-    chans = ptrs("p_all", "invMi_b", "invMi_q", "Mq_mod_b", "invM_q")
-    if which == "verify":
-        fn, mats = lib.rns_verify_launch, ptrs("E1", "E2", "D")
-    else:
-        fn = lib.rns_pow_launch
-        chans += ptrs("mu_all", "invMi_b_sh", "invMi_q_sh", "Mq_mod_b_sh", "invM_q_sh")
-        mats = ptrs("E_mma", "D")
     rc = fn(
         a.data_ptr(), b.data_ptr(), idx.data_ptr(), t, n_keys,
-        *(u.data_ptr() for u in ukey), *chans, *mats,
+        *(u.data_ptr() for u in ukey),
+        *(kc[n].data_ptr() for n in (
+            "p_all", "invMi_b", "invMi_q", "Mq_mod_b", "invM_q",
+            "mu_all", "invMi_b_sh", "invMi_q_sh", "Mq_mod_b_sh", "invM_q_sh", "E_mma", "D",
+        )),
         cn.invMq_pr, cn.invM_pr, k, digits,
-        out.data_ptr(), stream, ctypes.byref(need), ctypes.byref(limit),
+        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        ctypes.byref(need), ctypes.byref(limit),
     )
     if rc == _ERR_SHARED_MEMORY:
         raise RuntimeError(
@@ -135,8 +134,8 @@ def verify_cuda(sig_h, em_h, idx, ukey, cn) -> torch.Tensor:
         return rns._verify_kernel(cn, sig_h, em_h, rns.gather_key(ukey, idx))
     if sig_h.device.type != "cuda":
         raise ValueError(f"unsupported device {sig_h.device}")
-    out = _launch("verify", sig_h, em_h, idx, ukey, cn, (sig_h.shape[0],))
-    return out != 0
+    out = torch.empty(sig_h.shape[0], dtype=torch.int32, device=sig_h.device)
+    return _launch("verify", sig_h, em_h, idx, ukey, cn, out) != 0
 
 
 def pow_cuda(base_h, nib_t, idx, ukey, cn) -> torch.Tensor:
@@ -145,4 +144,5 @@ def pow_cuda(base_h, nib_t, idx, ukey, cn) -> torch.Tensor:
         return rns._pow_kernel(cn, base_h, nib_t, rns.gather_key(ukey, idx))
     if base_h.device.type != "cuda":
         raise ValueError(f"unsupported device {base_h.device}")
-    return _launch("pow", base_h, nib_t, idx, ukey, cn, (base_h.shape[0], cn.k))
+    out = torch.empty((base_h.shape[0], cn.k), dtype=torch.int32, device=base_h.device)
+    return _launch("pow", base_h, nib_t, idx, ukey, cn, out)

@@ -60,10 +60,11 @@ PR_BITS = 12
 PR = 1 << PR_BITS  # redundant modulus (power of two)
 _PR_MASK = PR - 1
 DIGITS = 128  # 16-bit digits per 2048-bit number
-# Largest context the CUDA kernels take (csrc/rns_chain.cu::bad_shape and
-# rns_pow.cu::rns_pow_launch): K1 runs k + 1 channel threads in a block of at
-# most 256; K2 runs one warp per 16 of the k + 1 extension outputs, at most
-# 16 warps; both sum k products of 12-bit residues exactly in uint32.
+# Largest context the CUDA kernels take (csrc/rns_pow.cu::rns_pow_launch): K2
+# runs one warp per 16 of the k + 1 extension outputs, at most 16 warps, and
+# sums k products of 12-bit residues exactly in uint32.  K1
+# (csrc/rns_chain.cu::rns_verify_launch) runs at most 12 warps and refuses
+# k > 191; the verify path's one context has k = 188.
 MAX_CHANNELS = 255
 MAX_DIGITS = 256
 
@@ -346,17 +347,15 @@ class _Consts:
             "invMi_q": t32(vec("invMi_q")),
             "Mq_mod_b": t32(vec("Mq_mod_b")),
             "invM_q": t32(vec("invM_q")),
-            "E1": t16(E1),  # entries < 2^12: the kernel reads them as uint16
-            "E2": t16(E2),
-            "D": t16(D),
-            # K2's reciprocals, as uint32 bit patterns: Barrett's μ_p per
-            # channel of [B | B'], Shoup's w' of each fixed multiplier.
+            "D": t16(D),  # entries < 2^12: the kernels read them as uint16
+            # The kernels' reciprocals, as uint32 bit patterns: Barrett's μ_p
+            # per channel of [B | B'], Shoup's w' of each fixed multiplier.
             "mu_all": u32(barrett_mu(p_all)),
             "invMi_b_sh": u32(shoup_w(vec("invMi_b"), pb)),
             "invMi_q_sh": u32(shoup_w(vec("invMi_q"), pq)),
             "Mq_mod_b_sh": u32(shoup_w(vec("Mq_mod_b"), pb)),
             "invM_q_sh": u32(shoup_w(vec("invM_q"), pq)),
-            # K2's extension matrices as int8 6-bit planes in mma fragment order.
+            # The extension matrices as int8 6-bit planes in mma fragment order.
             "E_mma": torch.as_tensor(mma_planes(E1, E2), device=device),
         }
 

@@ -25,8 +25,9 @@ holds every hand-written kernel against its plain PyTorch version:
    2300-bit exponents, the shape of threshold-RSA fragments, on the limb
    path with the 256-limb exponent bucket.  Both must equal host pow;
 8. each kernel against its plain version on the card, on the operands the
-   main paths gave it: K1 verdicts, K2 sigma (k=94 and k=188) and K3's
-   whole (4096, 128) diff bit-identical;
+   main paths gave it: K1 verdicts (the verify flush's T=4096 and every
+   fault check's T=256), K2 sigma (k=94 and k=188) and K3's whole
+   (4096, 128) diff bit-identical;
 9. times: median of 5 timed flushes per verify/RNS-sign phase, 3 for the
    limb sign, and kernel times by CUDA events, beside nvidia-smi's name
    and power limit.
@@ -79,6 +80,9 @@ MONT_OPS_PER_MAC = 8
 # path's two shapes, as PERF.md records them (not measured by this script).
 K2_EARLIER_MS = {94: 3.6543, 188: 10.935}
 K2_EARLIER_OF = "PERF.md section 6, the CUDA-core kernel it replaced, H100 80GB HBM3, 700 W"
+# The same for K1 at the verify flush's shape.
+K1_EARLIER_MS = {VERIFY_FLUSH: 1.3068}
+K1_EARLIER_OF = "PERF.md section 6, the CUDA-core kernel it replaced, H100 80GB HBM3, 700 W"
 
 
 def fail(msg: str) -> None:
@@ -503,7 +507,7 @@ def main() -> int:
               f"first run {dt * 1e3:.1f} ms", flush=True)
 
         # 6. limb sign phase (counted): one 512-row power_batch, K1 fault check
-        with Counted() as c_l:
+        with Recorder(cuda_rns, ("verify_cuda",)) as rec_l, Counted() as c_l:
             sign_items, sigs, dt = sign_phase(sd_l, replicas, "limb")
         l_launch, l_snap = c_l.launches, c_l.snap
         check_signatures(sign_items, sigs, "limb sign")
@@ -587,18 +591,34 @@ def main() -> int:
     k3_args = rec_p.calls["verify_cuda"]
     check(len(k3_args) == 1 and k3_args[0][0].shape == (VERIFY_FLUSH, 128),
           "expected one (4096, 128) K3 launch")
+    # K1's launches by shape: the verify flush (T=4096), the fault checks
+    # of both sign backends (T=256).
+    k1_calls = {"verify_rns": rec_v.calls["verify_cuda"], "sign_rns": rec_s.calls["verify_cuda"],
+                "sign_limb": rec_l.calls["verify_cuda"]}
+    check(all(len(k1_calls[ph]) == c["verify"]
+              for ph, c in (("verify_rns", v_launch), ("sign_rns", s_launch), ("sign_limb", l_launch))),
+          "recorded K1 calls differ from its launch counts")
+    by_shape = {t: {ph: sum(a[0].shape[0] == t for a in calls) for ph, calls in k1_calls.items()}
+                for t in (VERIFY_FLUSH, SIGN_SHARES)}
+    check(sum(sum(c.values()) for c in by_shape.values()) == sum(map(len, k1_calls.values())),
+          f"K1 launched at a shape other than T={VERIFY_FLUSH} or T={SIGN_SHARES}")
+    f_args = k1_calls["sign_rns"] + k1_calls["sign_limb"]
+    check(len(f_args) >= 2, "expected a fault check from each sign backend")
     cn_v = rns.consts(rns.DIGITS, 2048, dev)
-    for a in rec_s.calls["verify_cuda"]:  # the sign phase's fault-check operands, too
+    for a in f_args:  # every fault check's operands
         g = cuda_rns.verify_cuda(*a)
         pl = rns._verify_kernel(cn_v, a[0], a[1], rns.gather_key(a[3], a[2]))
         check(torch.equal(g, pl), "K1 differs from its plain version on fault-check operands")
     attrs = {**cuda_rns.kernel_attrs(), **cuda_mont.kernel_attrs()}
-    k1_launches = {"verify_rns": v_launch["verify"], "sign_rns": s_launch["verify"],
-                   "sign_limb": l_launch["verify"]}
+    launches_of = lambda t: {ph: n for ph, n in by_shape[t].items() if n}
     kernels = [
         rns_record("K1 rns_verify_kernel", "verify", "bftkv_tpu/ops/pallas_rns.py:517",
-                   v_args[0], sum(k1_launches.values()), 20, 3,
-                   phase_launches=k1_launches, **attrs["verify"]),
+                   v_args[0], sum(by_shape[VERIFY_FLUSH].values()), 20, 3,
+                   phase_launches=launches_of(VERIFY_FLUSH), **attrs["verify"]),
+        rns_record("K1 rns_verify_kernel (T=256, fault check)", "verify",
+                   "bftkv_tpu/ops/pallas_rns.py:517", k1_calls["sign_rns"][0],
+                   sum(by_shape[SIGN_SHARES].values()), 50, 3,
+                   phase_launches=launches_of(SIGN_SHARES), **attrs["verify"]),
         rns_record("K2 rns_pow_kernel (k=94)", "pow", "bftkv_tpu/ops/pallas_rns.py:403",
                    p_args[0], s_launch["pow"], 10, 2,
                    phase_launches={"sign_rns": s_launch["pow"]}, **attrs["pow"]),
@@ -607,11 +627,15 @@ def main() -> int:
                    phase_launches={"modexp_2048": c_m.launches["pow"]}, **attrs["pow"]),
         k3_record(k3_args[0], p_launch["mont_verify"]),
     ]
-    kernels[3].update(phase_launches={"verify_pallas": p_launch["mont_verify"]},
+    kernels[4].update(phase_launches={"verify_pallas": p_launch["mont_verify"]},
                       **attrs["mont_verify"])
+    print(f"K1 before its redesign, not measured in this run ({K1_EARLIER_OF}): "
+          + ", ".join(f"T={t} {ms} ms" for t, ms in K1_EARLIER_MS.items())
+          + "; this run: " + ", ".join(f"T={r['rows']} {r['ms']:.4f} ms" for r in kernels[0:2]),
+          flush=True)
     print(f"K2 before its redesign, not measured in this run ({K2_EARLIER_OF}): "
           + ", ".join(f"k={k} {ms} ms" for k, ms in K2_EARLIER_MS.items())
-          + "; this run: " + ", ".join(f"k={r['k']} {r['ms']:.4f} ms" for r in kernels[1:3]),
+          + "; this run: " + ", ".join(f"k={r['k']} {r['ms']:.4f} ms" for r in kernels[2:4]),
           flush=True)
     print(json.dumps({
         "kernels": kernels,

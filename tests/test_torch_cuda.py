@@ -58,6 +58,60 @@ def test_k1_matches_plain_on_card(dev):
     np.testing.assert_array_equal(got, [j % 2 == 1 for j in range(n_rows)])
 
 
+def _k1_operands(dev, n_rows: int, n_keys: int, seed: int):
+    """Seeded K1 operands at k=188: odd rows valid signatures, even rows a
+    random em; plus the host verdicts."""
+    ctx = rns.context()
+    ns = _moduli(ctx, 2048, n_keys, seed=seed)
+    rng = random.Random(seed + 1)
+    idx = np.array([rng.randrange(n_keys) for _ in range(n_rows)], dtype=np.int32)
+    sigs = [rng.randrange(ns[i]) for i in idx]
+    ems = [pow(s, 65537, ns[i]) if j % 2 else rng.randrange(ns[i])
+           for j, (s, i) in enumerate(zip(sigs, idx))]
+    halves = lambda xs: torch.from_numpy(
+        rns.digits_to_halves_u8(np.stack([limb.int_to_limbs(x, 128) for x in xs]))).to(dev)
+    ukey = rns.key_rows_from_numpy(rns.stack_key_rows([ctx.key_rows(n) for n in ns]), dev)
+    args = (halves(sigs), halves(ems), torch.from_numpy(idx).to(dev), ukey,
+            rns.consts(128, 2048, dev))
+    return args, [j % 2 == 1 for j in range(n_rows)]
+
+
+@pytest.mark.parametrize("size", ["one_row", "rows_per_block_plus_one", "fault_check"])
+def test_k1_small_batches_match_plain_on_card(dev, size):
+    """T = 1, T = R + 1 (R = K1's rows per block: a last block with one live
+    slot) and T = 256 (a sign flush's fault check)."""
+    rows = {"one_row": 1, "fault_check": 256,
+            "rows_per_block_plus_one": cuda_rns.kernel_attrs()["verify"]["rows_per_block"] + 1}[size]
+    args, want = _k1_operands(dev, rows, 3, seed=81 + rows)
+    got = cuda_rns.verify_cuda(*args)
+    plain = rns._verify_kernel(args[4], args[0], args[1], rns.gather_key(args[3], args[2]))
+    assert torch.equal(got, plain)
+    assert got.cpu().tolist() == want
+
+
+def test_k1_fails_a_bad_key_index_closed_and_writes_no_row_past_t(dev):
+    """A key index of n_keys gets verdict 0 (its signature is valid under
+    key row 0, which the kernel reads instead); its neighbours keep their
+    verdicts; with T = 13 the 11 words after the output stay as they were."""
+    t, n_keys = 13, 3
+    (sh, eh, idx, ukey, cn), want = _k1_operands(dev, t, n_keys, seed=91)
+    ctx = rns.context()
+    n0 = _moduli(ctx, 2048, n_keys, seed=91)[0]
+    s0 = random.Random(92).randrange(n0)
+    row = lambda x: torch.from_numpy(rns.digits_to_halves_u8(limb.int_to_limbs(x, 128)[None])).to(dev)
+    sh[5], eh[5] = row(s0)[0], row(pow(s0, 65537, n0))[0]
+    idx[5] = n_keys
+    buf = torch.full((t + 11,), 7, dtype=torch.int32, device=dev)
+    cuda_rns._launch("verify", sh, eh, idx, ukey, cn, buf[:t])
+    assert buf[t:].cpu().tolist() == [7] * 11
+    clamped = torch.where(idx < n_keys, idx, torch.zeros_like(idx))
+    plain = rns._verify_kernel(cn, sh, eh, rns.gather_key(ukey, clamped))
+    assert bool(plain[5])  # key row 0 would pass it: the index check fails it
+    want[5] = False
+    assert (buf[:t] != 0).cpu().tolist() == want
+    assert torch.equal(buf[:t] != 0, plain & (idx < n_keys))
+
+
 def test_k2_matches_plain_on_card(dev):
     ctx = rns.context(64, 1024)
     ns = _moduli(ctx, 1024, 4, seed=23)
