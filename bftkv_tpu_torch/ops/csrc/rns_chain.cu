@@ -69,9 +69,10 @@ rns_verify_kernel(const uint8_t* __restrict__ sig_h, const uint8_t* __restrict__
   ch.init(key, kid);
   ch.stage(smem_raw);
 
+  // Two conversions per 19 products, each waiting on D's loads: 16 in flight.
   Num s, em, acc;
-  ch.to_residues<kSlots>(sig_h, row0, T, s);  // its barriers order the staging too
-  ch.to_residues<kSlots>(em_h, row0, T, em);
+  ch.to_residues<kSlots, 16>(sig_h, row0, T, s);  // its barriers order the staging too
+  ch.to_residues<kSlots, 16>(em_h, row0, T, em);
   ch.key_num(key.m2_all, key.m2_r, kid, acc);
   ch.mont(s, acc, s);  // s * M mod N: Montgomery form
   ch.mont(s, s, acc);

@@ -198,12 +198,21 @@ struct Chain {
     }
   }
 
-  // Stages E's planes and zeroes the sigma planes (their K padding is never
-  // written); the conversion's first barrier orders these stores.
+  // Stages E's planes, 8 loads in flight per thread, and zeroes the sigma
+  // planes (their K padding is never written); the conversion's first
+  // barrier orders these stores.
   __device__ void stage(unsigned char* raw) const {
     uint4* dst = reinterpret_cast<uint4*>(raw);
-    const size_t n = geo.e_bytes / 16;
-    for (size_t i = threadIdx.x; i < n; i += blockDim.x) dst[i] = c.E_mma[i];
+    const int n = (int)(geo.e_bytes / 16), step = blockDim.x;
+    int i = threadIdx.x;
+    for (; i + 7 * step < n; i += 8 * step) {
+      uint4 v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) v[u] = c.E_mma[i + u * step];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) dst[i + u * step] = v[u];
+    }
+    for (; i < n; i += step) dst[i] = c.E_mma[i];
     uint32_t* sg = reinterpret_cast<uint32_t*>(sig);
     for (size_t i = threadIdx.x; i < geo.sig_bytes / 4; i += blockDim.x) sg[i] = 0u;
   }
@@ -328,7 +337,8 @@ struct Chain {
 
   // Digit halves of the 8 slots' rows (slot s runs row row0 + s % R, clamped
   // to the batch) -> residues of this thread's pairs, through the work area.
-  template <int R>
+  // U loads of D are in flight per thread (D is read from L2).
+  template <int R, int U>
   __device__ void to_residues(const uint8_t* h, int row0, int T, Num& x) const {
     const int k = c.k, nd = 2 * c.digits, nch = 2 * k + 1;
     uint32_t* halves = work;                      // (nd, 8)
@@ -343,7 +353,7 @@ struct Chain {
       // Sums < 2*digits * 255 * 4095 < 2^32 for digits <= 256.
       uint32_t acc[kSlots] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
       const uint16_t* dcol = c.D + ch;
-#pragma unroll 4
+#pragma unroll (U)
       for (int d = 0; d < nd; ++d) {
         const uint32_t w = dcol[(size_t)d * nch];
         const uint4 lo = hv[2 * d], hi = hv[2 * d + 1];  // broadcast reads

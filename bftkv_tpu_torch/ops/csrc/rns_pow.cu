@@ -111,7 +111,8 @@ rns_pow_kernel(const uint8_t* __restrict__ base_h, const uint8_t* __restrict__ n
   ch.stage(smem_raw);
 
   Num x, m2, one, acc;
-  ch.template to_residues<R>(base_h, row0, T, x);  // its barriers order the staging too
+  // One conversion per 17 + 20*digits products: 4 loads of D in flight.
+  ch.template to_residues<R, 4>(base_h, row0, T, x);  // its barriers order the staging too
   ch.key_num(key.m2_all, key.m2_r, kid, m2);
   Chain::set_one(one);
   ch.mont(x, m2, x);      // base in Montgomery form
