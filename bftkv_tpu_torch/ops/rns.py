@@ -227,7 +227,7 @@ def _exact_int(a, name: str) -> np.ndarray:
 
 
 def barrett_mu(p) -> np.ndarray:
-    """μ_p = ⌊2^32/p⌋ (uint64 values < 2^32 for p ≥ 2).  K2 reduces an
+    """μ_p = ⌊2^32/p⌋ (uint64 values < 2^32 for p ≥ 2).  The kernels reduce an
     x < 2^32 as q = umulhi(x, μ_p), r = x − q·p, one conditional
     subtraction of p."""
     p = np.asarray(p, dtype=np.uint64)
@@ -237,7 +237,7 @@ def barrett_mu(p) -> np.ndarray:
 
 
 def shoup_w(w, p) -> np.ndarray:
-    """w′ = ⌊w·2^32/p⌋ for a fixed multiplier w < p.  K2 reduces a·w
+    """w′ = ⌊w·2^32/p⌋ for a fixed multiplier w < p.  The kernels reduce a·w
     (a < 2^32) as q = umulhi(a, w′), r = a·w − q·p mod 2^32, one
     conditional subtraction of p."""
     w = np.asarray(w, dtype=np.uint64)
@@ -247,7 +247,7 @@ def shoup_w(w, p) -> np.ndarray:
     return (w << np.uint64(32)) // p
 
 
-#: K2's tensor-core tile: mma.sync m16n8k32 (M channels out, K channels in).
+#: The RNS kernels' tensor-core tile: mma.sync m16n8k32 (M channels out, K channels in).
 MMA_M, MMA_K = 16, 32
 
 
@@ -275,7 +275,7 @@ def _fragment_index(m_pad: int, k_pad: int):
 
 
 def mma_planes(E1: np.ndarray, E2: np.ndarray) -> np.ndarray:
-    """K2's A operands: for each extension matrix E (k, k+1), A = Eᵀ zero
+    """The kernels' A operands: for each extension matrix E (k, k+1), A = Eᵀ zero
     padded to (M_pad, K_pad), split into 6-bit planes (lo, hi), each
     entry < 64, as int8 in fragment order.  Shape (2 extensions, 2
     planes, M_pad/16, K_pad/32, 32 lanes, 16 bytes)."""
