@@ -14,10 +14,8 @@ Both run on seeded operands at the main path's shapes:
 
 ``--other NAME=DIR`` (repeatable) builds another library from DIR's copies
 of the kernel sources (an earlier tree's ``bftkv_tpu_torch/ops/csrc``, or
-a variant) and times its K1 and K2 on the same operands under NAME.  A
-library whose K1 is the CUDA-core design, whose launcher takes the uint16
-extension matrices E1, E2 in place of the int8 planes and the
-reciprocals, is launched through ``_cuda_core_k1``.
+a variant, with this tree's C interface) and times its K1 and K2 on the
+same operands under NAME.
 
 Every variant is timed in turns by CUDA events (each once, then again in
 reverse order) and must agree with the plain version bit for bit; one that
@@ -46,13 +44,6 @@ from bftkv_tpu_torch.ops import _build, cuda_rns, limb, rns
 REPS = 10
 K1_ROWS = (4096, 256)
 K2_SHAPES = ((64, 1024, 512), (128, 2048, 64), (64, 1024, 4096))  # (digits, n_bits, T)
-
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# The CUDA-core K1's launcher: (sig_h, em_h, idx, T, n_keys, 6 key-row
-# arrays, 5 channel vectors, E1, E2, D, invMq_pr, invM_pr, k, digits, out,
-# stream, smem_need, smem_limit).
-_CUDA_CORE_VERIFY_ARGS = ([_P, _P, _P, _I, _I] + [_P] * 6 + [_P] * 5 + [_P] * 3 + [_I] * 4
-                           + [_P, _P] + [ctypes.POINTER(_I)] * 2)
 
 
 def _moduli(ctx, bits: int, count: int, seed: int) -> list[int]:
@@ -94,39 +85,6 @@ def _verify_operands(rows: int, n_keys: int, dev, seed: int):
         device=dev)
     return (halves(sigs), halves(ems), torch.as_tensor(np.asarray(idx, np.int32), device=dev),
             _ukey(ctx, ns, dev), rns.consts(rns.DIGITS, 2048, dev))
-
-
-def _cuda_core_k1(lib):
-    """K1 of a library whose ``rns_verify_launch`` is the CUDA-core design's
-    (uint16 E1, E2 in place of the int8 planes and the reciprocals)."""
-    lib.rns_verify_launch.argtypes = _CUDA_CORE_VERIFY_ARGS
-    lib.rns_verify_launch.restype = ctypes.c_int
-    lib.rns_pow_launch.argtypes = _build._LAUNCH_ARGS
-    lib.rns_pow_launch.restype = ctypes.c_int
-    lib.rns_error_string.argtypes = [ctypes.c_int]
-    lib.rns_error_string.restype = ctypes.c_char_p
-    e12 = {}
-
-    def verify(a, b, idx, ukey, cn) -> torch.Tensor:
-        if cn.k not in e12:
-            e12[cn.k] = (cn.E1f.to(torch.int16), cn.E2f.to(torch.int16))
-        out = torch.empty(a.shape[0], dtype=torch.int32, device=a.device)
-        kc = cn.kern
-        need, limit = ctypes.c_int(), ctypes.c_int()
-        rc = lib.rns_verify_launch(
-            a.data_ptr(), b.data_ptr(), idx.data_ptr(), a.shape[0], ukey[0].shape[0],
-            *(u.data_ptr() for u in ukey),
-            *(kc[n].data_ptr() for n in ("p_all", "invMi_b", "invMi_q", "Mq_mod_b", "invM_q")),
-            e12[cn.k][0].data_ptr(), e12[cn.k][1].data_ptr(), kc["D"].data_ptr(),
-            cn.invMq_pr, cn.invM_pr, cn.k, cn.digits, out.data_ptr(),
-            torch.cuda.current_stream(a.device).cuda_stream, ctypes.byref(need),
-            ctypes.byref(limit),
-        )
-        if rc != 0:
-            raise RuntimeError(f"K1 launch failed ({rc}; shared memory {need.value}/{limit.value})")
-        return out != 0
-
-    return verify
 
 
 def _ms(fn) -> float:
@@ -198,12 +156,9 @@ def main() -> int:
         lib = ctypes.CDLL(_build.build(
             f"bftkv_kernels_{name}", os.path.join(os.path.dirname(_build.BUILD_DIR), f"kernels_{name}"),
             sources=srcs))
-        if hasattr(lib, "rns_verify_attrs"):  # this tree's C interface
-            _build.bind(lib)
-            attrs[name] = _through(lib, cuda_rns.kernel_attrs)()
-            k1[name] = _through(lib, cuda_rns.verify_cuda)
-        else:
-            k1[name] = _cuda_core_k1(lib)
+        _build.bind(lib)
+        attrs[name] = _through(lib, cuda_rns.kernel_attrs)()
+        k1[name] = _through(lib, cuda_rns.verify_cuda)
         k2[name] = _through(lib, cuda_rns.pow_cuda)
 
     out = {"built_rows": built, "attrs": attrs, "k1": [], "k2": []}

@@ -72,9 +72,12 @@ INT8_OPS_PER_S = 1979e12
 HBM_BYTES_PER_S = 3.35e12
 # An exact product of two 12-bit residues (K1, K2) takes three int8 products
 # on the tensor cores: 6-bit planes lo, hi and Karatsuba's (lo+hi)*(lo+hi),
-# whose byte sums stay below 127: 6 ops per MAC.  K3's 16-bit digit products
-# take four 8-bit products: 8 ops per MAC.
+# whose byte sums stay below 127: 6 ops per MAC.  A digit -> residue
+# conversion MAC, an 8-bit digit half times a 12-bit entry of D, takes two
+# (D in two planes): 4 ops.  K3's 16-bit digit products take four 8-bit
+# products: 8 ops per MAC.
 RNS_OPS_PER_MAC = 6
+CONV_OPS_PER_MAC = 4
 MONT_OPS_PER_MAC = 8
 # The parent's K2 (CUDA cores, rns_chain.cu, 2 rows per block) at the main
 # path's two shapes, as PERF.md records them (not measured by this script).
@@ -314,8 +317,8 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(macs: int, nbytes: int, ops_per_mac: int) -> tuple[float, str]:
-    t_ops = macs * ops_per_mac / INT8_OPS_PER_S * 1e3
+def bound_ms(ops: int, nbytes: int) -> tuple[float, str]:
+    t_ops = ops / INT8_OPS_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -324,8 +327,8 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def kernel_record(name, source, replaces, launches, kernel_fn, plain_fn, macs, n_bytes,
-                  ops_per_mac, kernel_reps, plain_reps, **extra):
+def kernel_record(name, source, replaces, launches, kernel_fn, plain_fn, ops, n_bytes,
+                  kernel_reps, plain_reps, **extra):
     """Kernel vs its plain version on one recorded operand set, and times."""
     got = kernel_fn()
     plain = plain_fn()
@@ -335,7 +338,7 @@ def kernel_record(name, source, replaces, launches, kernel_fn, plain_fn, macs, n
     check(err == 0, f"{name}: kernel and plain version differ (max abs err {err})")
     del got, plain
     torch.cuda.empty_cache()
-    b_ms, b_by = bound_ms(macs, n_bytes, ops_per_mac)
+    b_ms, b_by = bound_ms(ops, n_bytes)
     return {
         "name": name,
         "route": "cuda",
@@ -365,18 +368,18 @@ def rns_record(name, which, replaces, args, launches, kernel_reps, plain_reps, *
         # Two digit -> residue conversions, then 19 Montgomery products
         # (to-Montgomery, 16 squarings, x s, from-Montgomery), two base
         # extensions each.
-        macs_row = 2 * (2 * digits) * (2 * k + 1) + 19 * 2 * k * (k + 1)
+        conversions, products = 2, 19
     else:
-        steps = 4 * digits
-        products = 2 + 14 + 5 * steps + 1
-        macs_row = (2 * digits) * (2 * k + 1) + products * 2 * k * (k + 1)
+        conversions, products = 1, 2 + 14 + 5 * 4 * digits + 1
+    ops_row = (CONV_OPS_PER_MAC * conversions * (2 * digits) * (2 * k + 1)
+               + RNS_OPS_PER_MAC * products * 2 * k * (k + 1))
     out_bytes = t * (4 if which == "verify" else 4 * k)
     return kernel_record(
         name, f"bftkv_tpu_torch/ops/csrc/{'rns_chain' if which == 'verify' else 'rns_pow'}.cu",
         replaces, launches,
         lambda: real(*args), lambda: plain(cn, a, b, rns.gather_key(ukey, idx)),
-        t * macs_row, nbytes(a, b, idx, *ukey) + nbytes(*cn.kern.values()) + out_bytes,
-        RNS_OPS_PER_MAC, kernel_reps, plain_reps, rows=t, k=k, digits=digits, **extra,
+        t * ops_row, nbytes(a, b, idx, *ukey) + nbytes(*cn.kern.values()) + out_bytes,
+        kernel_reps, plain_reps, rows=t, k=k, digits=digits, **extra,
     )
 
 
@@ -395,14 +398,14 @@ def k3_record(args, launches):
     macs_row = 2 * (2 * L * L + L) + 16 * (L * (L + 1) // 2 + L + L * L) + (L * L + L)
     # A second figure: 19 full products of L^2 (a*b) + L(L+1)/2 (m = t*n' mod
     # R as a half product) + L^2 (m*n), which overcounts the chain's work.
-    full_products_ms = bound_ms(t * 19 * (2 * L * L + L * (L + 1) // 2), n_bytes,
-                                MONT_OPS_PER_MAC)[0]
+    full_products_ms = bound_ms(
+        t * 19 * (2 * L * L + L * (L + 1) // 2) * MONT_OPS_PER_MAC, n_bytes)[0]
     return kernel_record(
         "K3 mont_verify_kernel", "bftkv_tpu_torch/ops/csrc/mont_chain.cu",
         "bftkv_tpu/ops/pallas_mont.py:174", launches,
         lambda: cuda_mont.verify_diff(*args),
         lambda: rsa_ops._verify_chain(*(a.long() for a in args)),
-        t * macs_row, n_bytes, MONT_OPS_PER_MAC, kernel_reps=20, plain_reps=2,
+        t * macs_row * MONT_OPS_PER_MAC, n_bytes, kernel_reps=20, plain_reps=2,
         rows=t, compared="(T, 128) diff", bound_ms_19_full_products=full_products_ms,
     )
 
