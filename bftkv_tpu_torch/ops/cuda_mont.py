@@ -22,11 +22,16 @@ import torch
 
 from bftkv_tpu_torch.ops import _build
 
-__all__ = ["LAUNCHES", "TILE", "kernel_attrs", "reset_launches", "verify_cuda",
-           "verify_diff"]
+__all__ = ["LAUNCHES", "ROWS_PER_BLOCK", "THREADS_PER_ROW", "TILE", "kernel_attrs",
+           "reset_launches", "verify_cuda", "verify_diff"]
 
 L = 128  # 16-bit digits of a 2048-bit number: the kernel is 2048-bit only
 TILE = 256  # rows per tile of the reference kernel
+# The kernel's layout, as ``csrc/mont_chain.cu`` sets it (``kTpi``, and
+# ``kThreads / kTpi``): each row's products are split across a group of
+# THREADS_PER_ROW lanes of one warp, ROWS_PER_BLOCK rows per block.
+THREADS_PER_ROW = 16
+ROWS_PER_BLOCK = 8
 
 #: Kernel launches ("mont_verify" = K3).
 LAUNCHES = {"mont_verify": 0}
@@ -39,7 +44,8 @@ def reset_launches() -> None:
 
 
 def kernel_attrs() -> dict[str, dict[str, int]]:
-    """Registers and local-memory bytes per thread of K3 as built."""
+    """Registers and local-memory bytes per thread of K3 as built, beside
+    its threads per row and rows per block."""
     lib = _build.library()
     regs, local = ctypes.c_int(), ctypes.c_int()
     rc = lib.mont_kernel_attrs(ctypes.byref(regs), ctypes.byref(local))
@@ -47,7 +53,9 @@ def kernel_attrs() -> dict[str, dict[str, int]]:
         raise RuntimeError(
             f"mont_verify kernel attributes: {lib.rns_error_string(rc).decode()} ({rc})"
         )
-    return {"mont_verify": {"registers": regs.value, "local_bytes": local.value}}
+    return {"mont_verify": {"registers": regs.value, "local_bytes": local.value,
+                            "threads_per_row": THREADS_PER_ROW,
+                            "rows_per_block": ROWS_PER_BLOCK}}
 
 
 def _check(ops) -> None:

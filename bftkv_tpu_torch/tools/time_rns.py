@@ -1,6 +1,7 @@
-"""Times K1 (``rns_verify_kernel``) and K2 (``rns_pow_kernel``) on one GPU.
+"""Times K1 (``rns_verify_kernel``), K2 (``rns_pow_kernel``) and K3
+(``mont_verify_kernel``) on one GPU.
 
-Both run on seeded operands at the main path's shapes:
+All run on seeded operands at the main path's shapes:
 
 - K1 at k=188, 128 digits: T=4096 (the ``rns`` verify flush) and T=256
   (the fault check of one 256-share sign flush), half the rows valid
@@ -10,11 +11,15 @@ Both run on seeded operands at the main path's shapes:
   library's own rows-per-block count (``RNS_POW_ROWS`` in
   ``ops/csrc/rns_pow.cu``), each count in ``--rows`` is built as a copy of
   the kernels (``-DRNS_POW_ROWS=R``, under
-  ``bftkv_tpu_torch/_build/kernels_rowsR/``).
+  ``bftkv_tpu_torch/_build/kernels_rowsR/``);
+- K3 at T=4096 (the ``pallas`` verify flush) and T=256, on
+  :func:`mont_operands`' rows, which the card tests share: valid, forged,
+  s = 0 and s >= n rows, the moduli 2^2048 - 1 and 2^2047 + 1 and the
+  multiplicands that stress the carries.
 
 ``--other NAME=DIR`` (repeatable) builds another library from DIR's copies
 of the kernel sources (an earlier tree's ``bftkv_tpu_torch/ops/csrc``, or
-a variant, with this tree's C interface) and times its K1 and K2 on the
+a variant, with this tree's C interface) and times its kernels on the
 same operands under NAME.
 
 Every variant is timed in turns by CUDA events (each once, then again in
@@ -39,11 +44,14 @@ import sys
 import numpy as np
 import torch
 
-from bftkv_tpu_torch.ops import _build, cuda_rns, limb, rns
+from bftkv_tpu_torch.ops import _build, bigint, cuda_mont, cuda_rns, limb, rns
+from bftkv_tpu_torch.ops import rsa as rsa_ops
 
 REPS = 10
 K1_ROWS = (4096, 256)
 K2_SHAPES = ((64, 1024, 512), (128, 2048, 64), (64, 1024, 4096))  # (digits, n_bits, T)
+K3_ROWS = (4096, 256)
+R = 1 << 2048
 
 
 def _moduli(ctx, bits: int, count: int, seed: int) -> list[int]:
@@ -85,6 +93,42 @@ def _verify_operands(rows: int, n_keys: int, dev, seed: int):
         device=dev)
     return (halves(sigs), halves(ems), torch.as_tensor(np.asarray(idx, np.int32), device=dev),
             _ukey(ctx, ns, dev), rns.consts(rns.DIGITS, 2048, dev))
+
+
+def mont_operands(n_rows: int, seed: int, dev):
+    """Seeded K3 operands (sig, em, n, n', r2), five (n_rows, 128) int32
+    tensors of 16-bit digits on ``dev``, and the host verdicts.
+
+    Rows take one of five moduli: three random 2048-bit ones, 2^2048 - 1
+    and 2^2047 + 1.  Every seventh row holds s = 0 or a raw s >= n; rows
+    j % 7 = 3, 5 and 6 hold s = n - 1, the s whose Montgomery form is n - 1
+    (so the first squaring is (n-1)^2) and the all-ones number mod n; the
+    rest a random s < n.  em is s^65537 mod n on rows j % 3 != 0, a random
+    2040-bit number on the others.
+    """
+    rng = random.Random(seed)
+    ns = [rng.getrandbits(2048) | 1 | (1 << 2047) for _ in range(3)] + [R - 1, (1 << 2047) + 1]
+    doms = [bigint.MontgomeryDomain(n, 128) for n in ns]
+    idx = [rng.randrange(len(ns)) for _ in range(n_rows)]
+
+    def sig(j: int, n: int) -> int:
+        if j % 7 == 0:
+            return (0, rng.randrange(n, R))[j % 2]
+        if j % 7 in (3, 5, 6):
+            return {3: n - 1, 5: -pow(R, -1, n) % n, 6: (R - 1) % n}[j % 7]
+        return rng.randrange(n)
+
+    sigs = [sig(j, ns[i]) for j, i in enumerate(idx)]
+    ems = [pow(s, 65537, ns[i]) if j % 3 else rng.getrandbits(2040)
+           for j, (s, i) in enumerate(zip(sigs, idx))]
+    t = lambda rows: torch.as_tensor(np.stack(rows).astype(np.int32), device=dev)
+    ops = (
+        t([limb.int_to_limbs(s, 128) for s in sigs]),
+        t([limb.int_to_limbs(e, 128) for e in ems]),
+        t([doms[i].n for i in idx]), t([doms[i].n_prime for i in idx]),
+        t([doms[i].r2 for i in idx]),
+    )
+    return ops, [pow(s, 65537, ns[i]) == e for s, e, i in zip(sigs, ems, idx)]
 
 
 def _ms(fn) -> float:
@@ -140,10 +184,11 @@ def main() -> int:
         return 2
     dev = torch.device("cuda", 0)
     _build.library()
-    attrs = {"current": cuda_rns.kernel_attrs()}
+    attrs = {"current": {**cuda_rns.kernel_attrs(), **cuda_mont.kernel_attrs()}}
     built = attrs["current"]["pow"]["rows_per_block"]
     k1 = {"current": cuda_rns.verify_cuda}
     k2 = {f"rows{built}": cuda_rns.pow_cuda}
+    k3 = {"current": cuda_mont.verify_diff}
     for r in sorted({int(x) for x in args.rows.split(",") if x} - {built}):
         lib = _build.load(f"bftkv_kernels_rows{r}",
                           os.path.join(os.path.dirname(_build.BUILD_DIR), f"kernels_rows{r}"),
@@ -157,11 +202,16 @@ def main() -> int:
             f"bftkv_kernels_{name}", os.path.join(os.path.dirname(_build.BUILD_DIR), f"kernels_{name}"),
             sources=srcs))
         _build.bind(lib)
-        attrs[name] = _through(lib, cuda_rns.kernel_attrs)()
+        # K3's registers and local bytes come from the library; its threads
+        # per row and rows per block are this tree's constants, so not its.
+        mont = _through(lib, cuda_mont.kernel_attrs)()["mont_verify"]
+        attrs[name] = {**_through(lib, cuda_rns.kernel_attrs)(),
+                       "mont_verify": {k: mont[k] for k in ("registers", "local_bytes")}}
         k1[name] = _through(lib, cuda_rns.verify_cuda)
         k2[name] = _through(lib, cuda_rns.pow_cuda)
+        k3[name] = _through(lib, cuda_mont.verify_diff)
 
-    out = {"built_rows": built, "attrs": attrs, "k1": [], "k2": []}
+    out = {"built_rows": built, "attrs": attrs, "k1": [], "k2": [], "k3": []}
     ok = True
     full = _verify_operands(max(K1_ROWS), 8, dev, seed=61)
     for t in K1_ROWS:
@@ -179,6 +229,14 @@ def main() -> int:
                **_time(k2, a, plain, lambda g, p: bool(torch.equal(g.long(), p)))}
         ok = ok and all(rec["bit_identical"].values())
         out["k2"].append(rec)
+    ops, want = mont_operands(max(K3_ROWS), 71, dev)
+    for t in K3_ROWS:
+        a = tuple(x[:t] for x in ops)
+        plain = rsa_ops._verify_chain(*(x.long() for x in a))
+        rec = {"rows": t, "valid_rows": sum(want[:t]),
+               **_time(k3, a, plain, lambda g, p: bool(torch.equal(g.long(), p)))}
+        ok = ok and all(rec["bit_identical"].values()) and not rec["errors"]
+        out["k3"].append(rec)
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,

@@ -86,6 +86,14 @@ K2_EARLIER_OF = "PERF.md section 6, the CUDA-core kernel it replaced, H100 80GB 
 # The same for K1 at the verify flush's shape.
 K1_EARLIER_MS = {VERIFY_FLUSH: 1.3068}
 K1_EARLIER_OF = "PERF.md section 6, the CUDA-core kernel it replaced, H100 80GB HBM3, 700 W"
+# The same for K3 at the pallas flush's shape.
+K3_EARLIER_MS = {VERIFY_FLUSH: 1.0182}
+K3_EARLIER_OF = "PERF.md section 6, the one-thread-per-row kernel it replaced, H100 80GB HBM3, 700 W"
+# K3's second figure: its 32-bit word multiply-adds (19 products of 2 * 64^2
+# a row) on the CUDA cores, issued at 64 or at 32 a clock per SM (IMAD.WIDE
+# at the full integer rate or at half of it), at the card's top SM clock.
+MONT_WORD_MACS_PER_ROW = 19 * 2 * 64 * 64
+IMAD_PER_CLOCK_PER_SM = (64, 32)
 
 
 def fail(msg: str) -> None:
@@ -400,6 +408,10 @@ def k3_record(args, launches):
     # R as a half product) + L^2 (m*n), which overcounts the chain's work.
     full_products_ms = bound_ms(
         t * 19 * (2 * L * L + L * (L + 1) // 2) * MONT_OPS_PER_MAC, n_bytes)[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = float(nvidia_smi("clocks.max.sm", "nounits")) * 1e6
+    issue_floor_ms = [t * MONT_WORD_MACS_PER_ROW / (sms * rate * clock_hz) * 1e3
+                      for rate in IMAD_PER_CLOCK_PER_SM]
     return kernel_record(
         "K3 mont_verify_kernel", "bftkv_tpu_torch/ops/csrc/mont_chain.cu",
         "bftkv_tpu/ops/pallas_mont.py:174", launches,
@@ -407,7 +419,17 @@ def k3_record(args, launches):
         lambda: rsa_ops._verify_chain(*(a.long() for a in args)),
         t * macs_row * MONT_OPS_PER_MAC, n_bytes, kernel_reps=20, plain_reps=2,
         rows=t, compared="(T, 128) diff", bound_ms_19_full_products=full_products_ms,
+        cuda_core_issue_floor_ms=issue_floor_ms, sm_clock_max_mhz=clock_hz / 1e6,
     )
+
+
+def nvidia_smi(query: str, *fmt: str) -> str:
+    """The first card's ``nvidia-smi --query-gpu`` fields, as one string."""
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=" + ",".join(("csv", "noheader", *fmt))],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()
+    return out[0] if out else ""
 
 
 def main() -> int:
@@ -640,6 +662,9 @@ def main() -> int:
           + ", ".join(f"k={k} {ms} ms" for k, ms in K2_EARLIER_MS.items())
           + "; this run: " + ", ".join(f"k={r['k']} {r['ms']:.4f} ms" for r in kernels[2:4]),
           flush=True)
+    print(f"K3 before its redesign, not measured in this run ({K3_EARLIER_OF}): "
+          + ", ".join(f"T={t} {ms} ms" for t, ms in K3_EARLIER_MS.items())
+          + f"; this run: T={kernels[4]['rows']} {kernels[4]['ms']:.4f} ms", flush=True)
     print(json.dumps({
         "kernels": kernels,
         "not_yet_ported": [],
@@ -660,11 +685,7 @@ def main() -> int:
     }), flush=True)
 
     # 9b. the card, as nvidia-smi reports it
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()
-    print(smi[0] if smi else "nvidia-smi: no output", flush=True)
+    print(nvidia_smi("name,power.limit") or "nvidia-smi: no output", flush=True)
     print(json.dumps({
         "ok": True,
         "device": {

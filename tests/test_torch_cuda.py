@@ -19,8 +19,9 @@ import torch
 
 from bftkv_tpu_torch.crypto import rsa
 from bftkv_tpu_torch.metrics import registry as metrics
-from bftkv_tpu_torch.ops import bigint, cuda_mont, cuda_rns, limb, modexp, rns
+from bftkv_tpu_torch.ops import cuda_mont, cuda_rns, limb, modexp, rns
 from bftkv_tpu_torch.ops import rsa as rsa_ops
+from bftkv_tpu_torch.tools.time_rns import mont_operands
 from test_torch_utils import moduli as _moduli
 
 pytestmark = pytest.mark.cuda
@@ -156,30 +157,8 @@ def test_domains_on_card_match_host(dev):
     assert cuda_rns.LAUNCHES == {"verify": 2, "pow": 1}
 
 
-def _k3_operands(dev, n_rows: int, seed: int):
-    """Seeded K3 operands over three 2048-bit moduli: valid rows, random
-    (forged) rows, s = 0 rows and s >= n rows; plus the host verdicts."""
-    rng = random.Random(seed)
-    ns = [rng.getrandbits(2048) | 1 | (1 << 2047) for _ in range(3)]
-    doms = [bigint.MontgomeryDomain(n, 128) for n in ns]
-    idx = [rng.randrange(3) for _ in range(n_rows)]
-    sigs = [(0, rng.randrange(ns[i], 1 << 2048))[j % 2] if j % 7 == 0 else rng.randrange(ns[i])
-            for j, i in enumerate(idx)]
-    ems = [pow(s, 65537, ns[i]) if j % 3 else rng.getrandbits(2040)
-           for j, (s, i) in enumerate(zip(sigs, idx))]
-    t = lambda rows: torch.as_tensor(np.stack(rows).astype(np.int32), device=dev)
-    ops = (
-        t([limb.int_to_limbs(s, 128) for s in sigs]),
-        t([limb.int_to_limbs(e, 128) for e in ems]),
-        t([doms[i].n for i in idx]), t([doms[i].n_prime for i in idx]),
-        t([doms[i].r2 for i in idx]),
-    )
-    want = [pow(s, 65537, ns[i]) == e for s, e, i in zip(sigs, ems, idx)]
-    return ops, want
-
-
 def test_k3_matches_plain_on_card(dev):
-    ops, want = _k3_operands(dev, 512, seed=41)
+    ops, want = mont_operands(512, 41, dev)
     cuda_mont.reset_launches()
     got = cuda_mont.verify_diff(*ops)
     plain = rsa_ops._verify_chain(*(a.long() for a in ops))
@@ -188,6 +167,28 @@ def test_k3_matches_plain_on_card(dev):
     assert cuda_mont.LAUNCHES == {"mont_verify": 2}
     with pytest.raises(ValueError, match="multiple of 256"):
         cuda_mont.verify_cuda(*(a[:300] for a in ops))
+
+
+@pytest.mark.parametrize("rows", [256, 4096])
+def test_k3_matches_plain_on_hostile_rows_on_card(dev, rows):
+    """The moduli 2^2048 - 1 and 2^2047 + 1, s = n - 1, (n-1)^2 as the first
+    squaring, all-ones words, s = 0 and s >= n, at the smallest pallas flush
+    (the domain pads to 256 rows) and the 4096-item one: the whole diff
+    bit-identical to the plain version."""
+    ops, want = mont_operands(rows, 43, dev)
+    cuda_mont.reset_launches()
+    got = cuda_mont.verify_diff(*ops)
+    plain = rsa_ops._verify_chain(*(a.long() for a in ops))
+    assert torch.equal(got.long(), plain)
+    assert (got == 0).all(dim=-1).cpu().tolist() == want
+    assert cuda_mont.LAUNCHES == {"mont_verify": 1}
+
+
+def test_k3_uses_no_local_memory(dev):
+    attrs = cuda_mont.kernel_attrs()["mont_verify"]
+    assert attrs["local_bytes"] == 0  # no spills, no stack
+    assert 0 < attrs["registers"] <= 255
+    assert attrs["rows_per_block"] * attrs["threads_per_row"] % 32 == 0
 
 
 def test_k2_at_2048_bits_matches_plain_on_card(dev):
