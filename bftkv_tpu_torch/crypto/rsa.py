@@ -38,7 +38,7 @@ import torch
 from bftkv_tpu_torch import device as devmod
 from bftkv_tpu_torch import flags
 from bftkv_tpu_torch.metrics import registry as metrics
-from bftkv_tpu_torch.ops import bigint, cuda_mont, limb
+from bftkv_tpu_torch.ops import bigint, cuda_mont, devbuf, limb
 from bftkv_tpu_torch.ops import rsa as rsa_ops
 
 log = logging.getLogger("bftkv_tpu_torch.crypto.rsa")
@@ -384,8 +384,8 @@ class SignerDomain:
         unique: dict[int, int] = {}
         urows: list = []
         idxs: list[int] = []
-        dig_s: list[np.ndarray] = []
-        dig_em: list[np.ndarray] = []
+        dev_s: list[int] = []
+        dev_em: list[int] = []
         device_pos: list[int] = []
         ok = [False] * len(sigs)
         for pos, ((_i, key, s), em) in enumerate(zip(sigs, ems)):
@@ -398,21 +398,13 @@ class SignerDomain:
                 u = unique[key.n] = len(urows)
                 urows.append(kr)
             idxs.append(u)
-            dig_s.append(limb.int_to_limbs(s, 128))
-            dig_em.append(limb.int_to_limbs(em, 128))
+            dev_s.append(s)
+            dev_em.append(em)
             device_pos.append(pos)
         if device_pos:
-            k = len(device_pos)
-            padded = max(256, 1 << (k - 1).bit_length())
-            idxs += [0] * (padded - k)
-            dig_s += [np.zeros(128, dtype=np.uint32)] * (padded - k)
-            dig_em += [dig_em[0]] * (padded - k)
-            kpad = max(64, 1 << (len(urows) - 1).bit_length())
-            urows += [urows[0]] * (kpad - len(urows))
             good = rns_ops.verify_e65537_rns_indexed(
-                np.stack(dig_s), np.stack(dig_em), idxs,
-                rns_ops.stack_key_rows(urows), device=self.device,
-            ).cpu().numpy()[:k]
+                dev_s, dev_em, idxs, urows, device=self.device
+            )
             for pos, g in zip(device_pos, good):
                 ok[pos] = bool(g)
             # The check shares the device with the sign it polices; spot
@@ -562,6 +554,9 @@ class VerifierDomain:
         k = len(device_items)
         metrics.incr("verify.device", k)
         padded = max(256, 1 << (k - 1).bit_length())
+        if self.backend == "pallas":
+            self._verify_pallas(device_idx, device_items, out, padded)
+            return
         sig, em, n, npr, r2 = (
             np.concatenate([a, np.broadcast_to(
                 a[0] if j else np.zeros_like(a[0]), (padded - k,) + a.shape[1:]
@@ -569,14 +564,44 @@ class VerifierDomain:
             for j, a in enumerate(self.assemble(device_items))
         )
         with metrics.timer("verify.launch"):
-            if self.backend == "pallas":
-                ok = cuda_mont.verify_cuda(*(
-                    torch.from_numpy(a.astype(np.int32)).to(self.device)
-                    for a in (sig, em, n, npr, r2)
-                ))
-            else:
-                ok = rsa_ops.verify_batch_e65537(sig, em, n, npr, r2, device=self.device)
+            ok = rsa_ops.verify_batch_e65537(sig, em, n, npr, r2, device=self.device)
             out[np.asarray(device_idx)] = ok.cpu().numpy()[:k]
+
+    def _verify_pallas(self, device_idx, device_items, out, padded: int) -> None:
+        """K3 on operands staged in a slot of the ``mont`` ring: sig and em
+        as the 16-bit digits of their little-endian bytes (s ≥ n as 0),
+        n, n′ and r2 gathered from one row per distinct key."""
+        from bftkv_tpu_torch.ops import rns
+
+        unique: dict[int, int] = {}
+        doms, idx, sigs, ems = [], [], [], []
+        for message, sig_bytes, key in device_items:
+            u = unique.get(key.n)
+            if u is None:
+                u = unique[key.n] = len(doms)
+                doms.append(self._doms.get(key.n, self.nlimbs))
+            idx.append(u)
+            s = int.from_bytes(sig_bytes, "big")
+            sigs.append(s if s < key.n else 0)  # s = 0 never verifies
+            ems.append(emsa_pkcs1v15_sha256(message, key.size_bytes))
+        k = len(device_items)
+        names = ("sig", "em", "n", "nprime", "r2")
+        spec = {name: ((padded, cuda_mont.L), torch.int32) for name in names}
+        spec["ok"] = ((padded,), torch.bool)
+        with metrics.timer("verify.launch"):
+            lease = devbuf.lease(f"mont:{padded}:{self.device}", spec, self.device, width="mont")
+            with lease.launch() as slot:
+                for name, vals in (("sig", sigs), ("em", ems)):
+                    a = slot[name]
+                    a[:k] = rns.bytes_rows(vals, 2 * cuda_mont.L).view("<u2")
+                    a[k:] = 0 if name == "sig" else a[0]
+                for name, attr in (("n", "n"), ("nprime", "n_prime"), ("r2", "r2")):
+                    a = slot[name]
+                    a[:k] = np.stack([getattr(d, attr) for d in doms])[idx]
+                    a[k:] = a[0]
+                d = slot.upload(names)
+                slot.download("ok", cuda_mont.verify_cuda(*(d[name] for name in names)))
+            out[np.asarray(device_idx)] = lease.collect(lambda s: s["ok"][:k].copy())
 
     def _verify_rns(self, device_idx, device_items, out) -> None:
         """RNS device path with per-item host fallback for incapable keys.
@@ -586,7 +611,7 @@ class VerifierDomain:
         ctx = rns.context()
         unique: dict[int, int] = {}
         urows: list = []
-        idxs, digit_rows, em_rows, keep_idx = [], [], [], []
+        idxs, sigs, ems, keep_idx = [], [], [], []
         for j, (message, sig_bytes, key) in zip(device_idx, device_items):
             kr = ctx.key_rows(key.n)
             s = int.from_bytes(sig_bytes, "big")
@@ -604,28 +629,12 @@ class VerifierDomain:
                 u = unique[key.n] = len(urows)
                 urows.append(kr)
             idxs.append(u)
-            digit_rows.append(limb.int_to_limbs(s, 128))
-            em_rows.append(
-                limb.int_to_limbs(emsa_pkcs1v15_sha256(message, key.size_bytes), 128)
-            )
+            sigs.append(s)
+            ems.append(emsa_pkcs1v15_sha256(message, key.size_bytes))
             keep_idx.append(j)
         if not idxs:
             return
-        k = len(idxs)
-        metrics.incr("verify.device", k)
-        # Power-of-two buckets (floor 256), padding with row 0's key and
-        # sig digits of 0 — 0^e never equals a PKCS#1 encoding.
-        padded = max(256, 1 << (k - 1).bit_length())
-        for _ in range(padded - k):
-            idxs.append(0)
-            digit_rows.append(np.zeros(128, dtype=np.uint32))
-            em_rows.append(em_rows[0])
-        # Unique-key axis padded to a floor of 64, as the reference does.
-        kpad = max(64, 1 << (len(urows) - 1).bit_length())
-        urows += [urows[0]] * (kpad - len(urows))
+        metrics.incr("verify.device", len(idxs))
         with metrics.timer("verify.launch"):
-            ok = rns.verify_e65537_rns_indexed(
-                np.stack(digit_rows), np.stack(em_rows), idxs,
-                rns.stack_key_rows(urows), device=self.device,
-            ).cpu().numpy()[:k]
+            ok = rns.verify_e65537_rns_indexed(sigs, ems, idxs, urows, device=self.device)
         out[np.asarray(keep_idx)] = ok

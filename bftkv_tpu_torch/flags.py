@@ -13,13 +13,13 @@ from __future__ import annotations
 import os
 from typing import NamedTuple
 
-__all__ = ["Flag", "FLAGS", "declared", "enabled", "get", "raw"]
+__all__ = ["Flag", "FLAGS", "declared", "enabled", "get", "get_int", "raw"]
 
 
 class Flag(NamedTuple):
     name: str
     default: str | None  # None = unset (the call site's fallback applies)
-    kind: str  # "switch" | "str" | "int"
+    kind: str  # "switch" | "str" | "int" | "float"
     doc: str
 
 
@@ -50,6 +50,31 @@ _flag("BFTKV_SIGN_BACKEND", "rns", "str",
       "the RNS bases decline go to the limb engine) or `limb`.")
 _flag("BFTKV_TPU_MIN_MODEXP_BATCH", "4", "int",
       "BatchModExp batches below this size run as host pow.")
+_flag("BFTKV_DISPATCH_CALIBRATE", "1", "switch",
+      "Start-time host-vs-device crossover calibration of the dispatchers "
+      "(`0` disables; a CPU device still pins always-host).")
+_flag("BFTKV_DISPATCH_PIPELINE", None, "int",
+      "Flushes in flight at once in a batching dispatcher (unset: 2 on a "
+      "cuda device, 1 on the cpu).")
+_flag("BFTKV_DISPATCH_ASYNC", "on", "switch",
+      "Async dispatch: a flush whose dispatcher has a non-blocking launch "
+      "(ModexpDispatcher) hands it to one completion-drain thread, which "
+      "finalizes launches FIFO; `off` restores fully synchronous flushes.")
+_flag("BFTKV_DISPATCH_DEVBUF", "on", "switch",
+      "Persistent staging rings (ops/devbuf.py): launches write their "
+      "operands into preallocated pinned host and device tensors; `off` "
+      "allocates per launch.")
+_flag("BFTKV_DISPATCH_DEVBUF_RING", "4", "int",
+      "Slots per staging ring; with every slot in flight the next launch "
+      "allocates a fresh one (devbuf.overflow) instead of blocking.")
+_flag("BFTKV_TRACE", "on", "switch",
+      "Trace-id/span plane (trace.py); `off` disables tracing entirely.")
+_flag("BFTKV_SLOW_TRACE_SECONDS", "1.0", "float",
+      "Slow-trace threshold: root spans above it land in the slow ring and "
+      "the one-JSON-line slow log.")
+_flag("BFTKV_LOCKWATCH", "", "switch",
+      "Opt-in runtime lock sanitizer (devtools/lockwatch.py): lock-order "
+      "cycles and blocking calls under watched locks.")
 
 
 def _check(name: str) -> Flag:
@@ -79,6 +104,18 @@ def get(name: str) -> str | None:
     f = _check(name)
     v = os.environ.get(name)
     return f.default if v is None else v
+
+
+def get_int(name: str, default: int | None = None) -> int | None:
+    """Integer value; unset or empty falls back to ``default``, then to
+    the registry default."""
+    f = _check(name)
+    v = os.environ.get(name)
+    if v is None or v == "":
+        if default is not None:
+            return default
+        return int(f.default) if f.default is not None else None
+    return int(v)
 
 
 def enabled(name: str, default: str | None = None) -> bool:

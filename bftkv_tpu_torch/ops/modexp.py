@@ -8,7 +8,9 @@ device launch:
 - batches below ``min_batch`` (``BFTKV_TPU_MIN_MODEXP_BATCH``, default
   4) and even moduli: host ``pow``;
 - operands up to 1024 or 2048 bits: the RNS windowed modexp
-  (:func:`bftkv_tpu_torch.ops.rns.power_mod_rns`, kernel K2);
+  (:func:`bftkv_tpu_torch.ops.rns.power_mod_rns`, kernel K2), its
+  operands staged through the persistent rings of
+  :mod:`bftkv_tpu_torch.ops.devbuf` (reference ``modexp.py:80-95``);
 - wider operands (threshold-RSA fragment exponents outgrow the key), or
   a modulus the RNS bases decline: the limb engine's ``power_batch``,
   with the exponent width bucketed to 64/128/256 limbs;

@@ -23,11 +23,17 @@ Three parts:
   dot products run in float64, exact because every sum stays below
   2^32 (k ≤ 256 terms of < 2^24), far under float64's 2^53 — and
   float64 never takes the TF32 path on CUDA;
-- **entry points** with the reference's caller contract,
-  :func:`verify_e65537_rns_indexed` and :func:`power_mod_rns`.  They go
-  through the wrappers in :mod:`bftkv_tpu_torch.ops.cuda_rns`, which
-  launch the hand-written kernels for CUDA tensors and run the plain
-  versions above only for CPU tensors.
+- **entry points** :func:`verify_e65537_rns_indexed` and
+  :func:`power_mod_rns`.  They stage their operands into a slot of a
+  persistent ring (:mod:`bftkv_tpu_torch.ops.devbuf`; :func:`_pow_staging`,
+  :func:`_verify_staging`), writing each integer's little-endian bytes
+  straight into its row (a row's 8-bit digit halves are exactly those
+  bytes), and go through the wrappers in
+  :mod:`bftkv_tpu_torch.ops.cuda_rns`, which launch the hand-written
+  kernels for CUDA tensors and run the plain versions above only for CPU
+  tensors.  On the card the copies in, the launch and the copy out go on
+  the calling thread's current stream, and an event recorded behind them
+  is what the caller (or :meth:`DeferredModexp.wait`) waits on.
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ import numpy as np
 import torch
 
 from bftkv_tpu_torch import device as devmod
-from bftkv_tpu_torch.ops import limb
+from bftkv_tpu_torch.ops import devbuf, limb
 
 __all__ = [
     "RNSContext",
@@ -51,6 +57,7 @@ __all__ = [
     "key_rows_from_numpy",
     "verify_e65537_rns_indexed",
     "power_mod_rns",
+    "bytes_rows",
     "stack_key_rows",
     "digits_to_halves",
     "digits_to_halves_u8",
@@ -372,15 +379,21 @@ _consts_cache: dict = {}
 
 
 def consts(digits: int, n_bits: int, device) -> _Consts:
-    """Constants of :func:`context` ``(digits, n_bits)`` on ``device``, cached."""
+    """Constants of :func:`context` ``(digits, n_bits)`` on ``device``, cached.
+
+    Built on whatever stream is current at first use; on the card the
+    build waits for its copies, so every flush worker's stream may read
+    them at once.
+    """
     dev = devmod.resolve(device)
     key = (digits, n_bits, str(dev))
     with _consts_lock:
         cn = _consts_cache.get(key)
         if cn is None:
-            cn = _consts_cache[key] = _Consts(
-                context_arrays(context(digits, n_bits)), dev
-            )
+            cn = _Consts(context_arrays(context(digits, n_bits)), dev)
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
+            _consts_cache[key] = cn
         return cn
 
 
@@ -563,15 +576,18 @@ def _sigma_to_ints(ctx: RNSContext, sigma: np.ndarray) -> list[int]:
 
 class DeferredModexp:
     """Handle for a non-blocking :func:`power_mod_rns` launch: the
-    kernel is already on the stream; :meth:`wait` copies σ back and
-    rebuilds the integers (once)."""
+    kernel and the copy of σ out are already on the stream.
+    :meth:`wait` waits for the event behind them, releases the staging
+    slot and rebuilds the integers (once).  ``event`` is that CUDA event
+    (``None`` on the CPU)."""
 
-    __slots__ = ("_finish", "_value", "_done")
+    __slots__ = ("_finish", "_value", "_done", "event")
 
-    def __init__(self, finish):
+    def __init__(self, finish, event=None):
         self._finish = finish
         self._value = None
         self._done = False
+        self.event = event
 
     def wait(self) -> list[int]:
         if not self._done:
@@ -582,8 +598,70 @@ class DeferredModexp:
 
 
 # ---------------------------------------------------------------------------
-# Entry points.
+# Staging and entry points.
 # ---------------------------------------------------------------------------
+
+#: The stacked key-row tensors the kernels read, with their widths in k.
+KEY_ROWS = ("n_all", "n_r", "neg_ninv_b", "ninv_all", "m2_all", "m2_r")
+
+
+def _key_spec(k: int, kpad: int) -> dict:
+    return {
+        name: ((kpad, w), torch.int32)
+        for name, w in zip(KEY_ROWS, (2 * k, 1, k, 2 * k, 2 * k, 1))
+    }
+
+
+def _pow_staging(digits: int, n_bits: int, padded: int, kpad: int, dev: torch.device):
+    """One K2 launch's slot: the reference's ``base_halves``, ``nib_t``
+    and ``idx``, the unique key rows, and the output σ."""
+    k = context(digits, n_bits).k
+    spec = {
+        "base_halves": ((padded, 2 * digits), torch.uint8),
+        "nib_t": ((4 * digits, padded), torch.uint8),
+        "idx": ((padded,), torch.int32),
+        **_key_spec(k, kpad),
+        "sigma": ((padded, k), torch.int32),
+    }
+    return devbuf.lease(f"pow:{digits}:{n_bits}:{padded}:{kpad}:{dev}", spec, dev,
+                        width=str(digits))
+
+
+def _verify_staging(padded: int, kpad: int, dev: torch.device):
+    """One K1 launch's slot: sig and em halves, key index, the unique key
+    rows, and the verdicts."""
+    k = context().k
+    spec = {
+        "sig_halves": ((padded, 2 * DIGITS), torch.uint8),
+        "em_halves": ((padded, 2 * DIGITS), torch.uint8),
+        "idx": ((padded,), torch.int32),
+        **_key_spec(k, kpad),
+        "ok": ((padded,), torch.int32),
+    }
+    return devbuf.lease(f"verify:{padded}:{kpad}:{dev}", spec, dev, width="verify")
+
+
+def bytes_rows(values, nbytes: int) -> np.ndarray:
+    """(len(values), nbytes) uint8: each non-negative integer's
+    little-endian bytes — its 8-bit digit halves, low half first, so
+    ``digits_to_halves_u8(int_to_limbs(v, nbytes // 2))`` row for row."""
+    blob = b"".join(v.to_bytes(nbytes, "little") for v in values)
+    return np.frombuffer(blob, dtype=np.uint8).reshape(len(values), nbytes)
+
+
+def _stage_key_rows(slot, urows: list) -> None:
+    """The unique key rows into the slot; rows past them copy row 0, as
+    the reference pads the unique-key axis."""
+    n = len(urows)
+    for i, name in enumerate(KEY_ROWS):
+        a = slot[name]
+        a[:n] = np.stack([np.asarray(r[i]) for r in urows]).reshape(n, -1)
+        a[n:] = a[0]
+
+
+def _pad_rows(t: int, floor: int) -> int:
+    """Power-of-two buckets with a floor, as the reference pads."""
+    return max(floor, 1 << (t - 1).bit_length())
 
 
 def power_mod_rns(
@@ -595,7 +673,9 @@ def power_mod_rns(
     ride the RNS path (the caller falls back).
 
     ``defer=True`` returns a :class:`DeferredModexp`: the launch is on
-    the stream and nothing has waited for it yet.
+    the current stream, nothing has waited for it yet, and the staging
+    slot stays in flight until ``wait()``.  An error of the build or the
+    launch propagates, the slot released.
     """
     from bftkv_tpu_torch.ops import cuda_rns
 
@@ -620,46 +700,39 @@ def power_mod_rns(
             urows.append(r)
         idxs.append(u)
     t = len(idxs)
-    # Power-of-two batch buckets (floor 64) and a unique-modulus axis
-    # with floor 64, as the reference pads; pad rows copy row 0.
-    padded = max(64, 1 << (t - 1).bit_length())
-    kpad = max(64, 1 << (len(urows) - 1).bit_length())
-    urows += [urows[0]] * (kpad - len(urows))
-    bh = np.empty((padded, 2 * digits), dtype=np.uint8)
-    nt = np.empty((4 * digits, padded), dtype=np.uint8)
-    ix = np.empty((padded,), dtype=np.int32)
-    base_digits = np.stack(
-        [limb.int_to_limbs(b % m, digits) for b, m in zip(bases, mods)]
-    )
-    bh[:t, 0::2] = base_digits & 0xFF
-    bh[:t, 1::2] = base_digits >> 8
-    ed = np.stack([limb.int_to_limbs(e, digits) for e in exps])  # (t, digits)
-    nib = np.empty((t, digits * 4), dtype=np.uint8)
-    nib[:, 0::4] = ed & 0xF  # little-endian within each 16-bit digit
-    nib[:, 1::4] = (ed >> 4) & 0xF
-    nib[:, 2::4] = (ed >> 8) & 0xF
-    nib[:, 3::4] = (ed >> 12) & 0xF
-    nt[:, :t] = nib[:, ::-1].T  # most-significant nibble first
-    ix[:t] = np.asarray(idxs, dtype=np.int32)
-    if padded > t:
-        bh[t:] = bh[0:1]
-        nt[:, t:] = nt[:, 0:1]
-        ix[t:] = 0
-    sigma = cuda_rns.pow_cuda(
-        torch.from_numpy(bh).to(dev),
-        torch.from_numpy(nt).to(dev),
-        torch.from_numpy(ix).to(dev),
-        key_rows_from_numpy(stack_key_rows(urows), dev),
-        consts(digits, n_bits, dev),
-    )
+    # Power-of-two batch buckets (floor 64) and a unique-modulus axis with
+    # floor 64, as the reference pads.
+    padded = _pad_rows(t, 64)
+    cn = consts(digits, n_bits, dev)
+    lease = _pow_staging(digits, n_bits, padded, _pad_rows(len(urows), 64), dev)
+    with lease.launch() as slot:
+        # Only the t live rows are encoded; the pad region copies row 0
+        # (pad base = row 0's, pad key index 0), as the reference stages.
+        bh, nt, ix = slot["base_halves"], slot["nib_t"], slot["idx"]
+        nb = 2 * digits
+        bh[:t] = bytes_rows([b % m for b, m in zip(bases, mods)], nb)
+        eb = bytes_rows(exps, nb)
+        nib = np.empty((t, 2 * nb), dtype=np.uint8)
+        nib[:, 0::2] = eb & 0xF  # nibbles least significant first
+        nib[:, 1::2] = eb >> 4
+        nt[:, :t] = nib[:, ::-1].T  # most-significant nibble first
+        ix[:t] = idxs
+        if padded > t:
+            bh[t:] = bh[0:1]
+            nt[:, t:] = nt[:, 0:1]
+            ix[t:] = 0
+        _stage_key_rows(slot, urows)
+        d = slot.upload(("base_halves", "nib_t", "idx") + KEY_ROWS)
+        slot.download("sigma", cuda_rns.pow_cuda(
+            d["base_halves"], d["nib_t"], d["idx"], tuple(d[n] for n in KEY_ROWS), cn
+        ))
     mods_live = list(mods)
 
     def finish() -> list[int]:
-        s = sigma[:t].cpu().numpy()
-        vals = _sigma_to_ints(ctx, s)
+        vals = _sigma_to_ints(ctx, lease.collect(lambda s: s["sigma"][:t].copy()))
         return [v % m for v, m in zip(vals, mods_live)]
 
-    return DeferredModexp(finish) if defer else finish()
+    return DeferredModexp(finish, lease.slot.event) if defer else finish()
 
 
 def digits_to_halves(digits_u32: np.ndarray) -> np.ndarray:
@@ -677,31 +750,44 @@ def digits_to_halves_u8(digits_u32: np.ndarray) -> np.ndarray:
 
 
 def verify_e65537_rns_indexed(
-    sig_digits, em_digits, key_idx, unique_rows, *, device=None
-) -> torch.Tensor:
-    """Batched RSA-2048 e=65537 verify → (T,) bool tensor on ``device``.
+    sigs: list[int], ems: list[int], key_idx, unique_rows: list, *, device=None
+) -> np.ndarray:
+    """Batched RSA-2048 e=65537 verify → (T,) bool numpy verdicts.
 
-    ``sig_digits``/``em_digits``: (T, 128) 16-bit digit arrays;
-    ``unique_rows``: stacked rows of the *distinct* keys only (from
-    :func:`stack_key_rows`); ``key_idx`` maps each item to its key row.
-    The host ships (K, ·) key rows; the gather happens on the device.
+    ``sigs``/``ems``: integers below 2^2048 (the caller keeps s < n);
+    ``unique_rows``: :meth:`RNSContext.key_rows` of the *distinct* keys
+    only; ``key_idx`` maps each item to its key row.  One launch of K1:
+    the rows are padded to a power of two (floor 256) with s = 0 against
+    row 0's em and key — 0^e never equals a PKCS#1 encoding — and the
+    key axis to a floor of 64 with copies of row 0; the gather happens
+    on the device.
     """
     from bftkv_tpu_torch.ops import cuda_rns
 
     dev = devmod.resolve(device)
-    sig_h = digits_to_halves_u8(np.asarray(sig_digits))
-    em_h = digits_to_halves_u8(np.asarray(em_digits))
-    idx = np.asarray(key_idx, dtype=np.int32)
-    n_keys = len(unique_rows[0])
-    if idx.shape != (sig_h.shape[0],) or (idx < 0).any() or (idx >= n_keys).any():
+    t = len(sigs)
+    idx = np.asarray(key_idx, dtype=np.int64)
+    n_keys = len(unique_rows)
+    if t == 0 or len(ems) != t or idx.shape != (t,) or (idx < 0).any() or (idx >= n_keys).any():
         raise ValueError("key_idx must map every row into the unique key rows")
-    return cuda_rns.verify_cuda(
-        torch.from_numpy(sig_h).to(dev),
-        torch.from_numpy(em_h).to(dev),
-        torch.from_numpy(idx).to(dev),
-        key_rows_from_numpy(unique_rows, dev),
-        consts(DIGITS, 2048, dev),
-    )
+    padded = _pad_rows(t, 256)
+    cn = consts(DIGITS, 2048, dev)
+    lease = _verify_staging(padded, _pad_rows(n_keys, 64), dev)
+    with lease.launch() as slot:
+        sh, eh, ix = slot["sig_halves"], slot["em_halves"], slot["idx"]
+        sh[:t] = bytes_rows(sigs, 2 * DIGITS)
+        eh[:t] = bytes_rows(ems, 2 * DIGITS)
+        ix[:t] = idx
+        if padded > t:
+            sh[t:] = 0
+            eh[t:] = eh[0:1]
+            ix[t:] = 0
+        _stage_key_rows(slot, unique_rows)
+        d = slot.upload(("sig_halves", "em_halves", "idx") + KEY_ROWS)
+        slot.download("ok", cuda_rns.verify_cuda(
+            d["sig_halves"], d["em_halves"], d["idx"], tuple(d[n] for n in KEY_ROWS), cn
+        ))
+    return lease.collect(lambda s: s["ok"][:t] != 0)
 
 
 def stack_key_rows(rows: list):

@@ -24,16 +24,26 @@ holds every hand-written kernel against its plain PyTorch version:
    one replica modulus, K2 at k=188; (b) 8 pairs with
    2300-bit exponents, the shape of threshold-RSA fragments, on the limb
    path with the 256-limb exponent bucket.  Both must equal host pow;
-8. each kernel against its plain version on the card, on the operands the
-   main paths gave it: K1 verdicts (the verify flush's T=4096 and every
-   fault check's T=256), K2 sigma (k=94 and k=188) and K3's whole
+8. dispatch-plane phase, at the reference's max_batch=1024:
+   (a) 64 threads submit the 4096 verify items through VerifyDispatcher,
+   several K1 launches (T=1024) a round, at pipeline 1 and 2 in turns;
+   (b) the 256-share rns sign flush at pipeline 1 and 2;
+   (c) one ModexpDispatcher flush of 64 2048-bit and 64 1024-bit items:
+   both K2 launches (k=188, k=94) on the stream before the first wait;
+   (d) no staging slot left in flight; (e) one rns verify flush split
+   into encode, stage, H2D, K1, D2H and scatter by host clock and CUDA
+   events.  Verdicts, signatures and modexps must equal the host's;
+9. each kernel against its plain version on the card, on the operands the
+   main paths gave it: K1 verdicts (T=4096, T=1024 and every fault check's
+   T=256), K2 sigma (k=94 at T=512 and T=64, k=188) and K3's whole
    (4096, 128) diff bit-identical;
-9. times: median of 5 timed flushes per verify/RNS-sign phase, 3 for the
+10. times: median of 5 timed flushes per verify/RNS-sign phase, 3 for the
    limb sign, and kernel times by CUDA events, beside nvidia-smi's name
    and power limit.
 
-Every phase sets the launch counts and counters to 0 just before its
-counted run and reads them just after.
+Every path runs with the dispatch plane's defaults (pipeline 2 on the
+card, async launches, staging rings).  Every phase sets the launch counts
+and counters to 0 just before its counted run and reads them just after.
 
 Run from the repository root:  python3 chip_smoke.py [--seed N]
 It exits non-zero, printing no result, without CUDA or on any failed check.
@@ -64,6 +74,9 @@ SIGN_SHARES = 256
 TIMED_REPS = 5
 LIMB_SIGN_REPS = 3
 MODEXP_PAIRS = 64  # 2048-bit pairs: K2 at k=188
+PLANE_MAX_BATCH = 1024  # the reference dispatchers' default
+PLANE_ROUNDS = 5  # rounds of each plane run, pipeline 1 and 2 in turns
+SPLIT_REPS = 5
 FRAGMENT_PAIRS = 8  # 2300-bit exponents: the limb path
 FRAGMENT_EXP_BITS = 2300
 
@@ -267,10 +280,12 @@ def check_signatures(sign_items, sigs, what: str) -> None:
 
 class Recorder:
     """Keeps the operands the main path hands the kernel wrappers
-    ``names`` of ``module``."""
+    ``names`` of ``module`` (copies, or with ``copy=False`` the tensors
+    themselves, enough to count launches by shape)."""
 
-    def __init__(self, module, names):
+    def __init__(self, module, names, copy: bool = True):
         self.mod = module
+        self.copy = copy
         self.real = {name: getattr(module, name) for name in names}
         self.calls = {name: [] for name in names}
 
@@ -281,7 +296,9 @@ class Recorder:
 
     def _wrap(self, name, fn):
         def rec(*args):
-            self.calls[name].append(args)
+            # Copies, on the launch's stream: the staging slots the
+            # operands live in are reused by later launches.
+            self.calls[name].append(_clone(args) if self.copy else args)
             return fn(*args)
 
         return rec
@@ -289,6 +306,14 @@ class Recorder:
     def __exit__(self, *exc):
         for name, fn in self.real.items():
             setattr(self.mod, name, fn)
+
+
+def _clone(x):
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple):
+        return tuple(_clone(a) for a in x)
+    return x
 
 
 class Counted:
@@ -310,6 +335,208 @@ class Counted:
 
         self.launches = {**cuda_rns.LAUNCHES, **cuda_mont.LAUNCHES}
         self.snap = metrics.snapshot()
+        # The flush workers' streams are done before anything they made
+        # (recorded operands) is read on another stream.
+        torch.cuda.synchronize()
+
+
+# -- the dispatch-plane phase ------------------------------------------------------
+
+
+class FlushClock:
+    """Host clock around each flush's batch call on its worker (encode,
+    staging, copies, kernel, copy out, verdicts into the batch's array)."""
+
+    def __init__(self, d):
+        self.d, self.real, self.seconds = d, d._run_batch, []
+
+    def __enter__(self):
+        def timed(items):
+            t0 = time.perf_counter()
+            try:
+                return self.real(items)
+            finally:
+                self.seconds.append(time.perf_counter() - t0)
+
+        self.d._run_batch = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.d._run_batch = self.real
+
+
+def plane_verify(vds, items, expect):
+    """(a) rounds of the 4096 items through VerifyDispatcher(max_batch=1024)
+    at pipeline 1 and 2 in turns; returns per-pipeline results and the
+    first round's recorded K1 operands."""
+    from bftkv_tpu_torch.ops import cuda_rns
+
+    res = {pl: {"round_s": [], "flush_s": [], "k1_launches": 0, "flushes": 0,
+                "k1_by_rows": {}} for pl in vds}
+    rec_args = []
+    for r in range(PLANE_ROUNDS):
+        for pl in (1, 2) if r % 2 == 0 else (2, 1):
+            keep = r == 0 and pl == 2
+            with Recorder(cuda_rns, ("verify_cuda",), copy=keep) as rec, \
+                    FlushClock(vds[pl]) as fc, Counted() as c:
+                got, dt = verify_phase(vds[pl], items)
+            check(got == expect, f"plane verify (pipeline {pl}): verdicts differ from host pow")
+            flushes = c.snap.get("dispatch.flushes", 0)
+            check(c.launches["verify"] == flushes >= 2,
+                  f"plane verify (pipeline {pl}): K1 launches {c.launches} for {flushes} flushes")
+            check(c.launches["pow"] == 0 and c.launches["mont_verify"] == 0,
+                  f"plane verify launched {c.launches}")
+            if keep:
+                rec_args = [a for a in rec.calls["verify_cuda"] if a[0].shape[0] == PLANE_MAX_BATCH]
+            by_rows = res[pl]["k1_by_rows"]
+            for a in rec.calls["verify_cuda"]:
+                by_rows[a[0].shape[0]] = by_rows.get(a[0].shape[0], 0) + 1
+            res[pl]["round_s"].append(dt)
+            res[pl]["flush_s"] += fc.seconds
+            res[pl]["k1_launches"] += c.launches["verify"]
+            res[pl]["flushes"] += flushes
+    return res, rec_args
+
+
+def plane_sign(sds, replicas):
+    """(b) the 256-share rns sign flush at pipeline 1 and 2 in turns."""
+    res = {pl: {"round_s": [], "k2_launches": 0, "k1_launches": 0} for pl in sds}
+    for r in range(PLANE_ROUNDS):
+        for pl in (1, 2) if r % 2 == 0 else (2, 1):
+            with Counted() as c:
+                sign_items, sigs, dt = sign_phase(sds[pl], replicas, f"plane{pl}-{r}")
+            check_signatures(sign_items, sigs, f"plane sign (pipeline {pl})")
+            check(c.snap.get("sign.device", 0) == SIGN_SHARES and c.launches["pow"] >= 1,
+                  f"plane sign (pipeline {pl}): sign.device {c.snap.get('sign.device')}, "
+                  f"launches {c.launches}")
+            res[pl]["round_s"].append(dt)
+            res[pl]["k2_launches"] += c.launches["pow"]
+            res[pl]["k1_launches"] += c.launches["verify"]
+    return res
+
+
+def plane_modexp(dev, replicas, seed: int):
+    """(c) one ModexpDispatcher flush of mixed 2048-bit (k=188) and
+    1024-bit (k=94) moduli: both K2 launches on the stream before the
+    first wait."""
+    from bftkv_tpu_torch.ops import cuda_rns, dispatch, rns
+
+    rng = random.Random(seed + 7)
+    items = [(rng.getrandbits(2048), rng.getrandbits(2048), k.n) for k in replicas]
+    items += [(rng.getrandbits(1024), rng.getrandbits(1024), k.p) for k in replicas]
+    deferred, first_wait = [], []
+    real_pmr, real_wait = rns.power_mod_rns, rns.DeferredModexp.wait
+
+    def pmr(*a, **kw):
+        out = real_pmr(*a, **kw)
+        if kw.get("defer"):
+            deferred.append(out)
+        return out
+
+    def wait(self):
+        if not first_wait:
+            first_wait.append(dict(cuda_rns.LAUNCHES))
+        return real_wait(self)
+
+    md = dispatch.ModexpDispatcher(device=dev, device_threshold=2, calibrate=False,
+                                   max_batch=PLANE_MAX_BATCH, max_wait=0.05).start()
+    rns.power_mod_rns, rns.DeferredModexp.wait = pmr, wait
+    try:
+        with Recorder(cuda_rns, ("pow_cuda",)) as rec, Counted() as c:
+            t0 = time.perf_counter()
+            got = md.submit(items)
+            dt = time.perf_counter() - t0
+    finally:
+        rns.power_mod_rns, rns.DeferredModexp.wait = real_pmr, real_wait
+        md.stop()
+    check(got == [pow(b, e, m) for b, e, m in items], "ModexpDispatcher results != host pow")
+    check(c.launches["pow"] == 2, f"ModexpDispatcher flush launched {c.launches}")
+    check(len(first_wait) == 1 and first_wait[0]["pow"] == 2,
+          f"K2 launches at the first wait: {first_wait}")
+    check(c.snap.get("modexp.device", 0) == len(items) and "modexp.host" not in c.snap,
+          f"modexp.device {c.snap.get('modexp.device')} modexp.host {c.snap.get('modexp.host')}")
+    ks = [a[4].k for a in rec.calls["pow_cuda"]]
+    check(ks == [188, 94], f"K2 launch order by k: {ks}")
+    check(len(deferred) == 2 and all(d.event is not None for d in deferred),
+          "expected two deferred launches with events")
+    # The k=94 launch's copy out completed after the k=188 one's: one
+    # stream, in launch order.
+    gap_ms = deferred[0].event.elapsed_time(deferred[1].event)
+    check(gap_ms >= 0, f"the second group's event precedes the first's ({gap_ms} ms)")
+    return {"flush_ms": dt * 1e3, "k2_launches": c.launches["pow"],
+            "k2_launches_at_first_wait": first_wait[0]["pow"], "launch_order_k": ks,
+            "event_gap_ms": gap_ms}, rec.calls["pow_cuda"]
+
+
+def split_verify_flush(vd, items):
+    """(e) one rns verify flush through a pipeline-1 VerifyDispatcher (one
+    submitter), split into encode, stage, H2D, K1, D2H and scatter: host
+    clock at the phase boundaries, CUDA events around the copies and the
+    kernel on the flush's stream."""
+    from bftkv_tpu_torch.ops import cuda_rns, devbuf, rns
+
+    marks: dict = {}
+    ev = lambda: torch.cuda.Event(enable_timing=True)
+    real = {
+        "entry": rns.verify_e65537_rns_indexed, "k1": cuda_rns.verify_cuda,
+        "upload": devbuf.Slot.upload, "download": devbuf.Slot.download,
+        "batch": vd.verifier.verify_batch,
+    }
+
+    def timed_events(key, fn):
+        def run(*a, **kw):
+            e0 = ev()
+            e0.record()
+            out = fn(*a, **kw)
+            e1 = ev()
+            e1.record()
+            marks[key] = (e0, e1)
+            return out
+        return run
+
+    def batch(items_):
+        marks["start"] = time.perf_counter()
+        out = real["batch"](items_)
+        marks["batch_end"] = time.perf_counter()
+        return out
+
+    def entry(*a, **kw):
+        marks["entry"] = time.perf_counter()
+        out = real["entry"](*a, **kw)
+        marks["exit"] = time.perf_counter()
+        return out
+
+    def upload(self, names):
+        marks["upload"] = time.perf_counter()
+        return timed_events("h2d", real["upload"])(self, names)
+
+    rows = []
+    rns.verify_e65537_rns_indexed, cuda_rns.verify_cuda = entry, timed_events("k1", real["k1"])
+    devbuf.Slot.upload = upload
+    devbuf.Slot.download = timed_events("d2h", real["download"])
+    vd.verifier.verify_batch = batch
+    try:
+        for _ in range(SPLIT_REPS):
+            marks.clear()
+            got = vd.verify(items)
+            done = time.perf_counter()
+            check(len(got) == len(items), "split flush: wrong verdict count")
+            torch.cuda.synchronize()
+            rows.append({
+                "encode_ms": (marks["entry"] - marks["start"]) * 1e3,
+                "stage_ms": (marks["upload"] - marks["entry"]) * 1e3,
+                "device_host_ms": (marks["exit"] - marks["upload"]) * 1e3,
+                "h2d_ms": marks["h2d"][0].elapsed_time(marks["h2d"][1]),
+                "k1_ms": marks["k1"][0].elapsed_time(marks["k1"][1]),
+                "d2h_ms": marks["d2h"][0].elapsed_time(marks["d2h"][1]),
+                "scatter_ms": (done - marks["exit"]) * 1e3,
+                "flush_ms": (done - marks["start"]) * 1e3,
+            })
+    finally:
+        rns.verify_e65537_rns_indexed, cuda_rns.verify_cuda = real["entry"], real["k1"]
+        devbuf.Slot.upload, devbuf.Slot.download = real["upload"], real["download"]
+        del vd.verifier.verify_batch
+    return {key: statistics.median(r[key] for r in rows) for key in rows[0]}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -546,7 +773,7 @@ def main() -> int:
               f"flushes={l_snap.get('signdispatch.flushes')} launches={l_launch} "
               f"first run {dt * 1e3:.1f} ms", flush=True)
 
-        # 9a. timed flushes (after the warm-up above); the verify.launch
+        # 10a. timed flushes (after the warm-up above); the verify.launch
         # timer splits a verify flush into the device call and the host.
         metrics.reset()
         v_times = [verify_phase(vd, items)[1] for _ in range(TIMED_REPS)]
@@ -575,6 +802,12 @@ def main() -> int:
     check(c_m.snap.get("modexp.rns_staged", 0) == MODEXP_PAIRS,
           f"modexp.rns_staged {c_m.snap.get('modexp.rns_staged')} != {MODEXP_PAIRS}")
     check(c_m.launches["pow"] == 1, f"BatchModExp 2048-bit launched {c_m.launches}")
+    # The same call again: its staging ring now exists (the first call
+    # allocated the ring's pinned host and device tensors).
+    t0 = time.perf_counter()
+    again = bme.modexp(pairs, n)
+    m_dt2 = time.perf_counter() - t0
+    check(again == vals, "BatchModExp (RNS, 2048-bit, second call) != host pow")
     frags = [(rng.getrandbits(2048), rng.getrandbits(FRAGMENT_EXP_BITS) | (1 << (FRAGMENT_EXP_BITS - 1)))
              for _ in range(FRAGMENT_PAIRS)]
     with Counted() as c_f:
@@ -585,8 +818,65 @@ def main() -> int:
     check("modexp.rns_staged" not in c_f.snap and c_f.launches["pow"] == 0,
           f"the 2300-bit exponents did not take the limb path: {c_f.snap} {c_f.launches}")
     print(f"BatchModExp: {MODEXP_PAIRS} 2048-bit pairs (RNS, K2 launches {c_m.launches['pow']}) "
-          f"{m_dt * 1e3:.1f} ms; {FRAGMENT_PAIRS} pairs with {FRAGMENT_EXP_BITS}-bit exponents "
+          f"{m_dt * 1e3:.1f} ms (second call {m_dt2 * 1e3:.1f} ms); {FRAGMENT_PAIRS} pairs with "
+          f"{FRAGMENT_EXP_BITS}-bit exponents "
           f"(limb, 256-limb bucket) {f_dt * 1e3:.1f} ms", flush=True)
+
+    # 8. dispatch-plane phase: verify and sign at pipeline 1 and 2, the
+    # modexp dispatcher, the rings, one verify flush split
+    from bftkv_tpu_torch.ops import devbuf
+
+    vds = {pl: dispatch.VerifyDispatcher(rsa.VerifierDomain(device=dev), pipeline=pl,
+                                         max_batch=PLANE_MAX_BATCH, max_wait=0.05).start()
+           for pl in (1, 2)}
+    sds = {pl: dispatch.SignDispatcher(rsa.SignerDomain(device=dev), pipeline=pl,
+                                       max_batch=SIGN_SHARES, max_wait=2.0).start()
+           for pl in (1, 2)}
+    vd_split = dispatch.VerifyDispatcher(rsa.VerifierDomain(device=dev), pipeline=1,
+                                         max_batch=VERIFY_FLUSH).start()
+    try:
+        check(all(vds[pl]._pool is not None and len(vds[pl]._pool.workers) == (pl if pl > 1 else 0)
+                  for pl in vds), "plane dispatchers did not start their flush workers")
+        pv, pv_args = plane_verify(vds, items, expect)
+        ps = plane_sign(sds, replicas)
+        pm, pm_args = plane_modexp(dev, replicas, args.seed)
+        split = split_verify_flush(vd_split, items)
+    finally:
+        for d in (*vds.values(), *sds.values(), vd_split):
+            d.stop()
+    rings = devbuf.stats()
+    check(rings and all(r["in_flight"] == 0 for r in rings.values()),
+          f"a staging slot is left in flight: {rings}")
+    overflows = sum(r["overflows"] for r in rings.values())
+    plane = {
+        "verify": {f"pipeline_{pl}": {
+            "round_ms_median": statistics.median(r["round_s"]) * 1e3,
+            "flush_ms_median": statistics.median(r["flush_s"]) * 1e3,
+            "flushes": r["flushes"], "k1_launches": r["k1_launches"],
+            "k1_launches_by_rows": r["k1_by_rows"],
+            "round_ms": [t * 1e3 for t in r["round_s"]]} for pl, r in pv.items()},
+        "sign": {f"pipeline_{pl}": {
+            "flush_ms_median": statistics.median(r["round_s"]) * 1e3,
+            "k2_launches": r["k2_launches"], "k1_launches": r["k1_launches"],
+            "flush_ms": [t * 1e3 for t in r["round_s"]]} for pl, r in ps.items()},
+        "modexp": pm,
+        "rings": {"count": len(rings), "in_flight": 0, "overflows": overflows,
+                  "acquires": sum(r["acquires"] for r in rings.values())},
+        "verify_flush_split_ms": split,
+    }
+    for pl in (1, 2):
+        v, sg = plane["verify"][f"pipeline_{pl}"], plane["sign"][f"pipeline_{pl}"]
+        print(f"plane verify (pipeline {pl}, max_batch {PLANE_MAX_BATCH}): round median "
+              f"{v['round_ms_median']:.3f} ms, flush median {v['flush_ms_median']:.3f} ms over "
+              f"{v['flushes']} flushes, K1 launches {v['k1_launches']}; sign flush median "
+              f"{sg['flush_ms_median']:.3f} ms (K2 {sg['k2_launches']}, K1 {sg['k1_launches']})",
+              flush=True)
+    print(f"plane modexp: 64 x 2048-bit + 64 x 1024-bit in {pm['flush_ms']:.1f} ms, K2 launches "
+          f"{pm['k2_launches']} ({pm['k2_launches_at_first_wait']} at the first wait, k order "
+          f"{pm['launch_order_k']}, event gap {pm['event_gap_ms']:.4f} ms); rings {len(rings)}, "
+          f"none in flight, overflows {overflows}", flush=True)
+    print("plane verify flush split (median of %d, ms): " % SPLIT_REPS
+          + ", ".join(f"{k[:-3]} {v:.4f}" for k, v in split.items()), flush=True)
 
     v_med, s_med = statistics.median(v_times), statistics.median(s_times)
     p_med, l_med = statistics.median(p_times), statistics.median(l_times)
@@ -605,7 +895,7 @@ def main() -> int:
           f"({SIGN_SHARES / l_med:.0f} signatures/s), all {[t * 1e3 for t in l_times]}",
           flush=True)
 
-    # 8. each kernel against its plain version, on the main paths' operands
+    # 9. each kernel against its plain version, on the main paths' operands
     v_args = [a for a in rec_v.calls["verify_cuda"] if a[0].shape[0] == VERIFY_FLUSH]
     check(len(v_args) == 1, f"expected one {VERIFY_FLUSH}-row verify launch")
     p_args = rec_s.calls["pow_cuda"]
@@ -627,6 +917,8 @@ def main() -> int:
                 for t in (VERIFY_FLUSH, SIGN_SHARES)}
     check(sum(sum(c.values()) for c in by_shape.values()) == sum(map(len, k1_calls.values())),
           f"K1 launched at a shape other than T={VERIFY_FLUSH} or T={SIGN_SHARES}")
+    check(bool(pv_args), f"expected a T={PLANE_MAX_BATCH} K1 launch in the plane verify phase")
+    check([a[0].shape[0] for a in pm_args] == [64, 64], "expected two T=64 K2 launches")
     f_args = k1_calls["sign_rns"] + k1_calls["sign_limb"]
     check(len(f_args) >= 2, "expected a fault check from each sign backend")
     cn_v = rns.consts(rns.DIGITS, 2048, dev)
@@ -642,29 +934,44 @@ def main() -> int:
                    phase_launches=launches_of(VERIFY_FLUSH), **attrs["verify"]),
         rns_record("K1 rns_verify_kernel (T=256, fault check)", "verify",
                    "bftkv_tpu/ops/pallas_rns.py:517", k1_calls["sign_rns"][0],
-                   sum(by_shape[SIGN_SHARES].values()), 50, 3,
-                   phase_launches=launches_of(SIGN_SHARES), **attrs["verify"]),
+                   sum(by_shape[SIGN_SHARES].values())
+                   + sum(ps[pl]["k1_launches"] for pl in ps), 50, 3,
+                   phase_launches={**launches_of(SIGN_SHARES),
+                                   **{f"plane_sign_p{pl}": ps[pl]["k1_launches"] for pl in ps}},
+                   **attrs["verify"]),
+        rns_record("K1 rns_verify_kernel (T=1024, dispatch plane)", "verify",
+                   "bftkv_tpu/ops/pallas_rns.py:517", pv_args[0],
+                   sum(pv[pl]["k1_by_rows"].get(PLANE_MAX_BATCH, 0) for pl in pv), 20, 3,
+                   phase_launches={f"plane_verify_p{pl}": pv[pl]["k1_by_rows"] for pl in pv},
+                   **attrs["verify"]),
         rns_record("K2 rns_pow_kernel (k=94)", "pow", "bftkv_tpu/ops/pallas_rns.py:403",
-                   p_args[0], s_launch["pow"], 10, 2,
-                   phase_launches={"sign_rns": s_launch["pow"]}, **attrs["pow"]),
+                   p_args[0], s_launch["pow"] + sum(ps[pl]["k2_launches"] for pl in ps), 10, 2,
+                   phase_launches={"sign_rns": s_launch["pow"],
+                                   **{f"plane_sign_p{pl}": ps[pl]["k2_launches"] for pl in ps}},
+                   **attrs["pow"]),
+        rns_record("K2 rns_pow_kernel (k=94, T=64, modexp dispatcher)", "pow",
+                   "bftkv_tpu/ops/pallas_rns.py:403", pm_args[1], 1, 10, 2,
+                   phase_launches={"plane_modexp": 1}, **attrs["pow"]),
         rns_record("K2 rns_pow_kernel (k=188)", "pow", "bftkv_tpu/ops/pallas_rns.py:403",
-                   m_args[0], c_m.launches["pow"], 5, 1,
-                   phase_launches={"modexp_2048": c_m.launches["pow"]}, **attrs["pow"]),
+                   m_args[0], c_m.launches["pow"] + 1, 5, 1,
+                   phase_launches={"modexp_2048": c_m.launches["pow"], "plane_modexp": 1},
+                   **attrs["pow"]),
         k3_record(k3_args[0], p_launch["mont_verify"]),
     ]
-    kernels[4].update(phase_launches={"verify_pallas": p_launch["mont_verify"]},
-                      **attrs["mont_verify"])
+    kernels[-1].update(phase_launches={"verify_pallas": p_launch["mont_verify"]},
+                       **attrs["mont_verify"])
     print(f"K1 before its redesign, not measured in this run ({K1_EARLIER_OF}): "
           + ", ".join(f"T={t} {ms} ms" for t, ms in K1_EARLIER_MS.items())
-          + "; this run: " + ", ".join(f"T={r['rows']} {r['ms']:.4f} ms" for r in kernels[0:2]),
+          + "; this run: " + ", ".join(f"T={r['rows']} {r['ms']:.4f} ms" for r in kernels[0:3]),
           flush=True)
     print(f"K2 before its redesign, not measured in this run ({K2_EARLIER_OF}): "
           + ", ".join(f"k={k} {ms} ms" for k, ms in K2_EARLIER_MS.items())
-          + "; this run: " + ", ".join(f"k={r['k']} {r['ms']:.4f} ms" for r in kernels[2:4]),
+          + "; this run: " + ", ".join(f"k={r['k']} {r['ms']:.4f} ms"
+                                       for r in (kernels[3], kernels[5])),
           flush=True)
     print(f"K3 before its redesign, not measured in this run ({K3_EARLIER_OF}): "
           + ", ".join(f"T={t} {ms} ms" for t, ms in K3_EARLIER_MS.items())
-          + f"; this run: T={kernels[4]['rows']} {kernels[4]['ms']:.4f} ms", flush=True)
+          + f"; this run: T={kernels[-1]['rows']} {kernels[-1]['ms']:.4f} ms", flush=True)
     print(json.dumps({
         "kernels": kernels,
         "not_yet_ported": [],
@@ -680,11 +987,13 @@ def main() -> int:
             "limb_sign_flush_ms_median": l_med * 1e3,
             "limb_signatures_per_s": SIGN_SHARES / l_med,
             "modexp_2048_rns_ms": m_dt * 1e3,
+            "modexp_2048_rns_second_call_ms": m_dt2 * 1e3,
             "modexp_fragment_limb_ms": f_dt * 1e3,
         },
+        "dispatch_plane": plane,
     }), flush=True)
 
-    # 9b. the card, as nvidia-smi reports it
+    # 10. the card, as nvidia-smi reports it
     print(nvidia_smi("name,power.limit") or "nvidia-smi: no output", flush=True)
     print(json.dumps({
         "ok": True,

@@ -12,6 +12,7 @@ GPU machine without JAX:
 from __future__ import annotations
 
 import random
+import threading
 
 import numpy as np
 import pytest
@@ -288,3 +289,149 @@ def test_batch_modexp_on_card_matches_host_pow(dev):
     pairs = [(rng.getrandbits(600), rng.getrandbits(2300)) for _ in range(4)]
     assert bme.modexp(pairs, n) == [pow(b, e, n) for b, e in pairs]
     assert cuda_rns.LAUNCHES["pow"] == 1  # the limb path launches no kernel
+
+
+def test_pipelined_workers_on_two_streams_match_the_synchronous_path(dev, monkeypatch):
+    """Verify flushes through two flush workers, each on its own stream,
+    with a ring of two slots reused under load by many small flushes: the
+    verdicts equal the synchronous path's (one flush at a time, no rings)
+    bit for bit, and host pow."""
+    from bftkv_tpu_torch.ops import devbuf, dispatch
+
+    keys = [rsa.generate(2048, seed=s) for s in (61, 62)]
+    rng = random.Random(63)
+    items, want = [], []
+    for i in range(192):
+        key = keys[i % 2]
+        msg = b"pipelined-%d" % i
+        sig = rsa.sign(msg, key)
+        if rng.random() < 0.25:
+            sig = sig[:-1] + bytes([sig[-1] ^ 1])
+        items.append((msg, sig, key.public))
+        want.append(rsa.verify_host(msg, sig, key.public))
+
+    def run(pipeline: int) -> tuple[list[bool], set[int]]:
+        streams: set[int] = set()
+        real = cuda_rns.verify_cuda
+
+        def spy(*a):
+            streams.add(torch.cuda.current_stream(dev).cuda_stream)
+            return real(*a)
+
+        monkeypatch.setattr(cuda_rns, "verify_cuda", spy)
+        d = dispatch.VerifyDispatcher(
+            rsa.VerifierDomain(device=dev, host_threshold=0),
+            max_batch=16, max_wait=0.0005, pipeline=pipeline, calibrate=False,
+        ).start()
+        out: dict[int, list[bool]] = {}
+        try:
+            def submit(t):
+                out[t] = [bool(v) for v in d.verify(items[t * 12:(t + 1) * 12])]
+
+            threads = [threading.Thread(target=submit, args=(t,)) for t in range(16)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(300)
+            assert not any(th.is_alive() for th in threads)
+        finally:
+            d.stop()
+            monkeypatch.setattr(cuda_rns, "verify_cuda", real)
+        return [v for t in range(16) for v in out[t]], streams
+
+    monkeypatch.setenv("BFTKV_DISPATCH_DEVBUF", "off")
+    sync, sync_streams = run(1)
+    monkeypatch.setenv("BFTKV_DISPATCH_DEVBUF", "on")
+    monkeypatch.setenv("BFTKV_DISPATCH_DEVBUF_RING", "2")
+    devbuf.reset()
+    piped, piped_streams = run(2)
+    assert sync == piped == want
+    assert len(sync_streams) == 1 and len(piped_streams) == 2
+    default = torch.cuda.default_stream(dev).cuda_stream
+    assert default not in piped_streams
+    (ring,) = [r for r in devbuf.stats().values() if r["width"] == "verify"]
+    assert ring["acquires"] + ring["overflows"] >= 12  # several flushes per slot
+    assert ring["in_flight"] == 0
+    devbuf.reset()
+
+
+def test_modexp_dispatcher_at_rsa3072_halves(dev):
+    """1536-bit moduli (the CRT halves of RSA-3072, k = 141) and 1024-bit
+    ones in one ModexpDispatcher flush: both width groups' K2 launches go
+    on the stream before the first wait; every result equals host pow."""
+    from bftkv_tpu_torch.ops import devbuf, dispatch
+
+    ctx3072 = rns.context(96, 1536)
+    assert 135 <= ctx3072.k <= 145
+    m1536 = _moduli(ctx3072, 1536, 3, seed=71)
+    m1024 = _moduli(rns.context(64, 1024), 1024, 2, seed=72)
+    rng = random.Random(73)
+    items = [(rng.getrandbits(1600), rng.getrandbits(1536), m1536[i % 3]) for i in range(20)]
+    items += [(rng.getrandbits(1024), rng.getrandbits(1024), m1024[i % 2]) for i in range(12)]
+    cuda_rns.reset_launches()
+    metrics.reset()
+    at_first_wait = []
+    real_wait = rns.DeferredModexp.wait
+
+    def wait(self):
+        if not at_first_wait:
+            at_first_wait.append(cuda_rns.LAUNCHES["pow"])
+        return real_wait(self)
+
+    rns.DeferredModexp.wait = wait
+    d = dispatch.ModexpDispatcher(device=dev, device_threshold=2, calibrate=False,
+                                  max_wait=0.01).start()
+    try:
+        assert d.submit(items) == [pow(b, e, m) for b, e, m in items]
+    finally:
+        d.stop()
+        rns.DeferredModexp.wait = real_wait
+    assert at_first_wait == [2] and cuda_rns.LAUNCHES["pow"] == 2
+    assert metrics.snapshot()["modexp.device"] == len(items)
+    assert all(r["in_flight"] == 0 for r in devbuf.stats().values())
+
+
+def test_observed_launch_rtt_prices_the_card_crossover(dev, monkeypatch):
+    """On the card, round trips that flushes observed outrank a fresh probe
+    (the reference's online recalibration)."""
+    from bftkv_tpu_torch.ops import dispatch
+
+    monkeypatch.delenv("BFTKV_DISPATCH_CROSSOVER", raising=False)
+    monkeypatch.setattr(dispatch, "_LAUNCH_RTT_EWMA", None)
+    cal = dispatch.calibration(force=True, device=dev)
+    assert cal["source"] == "probe" and cal["prefer_host"] is False
+    dispatch.note_launch_rtt(0.05)
+    cal = dispatch.calibration(force=True, device=dev)
+    assert cal["source"] == "observed" and cal["device_rtt_s"] == 0.05
+    assert cal["verify_crossover"] == max(16, int(0.05 / cal["host_verify_s"]))
+    monkeypatch.setattr(dispatch, "_LAUNCH_RTT_EWMA", None)
+    dispatch.calibration(force=True, device=dev)
+
+
+def test_ring_never_hands_out_inflight_slot_on_card(dev):
+    """The ring's ownership rules with pinned host and device tensors: a
+    slot whose copy is still queued behind device work goes back to the
+    ring only once the event behind it has completed."""
+    from bftkv_tpu_torch.ops import devbuf
+
+    n = 1 << 20
+    ring = devbuf.BufferRing("card:ring", {"a": ((n,), torch.uint8)}, dev, slots=2, width="t")
+    s1, s2 = ring.acquire(), ring.acquire()
+    assert s1 is not s2 and s1.host["a"].is_pinned() and s1.dev["a"].device == dev
+    assert ring.acquire() is None and ring.overflows == 1
+    torch.cuda._sleep(100_000_000)  # tens of ms of device time ahead of the copy
+    s1["a"][:] = 1
+    s1.upload(("a",))
+    s1.record()
+    assert not s1.event.query()  # the copy is still in flight
+    seq = s1.seq
+    ring.release(s1, seq)
+    assert s1.event.query()  # release waited for the event behind it
+    s3 = ring.acquire()
+    assert s3 is s1 and s3.seq == seq + 1
+    assert int(s3.dev["a"].sum()) == n
+    with pytest.raises(RuntimeError, match="stale release"):
+        ring.release(s3, seq)
+    ring.release(s2)
+    with pytest.raises(RuntimeError, match="not in flight"):
+        ring.release(s2)

@@ -56,6 +56,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import bftkv_tpu_torch.ops.dispatch, bftkv_tpu_torch.crypto.rsa\n"
         "import bftkv_tpu_torch.ops.bigint, bftkv_tpu_torch.ops.rsa\n"
         "import bftkv_tpu_torch.ops.cuda_mont, bftkv_tpu_torch.ops.modexp\n"
+        "import bftkv_tpu_torch.ops.devbuf, bftkv_tpu_torch.trace\n"
+        "import bftkv_tpu_torch.faults.failpoint, bftkv_tpu_torch.devtools.lockwatch\n"
         "new = {m.split('.')[0] for m in set(sys.modules) - before}\n"
         "print(sorted(new & {'jax', 'jaxlib', 'bftkv_tpu'}))\n"
     )
@@ -76,9 +78,7 @@ def _entry_points():
     digits = np.zeros((256, 128), np.uint32)
     return {
         "verify_e65537_rns_indexed": lambda: rns.verify_e65537_rns_indexed(
-            np.zeros((1, 128), np.uint32), np.zeros((1, 128), np.uint32), [0],
-            tuple(np.zeros((1, w), np.float32) for w in (376, 1, 188, 376, 376, 1)),
-            device="cuda",
+            [0], [0], [0], [rns.context().key_rows((1 << 2047) + 1)], device="cuda",
         ),
         "power_mod_rns": lambda: rns.power_mod_rns([2], [3], [5], device="cuda"),
         "consts_from_numpy": lambda: rns.consts_from_numpy(
@@ -91,6 +91,7 @@ def _entry_points():
         "SignerDomain": lambda: rsa.SignerDomain(device="cuda"),
         "VerifyDispatcher": lambda: dispatch.VerifyDispatcher(device="cuda"),
         "SignDispatcher": lambda: dispatch.SignDispatcher(device="cuda"),
+        "ModexpDispatcher": lambda: dispatch.ModexpDispatcher(device="cuda"),
         "calibration": lambda: dispatch.calibration(device="cuda"),
         "limbs_from_numpy": lambda: bigint.limbs_from_numpy(digits, "cuda"),
         "verify_batch_e65537": lambda: rsa_ops.verify_batch_e65537(
@@ -105,7 +106,7 @@ def _entry_points():
 
 
 ENTRY_POINTS = [
-    "BatchModExp", "SignDispatcher", "SignerDomain", "SignerDomain_limb",
+    "BatchModExp", "ModexpDispatcher", "SignDispatcher", "SignerDomain", "SignerDomain_limb",
     "VerifierDomain", "VerifierDomain_limb", "VerifierDomain_pallas",
     "VerifyDispatcher", "calibration", "consts_from_numpy", "key_rows_from_numpy",
     "limbs_from_numpy", "power_batch", "power_mod_rns", "verify_batch_e65537",
@@ -147,6 +148,14 @@ def test_flag_seam():
         "BFTKV_VERIFY_BACKEND",
         "BFTKV_SIGN_BACKEND",
         "BFTKV_TPU_MIN_MODEXP_BATCH",
+        "BFTKV_DISPATCH_CALIBRATE",
+        "BFTKV_DISPATCH_PIPELINE",
+        "BFTKV_DISPATCH_ASYNC",
+        "BFTKV_DISPATCH_DEVBUF",
+        "BFTKV_DISPATCH_DEVBUF_RING",
+        "BFTKV_TRACE",
+        "BFTKV_SLOW_TRACE_SECONDS",
+        "BFTKV_LOCKWATCH",
     }
     # Every declared flag is read somewhere in the port, and no BFTKV_*
     # name is read from the environment outside flags.py.
