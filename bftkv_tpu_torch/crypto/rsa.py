@@ -15,8 +15,12 @@ domains batch the replica's crypto onto the device:
   check as one more K1 launch plus a host spot check.
 
 ``BFTKV_VERIFY_BACKEND`` / ``BFTKV_SIGN_BACKEND`` pick the backend when
-the caller names none, as in the reference.  EC keys raise
-``NotImplementedError`` naming the slice that brings them.  On
+the caller names none, as in the reference.  EC P-256 keys verify in the
+same flush: :class:`VerifierDomain` routes them to
+:func:`bftkv_tpu_torch.crypto.ecdsa.verify_batch` on its device (kernel
+K5 on ``cuda``), as the reference's does.  :class:`SignerDomain` signs
+RSA keys only and raises ``NotImplementedError`` on an EC key: EC shares
+sign through ``SignDispatcher`` (``ecdsa.sign_batch``).  On
 ``device="cuda"`` a kernel error propagates: it is never answered by the
 CPU or by another backend.
 """
@@ -260,8 +264,8 @@ def _backend(backend: str | None, flag: str, allowed: tuple[str, ...]) -> str:
 
 def _no_ec() -> NotImplementedError:
     return NotImplementedError(
-        "EC P-256 keys arrive with the EC slice (ROADMAP M8); "
-        "this slice ports RSA only"
+        "SignerDomain signs RSA keys only; EC P-256 shares sign through "
+        "SignDispatcher (crypto/ecdsa.sign_batch)"
     )
 
 
@@ -455,7 +459,7 @@ class SignerDomain:
 
 
 class VerifierDomain:
-    """Batched RSA e=65537 verification on the device.
+    """Batched RSA e=65537 (and ECDSA P-256) verification on the device.
 
     Keys that cannot ride the device path — another exponent, or a hostile
     modulus (even, too wide, or, on ``rns``, sharing a factor with a
@@ -522,9 +526,15 @@ class VerifierDomain:
         out = np.zeros((len(items),), dtype=bool)
         device_idx: list[int] = []
         device_items: list[tuple[bytes, bytes, PublicKey]] = []
+        ec_idx: list[int] = []
+        ec_items: list = []
         for i, (message, sig_bytes, key) in enumerate(items):
             if _is_ec(key):
-                raise _no_ec()
+                # ECDSA P-256 identity keys: two scalar mults per item, all
+                # of the flush's in one launch (crypto/ecdsa.verify_batch).
+                ec_idx.append(i)
+                ec_items.append((message, sig_bytes, key))
+                continue
             # 512-bit floor keeps the PKCS#1 encoding well-defined.
             if (key.e == F4 and key.n.bit_length() >= 512
                     and self._doms.get(key.n, self.nlimbs) is not None):
@@ -536,6 +546,13 @@ class VerifierDomain:
                     out[i] = key.n > 0 and verify_host(message, sig_bytes, key)
                 except (ValueError, ZeroDivisionError):
                     out[i] = False
+        if ec_items:
+            from bftkv_tpu_torch.crypto import ecdsa
+
+            metrics.incr("verify.ec", len(ec_items))
+            out[np.asarray(ec_idx)] = np.asarray(
+                ecdsa.verify_batch(ec_items, device=self.device), dtype=bool
+            )
         if device_items and len(device_items) < self.host_threshold:
             metrics.incr("verify.host", len(device_items))
             for j, (message, sig_bytes, key) in zip(device_idx, device_items):

@@ -10,10 +10,11 @@ read yet; each later slice adds the names it starts to read.
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import NamedTuple
 
-__all__ = ["Flag", "FLAGS", "declared", "enabled", "get", "get_int", "raw"]
+__all__ = ["Flag", "FLAGS", "declared", "enabled", "get", "get_int", "override", "raw"]
 
 
 class Flag(NamedTuple):
@@ -67,6 +68,19 @@ _flag("BFTKV_DISPATCH_DEVBUF", "on", "switch",
 _flag("BFTKV_DISPATCH_DEVBUF_RING", "4", "int",
       "Slots per staging ring; with every slot in flight the next launch "
       "allocates a fresh one (devbuf.overflow) instead of blocking.")
+_flag("BFTKV_EC_BACKEND", "auto", "str",
+      "EC scalar-mult engine: `rns` (kernel K5 on `cuda`, its plain version "
+      "on `cpu`), `limb` (the limb engine in PyTorch ops), `auto` (default: "
+      "`rns` on a `cuda` device, `limb` on the `cpu`).")
+_flag("BFTKV_EC_SIGN_THRESHOLD", None, "int",
+      "ECDSA batch size below which signs stay on host (unset: "
+      "ecdsa.SIGN_HOST_CROSSOVER).")
+_flag("BFTKV_EC_VERIFY_THRESHOLD", None, "int",
+      "ECDSA batch size below which verifies stay on host (unset: "
+      "ecdsa.VERIFY_HOST_CROSSOVER).")
+_flag("BFTKV_OS_RNG", "", "switch",
+      "`1` makes crypto/rng.generate_random read os.urandom on every call "
+      "instead of the per-thread hash-DRBG.")
 _flag("BFTKV_TRACE", "on", "switch",
       "Trace-id/span plane (trace.py); `off` disables tracing entirely.")
 _flag("BFTKV_SLOW_TRACE_SECONDS", "1.0", "float",
@@ -129,3 +143,21 @@ def enabled(name: str, default: str | None = None) -> bool:
         if v == "":
             return False
     return v.lower() not in ("off", "0", "false")
+
+
+@contextlib.contextmanager
+def override(name: str, value: str):
+    """Sets the declared flag ``name`` to ``value`` for the block (this
+    process's environment), then restores it: a run that drives one path
+    under another setting, as ``chip_smoke.py`` does for the limb EC
+    engine."""
+    _check(name)
+    saved = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = saved

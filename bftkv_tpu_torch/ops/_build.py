@@ -1,7 +1,8 @@
 """Builds the hand-written CUDA kernels at first use.
 
 ``torch.utils.cpp_extension.load`` compiles ``csrc/rns_chain.cu`` (K1),
-``csrc/rns_pow.cu`` (K2) and ``csrc/mont_chain.cu`` (K3) from this checkout for ``sm_90a``
+``csrc/rns_pow.cu`` (K2), ``csrc/mont_chain.cu`` (K3) and ``csrc/ec_p256.cu``
+(K5) from this checkout for ``sm_90a``
 (K1 and K2 include ``csrc/rns_mma.cuh``, their shared Montgomery product)
 into one library under ``bftkv_tpu_torch/_build/`` (listed in
 ``.gitignore``) and loads it; ninja runs one ``nvcc`` per source, in
@@ -21,7 +22,8 @@ import threading
 __all__ = ["BUILD_DIR", "bind", "build", "library", "load"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCES = [os.path.join(_HERE, "csrc", name) for name in ("rns_chain.cu", "rns_pow.cu", "mont_chain.cu")]
+SOURCES = [os.path.join(_HERE, "csrc", name)
+           for name in ("rns_chain.cu", "rns_pow.cu", "mont_chain.cu", "ec_p256.cu")]
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build", "kernels")
 CUDA_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a"]
 
@@ -82,6 +84,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mont_verify_launch.restype = ctypes.c_int
     lib.mont_kernel_attrs.argtypes = [ctypes.POINTER(_I), ctypes.POINTER(_I)]
     lib.mont_kernel_attrs.restype = ctypes.c_int
+    # (res, nib, lane_tab, chan, T, out, stream)
+    lib.ec_scalar_mult_launch.argtypes = [_P, _P, _P, _I, _I, _P, _P]
+    lib.ec_scalar_mult_launch.restype = ctypes.c_int
+    lib.ec_kernel_attrs.argtypes = [ctypes.POINTER(_I)] * 3
+    lib.ec_kernel_attrs.restype = ctypes.c_int
     lib.rns_error_string.argtypes = [ctypes.c_int]
     lib.rns_error_string.restype = ctypes.c_char_p
     return lib

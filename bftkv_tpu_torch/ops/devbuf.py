@@ -62,7 +62,9 @@ def enabled() -> bool:
 
 
 class Slot:
-    """One set of staging tensors: ``spec`` maps a name to (shape, dtype).
+    """One set of staging tensors: ``spec`` maps a name to (shape, dtype),
+    or to (shape, dtype, fill) for a host tensor that starts at ``fill``
+    (the EC slots' ``pad_lo`` watermark).
 
     ``slot[name]`` is the numpy view of the host tensor, which the fill
     code writes in place.  Exclusively the acquirer's from ``acquire()``
@@ -73,13 +75,15 @@ class Slot:
 
     def __init__(self, spec: dict, device: torch.device):
         self._cuda = device.type == "cuda"
-        self.host = {
-            name: torch.empty(shape, dtype=dtype, pin_memory=self._cuda)
-            for name, (shape, dtype) in spec.items()
-        }
+        self.host = {}
+        for name, (shape, dtype, *fill) in spec.items():
+            t = torch.empty(shape, dtype=dtype, pin_memory=self._cuda)
+            if fill:
+                t.fill_(fill[0])
+            self.host[name] = t
         self.dev = (
             {name: torch.empty(shape, dtype=dtype, device=device)
-             for name, (shape, dtype) in spec.items()}
+             for name, (shape, dtype, *_fill) in spec.items()}
             if self._cuda else self.host
         )
         self.arrays = {name: t.numpy() for name, t in self.host.items()}

@@ -5,8 +5,9 @@ collector thread flushes when ``max_batch`` items are pending or
 ``max_wait`` has passed since the first pending item; one batched
 device launch serves every caller in the flush, and results are
 scattered back to the futures.  Three instances exist: the verify
-dispatcher (``VerifierDomain.verify_batch``), the sign dispatcher
-(``SignerDomain.sign_batch``, RSA items only so far) and the raw
+dispatcher (``VerifierDomain.verify_batch``, RSA and EC items), the sign
+dispatcher (``SignerDomain.sign_batch`` for RSA items,
+``ecdsa.sign_batch`` per EC key) and the raw
 modexp dispatcher (:class:`ModexpDispatcher`, RNS kernel K2).
 
 The plane is the reference's:
@@ -617,7 +618,14 @@ class VerifyDispatcher(_BatchDispatcher):
 
 
 class SignDispatcher(_BatchDispatcher):
-    """Batched RSA signing (items: (message, PrivateKey))."""
+    """Batched signing (items: (message, PrivateKey) — RSA or EC P-256).
+
+    A flush partitions by algorithm, as the reference's: the RSA items
+    ride the signer's CRT-modexp launch; the EC items group by key object
+    and each group rides one nonce base-mult launch
+    (``crypto/ecdsa.sign_batch`` on the signer's device, kernel K5 on
+    ``cuda``).
+    """
 
     name = "signdispatch"
 
@@ -667,7 +675,36 @@ class SignDispatcher(_BatchDispatcher):
             self.signer.host_threshold = self._signer_default_threshold
 
     def _run_batch(self, items: list):
-        return self.signer.sign_batch(items)
+        # EC keys carry a curve: the reference's rule (crypto/cert.py::is_ec).
+        ec_pos = [i for i, (_m, key) in enumerate(items) if hasattr(key, "curve")]
+        if not ec_pos:
+            return self.signer.sign_batch(items)
+        from bftkv_tpu_torch.crypto import ecdsa
+
+        out: list = [None] * len(items)
+        ec_set = set(ec_pos)
+        rsa_pos = [i for i in range(len(items)) if i not in ec_set]
+        if rsa_pos:
+            for i, sig in zip(rsa_pos, self.signer.sign_batch([items[i] for i in rsa_pos])):
+                out[i] = sig
+        # Group EC items by key object so each key's messages share one
+        # nonce base-mult launch (ecdsa.sign_batch signs for one key).
+        groups: dict[int, tuple] = {}
+        for i in ec_pos:
+            msg, key = items[i]
+            groups.setdefault(id(key), (key, []))[1].append((i, msg))
+        for key, pairs in groups.values():
+            # One launch per key group; its fill is the group's share of
+            # the batch cap.
+            metrics.gauge(
+                "signdispatch.device_occupancy",
+                min(1.0, len(pairs) / self.max_batch),
+                labels={"width": "ec"},
+            )
+            sigs = ecdsa.sign_batch([m for _i, m in pairs], key, device=self._device())
+            for (i, _m), sig in zip(pairs, sigs):
+                out[i] = sig
+        return out
 
     def _combine(self, chunks: list):
         return [sig for chunk in chunks for sig in chunk]

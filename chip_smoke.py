@@ -4,7 +4,8 @@ Drives the port's main paths at the size of the 64-replica cluster and
 holds every hand-written kernel against its plain PyTorch version:
 
 1. keys: 64 replica RSA-2048 keys and 4 writer keys, drawn from --seed
-   (cached under bftkv_tpu_torch/_build/), outside every timed phase;
+   (cached under bftkv_tpu_torch/_build/), and as many P-256 keys, with the
+   signed verify items of both, outside every timed phase;
 2. build: the kernels from bftkv_tpu_torch/ops/csrc/ for sm_90a;
 3. RNS verify phase: 64 threads, one per replica, submit their share of
    one 4096-item flush to VerifyDispatcher(max_batch=4096): about 93
@@ -33,13 +34,24 @@ holds every hand-written kernel against its plain PyTorch version:
    (d) no staging slot left in flight; (e) one rns verify flush split
    into encode, stage, H2D, K1, D2H and scatter by host clock and CUDA
    events.  Verdicts, signatures and modexps must equal the host's;
-9. each kernel against its plain version on the card, on the operands the
+9. EC phase, the same cluster on P-256 identity keys: (a) one 4096-item EC
+   verify flush (the 93 writes, 1% forged, r = 0, s = n, a short signature
+   and an off-curve key that must fail closed): K5 at T=8192; (b) the same
+   items through VerifyDispatcher(max_batch=1024): K5 at T=2048; (c) one
+   flush of half RSA and half EC items: K1 and K5 in it; (d) 256 shares
+   under one replica key through SignDispatcher: K5 at T=256, every
+   signature checked by host verify, ec.sign_fault 0; (e) one limb-engine
+   call at 8 points.  Verdicts and points must equal the host curve's; the
+   limb engine is never reached on the rns path.  Then timed flushes, one
+   EC verify flush split into encode, stage, H2D, K5, D2H, decode and
+   finish, and K5 against its plain version on each recorded operand set;
+10. each kernel against its plain version on the card, on the operands the
    main paths gave it: K1 verdicts (T=4096, T=1024 and every fault check's
-   T=256), K2 sigma (k=94 at T=512 and T=64, k=188) and K3's whole
-   (4096, 128) diff bit-identical;
-10. times: median of 5 timed flushes per verify/RNS-sign phase, 3 for the
-   limb sign, and kernel times by CUDA events, beside nvidia-smi's name
-   and power limit.
+   T=256), K2 sigma (k=94 at T=512 and T=64, k=188), K3's whole
+   (4096, 128) diff and K5's Jacobian residues bit-identical;
+11. times: median of 5 timed flushes per verify/RNS-sign phase, 3 for the
+   limb sign and the EC flushes, and kernel times by CUDA events, beside
+   nvidia-smi's name and power limit.
 
 Every path runs with the dispatch plane's defaults (pipeline 2 on the
 card, async launches, staging rings).  Every phase sets the launch counts
@@ -107,6 +119,18 @@ K3_EARLIER_OF = "PERF.md section 6, the one-thread-per-row kernel it replaced, H
 # at the full integer rate or at half of it), at the card's top SM clock.
 MONT_WORD_MACS_PER_ROW = 19 * 2 * 64 * 64
 IMAD_PER_CLOCK_PER_SM = (64, 32)
+# The EC phase: P-256 identity keys on the same cluster.
+EC_SIGN_SHARES = 256  # under one replica key: K5 at T=256
+EC_TIMED_REPS = 3
+EC_LIMB_POINTS = 8
+# RNS Montgomery products of one P-256 scalar mult, counted from
+# ops/ec_rns.py::_scalar_mult: 14 table adds of 24 (16 of the add, 8 of the
+# doubling it also evaluates), then 64 windows of 4 doublings (8 each) and one add.
+EC_PRODUCTS = 14 * 24 + 64 * (4 * 8 + 24)
+# K5's base extensions run on the CUDA cores: per product, k(k+1) multiply-adds
+# each way, and 2k + 1 warp shuffles (k per extension, one for alpha) issued at
+# one warp instruction per clock per SM.
+SHFL_PER_CLOCK_PER_SM = 1
 
 
 def fail(msg: str) -> None:
@@ -213,6 +237,73 @@ def verify_items(pool, replicas, writers, seed: int):
         if rns.context().key_rows(pub.n) is not None and int.from_bytes(s, "big") < pub.n
     )
     return items, expect, rns_capable, len(forged), len(hostile), len(big)
+
+
+def ec_keys(seed: int):
+    """64 replica and 4 writer P-256 keys drawn from ``seed``."""
+    from bftkv_tpu_torch.crypto import ecdsa
+
+    keys = [ecdsa.generate(seed=seed * 1000 + 500 + i) for i in range(N_REPLICAS + N_WRITERS)]
+    return keys[:N_REPLICAS], keys[N_REPLICAS:]
+
+
+def _ec_sign_many(job):
+    from bftkv_tpu_torch.crypto import ec, ecdsa
+
+    d, msgs = job
+    x, y = ec.P256.scalar_base_mult(d)
+    key = ecdsa.ECPrivateKey(d=d, public=ecdsa.ECPublicKey(x=x, y=y))
+    return [ecdsa.sign(m, key) for m in msgs]
+
+
+def _ec_verify_many(chunk):
+    from bftkv_tpu_torch.crypto import ecdsa
+
+    return [ecdsa.verify_host(m, s, ecdsa.ECPublicKey(x=x, y=y)) for m, s, x, y in chunk]
+
+
+def ec_verify_items(pool, replicas, writers, seed: int):
+    """4096 EC (message, sig, ECPublicKey) items of 93 writes, 1% forged,
+    and four that must fail closed (r = 0, s = n, a short signature, an
+    off-curve key); plus the host curve's verdicts."""
+    from bftkv_tpu_torch.crypto import ec, ecdsa
+
+    rng = random.Random(seed + 1)
+    plan = []
+    for w in range(N_WRITES):
+        tbs = b"ec-write-%d-seed-%d" % (w, seed)
+        plan.append((writers[w % N_WRITERS], tbs))
+        for j in range(SUFF):
+            plan.append((replicas[(7 * w + j) % N_REPLICAS], tbs))
+    while len(plan) < VERIFY_FLUSH:
+        plan.append((writers[len(plan) % N_WRITERS], b"ec-extra-%d" % len(plan)))
+    by_key: dict[int, list[int]] = {}
+    for i, (k, _m) in enumerate(plan):
+        by_key.setdefault(k.d, []).append(i)
+    sigs = [None] * len(plan)
+    jobs = [(d, [plan[i][1] for i in idxs]) for d, idxs in by_key.items()]
+    for idxs, out in zip(by_key.values(), pool.map(_ec_sign_many, jobs)):
+        for i, sg in zip(idxs, out):
+            sigs[i] = sg
+    items = [(m, sg, k.public) for (k, m), sg in zip(plan, sigs)]
+    picks = rng.sample(range(len(items)), len(items) // 100 + 4)
+    forged, bad = picks[:-4], picks[-4:]
+    for i in forged:
+        m, sg, pub = items[i]
+        items[i] = (m, sg[:-1] + bytes([sg[-1] ^ 1]), pub)
+    n = ec.P256.n
+    m, sg, pub = items[bad[0]]
+    items[bad[0]] = (m, bytes(32) + sg[32:], pub)  # r = 0
+    m, sg, pub = items[bad[1]]
+    items[bad[1]] = (m, sg[:32] + n.to_bytes(32, "big"), pub)  # s = n
+    m, sg, pub = items[bad[2]]
+    items[bad[2]] = (m, sg[:-1], pub)  # short
+    m, sg, pub = items[bad[3]]
+    items[bad[3]] = (m, sg, ecdsa.ECPublicKey(x=pub.x, y=(pub.y + 1) % ec.P256.p))  # off-curve
+    chunks = [[(m, sg, k.x, k.y) for m, sg, k in items[i : i + 256]]
+              for i in range(0, len(items), 256)]
+    expect = [v for out in pool.map(_ec_verify_many, chunks) for v in out]
+    return items, expect, len(forged), len(bad)
 
 
 # -- phases ---------------------------------------------------------------------
@@ -322,18 +413,19 @@ class Counted:
 
     def __enter__(self):
         from bftkv_tpu_torch.metrics import registry as metrics
-        from bftkv_tpu_torch.ops import cuda_mont, cuda_rns
+        from bftkv_tpu_torch.ops import cuda_ec, cuda_mont, cuda_rns
 
         metrics.reset()
         cuda_rns.reset_launches()
         cuda_mont.reset_launches()
+        cuda_ec.reset_launches()
         return self
 
     def __exit__(self, *exc):
         from bftkv_tpu_torch.metrics import registry as metrics
-        from bftkv_tpu_torch.ops import cuda_mont, cuda_rns
+        from bftkv_tpu_torch.ops import cuda_ec, cuda_mont, cuda_rns
 
-        self.launches = {**cuda_rns.LAUNCHES, **cuda_mont.LAUNCHES}
+        self.launches = {**cuda_rns.LAUNCHES, **cuda_mont.LAUNCHES, **cuda_ec.LAUNCHES}
         self.snap = metrics.snapshot()
         # The flush workers' streams are done before anything they made
         # (recorded operands) is read on another stream.
@@ -539,6 +631,275 @@ def split_verify_flush(vd, items):
     return {key: statistics.median(r[key] for r in rows) for key in rows[0]}
 
 
+# -- the EC phase ----------------------------------------------------------------
+
+
+def ec_sign_phase(sd, key, tag: str):
+    """64 threads submit 4 collective shares each under one replica key: one
+    flush, one key group, one ecdsa.sign_batch (K5 at T=256)."""
+    per = EC_SIGN_SHARES // N_REPLICAS
+    jobs = [[(b"ec-share-%s-%d-%d" % (tag.encode(), t, j), key) for j in range(per)]
+            for t in range(N_REPLICAS)]
+    results = [None] * N_REPLICAS
+
+    def submit(t):
+        results[t] = sd.submit(jobs[t])
+
+    dt = run_threads(N_REPLICAS, submit)
+    return [it for j in jobs for it in j], [sg for r in results for sg in r], dt
+
+
+def check_ec_signatures(sign_items, sigs, what: str) -> None:
+    from bftkv_tpu_torch.crypto import ecdsa
+
+    for (m, key), sg in zip(sign_items, sigs):
+        check(ecdsa.verify_host(m, sg, key.public), f"{what}: a signature fails host verify")
+
+
+def split_ec_verify_flush(vd, items):
+    """One EC verify flush through a pipeline-1 VerifyDispatcher (one
+    submitter), split into encode (signature parsing, SHA-256, s^-1 mod n,
+    u1/u2), stage (residues and nibbles into the slot), H2D, K5, D2H,
+    decode (Montgomery strip, CRT rebuild, Z inverse) and finish (u1·G +
+    u2·Q, r compare, scatter): host clock at the boundaries, CUDA events
+    around the copies and the kernel."""
+    from bftkv_tpu_torch.ops import cuda_ec, devbuf, ec_rns
+
+    marks: dict = {}
+    ev = lambda: torch.cuda.Event(enable_timing=True)
+    real = {
+        "entry": ec_rns.scalar_mult_hosts, "k5": cuda_ec.scalar_mult_cuda,
+        "upload": devbuf.Slot.upload, "download": devbuf.Slot.download,
+        "decode": ec_rns._P256RNS.decode_points, "batch": vd.verifier.verify_batch,
+    }
+
+    def timed_events(key, fn):
+        def run(*a, **kw):
+            e0 = ev()
+            e0.record()
+            out = fn(*a, **kw)
+            e1 = ev()
+            e1.record()
+            marks[key] = (e0, e1)
+            return out
+        return run
+
+    def host_marks(first, last, fn):
+        def run(*a, **kw):
+            marks[first] = time.perf_counter()
+            out = fn(*a, **kw)
+            marks[last] = time.perf_counter()
+            return out
+        return run
+
+    def upload(self, names):
+        marks["upload"] = time.perf_counter()
+        return timed_events("h2d", real["upload"])(self, names)
+
+    rows = []
+    ec_rns.scalar_mult_hosts = host_marks("entry", "exit", real["entry"])
+    cuda_ec.scalar_mult_cuda = timed_events("k5", real["k5"])
+    devbuf.Slot.upload = upload
+    devbuf.Slot.download = timed_events("d2h", real["download"])
+    ec_rns._P256RNS.decode_points = host_marks("decode0", "decode1", real["decode"])
+    vd.verifier.verify_batch = host_marks("start", "batch_end", real["batch"])
+    try:
+        for _ in range(SPLIT_REPS):
+            marks.clear()
+            got = vd.verify(items)
+            done = time.perf_counter()
+            check(len(got) == len(items), "EC split flush: wrong verdict count")
+            torch.cuda.synchronize()
+            rows.append({
+                "encode_ms": (marks["entry"] - marks["start"]) * 1e3,
+                "stage_ms": (marks["upload"] - marks["entry"]) * 1e3,
+                "device_host_ms": (marks["decode0"] - marks["upload"]) * 1e3,
+                "h2d_ms": marks["h2d"][0].elapsed_time(marks["h2d"][1]),
+                "k5_ms": marks["k5"][0].elapsed_time(marks["k5"][1]),
+                "d2h_ms": marks["d2h"][0].elapsed_time(marks["d2h"][1]),
+                "decode_ms": (marks["decode1"] - marks["decode0"]) * 1e3,
+                "finish_ms": (done - marks["exit"]) * 1e3,
+                "flush_ms": (done - marks["start"]) * 1e3,
+            })
+    finally:
+        ec_rns.scalar_mult_hosts, cuda_ec.scalar_mult_cuda = real["entry"], real["k5"]
+        devbuf.Slot.upload, devbuf.Slot.download = real["upload"], real["download"]
+        ec_rns._P256RNS.decode_points = real["decode"]
+        del vd.verifier.verify_batch
+    return {key: statistics.median(r[key] for r in rows) for key in rows[0]}
+
+
+def ec_record(args, launches, kernel_reps: int, **extra):
+    """K5 on recorded (res, nib, engine) operands: the whole output block."""
+    from bftkv_tpu_torch.ops import cuda_ec, ec_rns
+
+    res, nib, eng = args
+    t, k = res.shape[-1], eng.k
+    macs_point = EC_PRODUCTS * 2 * k * (k + 1)
+    n_bytes = 2 * nbytes(res) + nbytes(nib, eng.lane)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = float(nvidia_smi("clocks.max.sm", "nounits")) * 1e6
+    floor_ms = t * macs_point / (sms * IMAD_PER_CLOCK_PER_SM[0] * clock_hz) * 1e3
+    shfl_ms = t * EC_PRODUCTS * (2 * k + 1) / (sms * SHFL_PER_CLOCK_PER_SM * clock_hz) * 1e3
+    return kernel_record(
+        "K5 ec_scalar_mult_kernel", "bftkv_tpu_torch/ops/csrc/ec_p256.cu",
+        "bftkv_tpu/ops/ec_rns.py:437", launches,
+        lambda: cuda_ec.scalar_mult_cuda(res, nib, eng),
+        lambda: ec_rns._scalar_mult(eng, res, nib),
+        t * macs_point * RNS_OPS_PER_MAC, n_bytes, kernel_reps, 1,
+        rows=t, k=k, compared="(3, 2k+1, T) Jacobian residues",
+        products_per_point=EC_PRODUCTS, cuda_core_floor_ms=floor_ms,
+        shuffle_issue_floor_ms=shfl_ms, sm_clock_max_mhz=clock_hz / 1e6, **extra,
+    )
+
+
+def ec_phase(dev, rsa_items, rsa_expect, ec_items, ec_expect, ec_replicas) -> dict:
+    """The EC paths, each counted: (a) one 4096-item EC verify flush (K5 at
+    T=8192); (b) the same items through VerifyDispatcher(max_batch=1024) (K5
+    at T=2048); (c) one flush of half RSA and half EC items (K1 and K5 in
+    one flush); (d) 256 shares under one replica key through SignDispatcher
+    (K5 at T=256), every signature checked on the host; (e) one limb-engine
+    call at 8 points.  Then timed flushes, one EC verify flush split, and K5
+    against its plain version on each recorded operand set."""
+    from bftkv_tpu_torch import flags
+    from bftkv_tpu_torch.crypto import ec as host_ec
+    from bftkv_tpu_torch.crypto import rsa
+    from bftkv_tpu_torch.ops import cuda_ec, cuda_rns, dispatch
+    from bftkv_tpu_torch.ops import ec as ec_ops
+
+    T = lambda a: a[0].shape[-1]
+    vd = dispatch.VerifyDispatcher(rsa.VerifierDomain(device=dev), max_batch=VERIFY_FLUSH,
+                                   max_wait=2.0).start()
+    vd_plane = dispatch.VerifyDispatcher(rsa.VerifierDomain(device=dev),
+                                         max_batch=PLANE_MAX_BATCH, max_wait=0.05).start()
+    sd = dispatch.SignDispatcher(rsa.SignerDomain(device=dev), max_batch=EC_SIGN_SHARES,
+                                 max_wait=2.0).start()
+    vd_split = dispatch.VerifyDispatcher(rsa.VerifierDomain(device=dev), pipeline=1,
+                                         max_batch=VERIFY_FLUSH).start()
+    launches: dict = {}
+    recorded: dict = {}
+
+    def counted(name, fn):
+        with Recorder(cuda_ec, ("scalar_mult_cuda",)) as rec, \
+                Recorder(ec_ops, ("scalar_mult_jac",), copy=False) as limb, Counted() as c:
+            out = fn()
+        check(not limb.calls["scalar_mult_jac"], f"ec {name}: the limb engine was reached")
+        calls = rec.calls["scalar_mult_cuda"]
+        check(len(calls) == c.launches["ec_scalar_mult"] >= 1,
+              f"ec {name}: K5 launches {c.launches} for {len(calls)} recorded calls")
+        launches[name] = {}
+        for a in calls:
+            launches[name][T(a)] = launches[name].get(T(a), 0) + 1
+        recorded[name] = calls
+        return out, c
+
+    try:
+        # (a) one EC verify flush of 4096 items
+        (got, _dt), c = counted("verify", lambda: verify_phase(vd, ec_items))
+        check(got == ec_expect, f"EC verdicts differ from the host curve on "
+              f"{sum(g != e for g, e in zip(got, ec_expect))} items")
+        check(c.snap.get("verify.ec", 0) == len(ec_items), f"verify.ec {c.snap.get('verify.ec')}")
+        check(c.launches["ec_scalar_mult"] == c.snap.get("dispatch.flushes") == 1,
+              f"EC verify flush: K5 launches {c.launches}, flushes {c.snap.get('dispatch.flushes')}")
+        check(c.launches["verify"] == c.launches["pow"] == 0, f"EC verify launched {c.launches}")
+        check(launches["verify"] == {2 * VERIFY_FLUSH: 1}, f"EC verify K5 shapes {launches}")
+        print(f"ec verify phase: {len(ec_items)} items, {sum(ec_expect)} valid, "
+              f"verify.ec={c.snap.get('verify.ec')} launches={c.launches}", flush=True)
+        # (b) the plane: max_batch 1024, K5 at T=2048
+        (got, _dt), c = counted("plane", lambda: verify_phase(vd_plane, ec_items))
+        check(got == ec_expect, "EC plane verdicts differ from the host curve")
+        flushes = c.snap.get("dispatch.flushes", 0)
+        check(c.launches["ec_scalar_mult"] == flushes >= 4,
+              f"EC plane: K5 launches {c.launches} for {flushes} flushes")
+        check(2 * PLANE_MAX_BATCH in launches["plane"], f"EC plane K5 shapes {launches['plane']}")
+        # (c) one flush of half RSA and half EC items: K1 and K5 in it
+        half = VERIFY_FLUSH // 2
+        mixed = [x for pair in zip(rsa_items[:half], ec_items[:half]) for x in pair]
+        mixed_expect = [x for pair in zip(rsa_expect[:half], ec_expect[:half]) for x in pair]
+        with Recorder(cuda_rns, ("verify_cuda",)) as rec_k1:
+            (got, _dt), c = counted("mixed", lambda: verify_phase(vd, mixed))
+        check(got == mixed_expect, "mixed RSA + EC flush verdicts differ from the host")
+        check(c.launches["verify"] == c.launches["ec_scalar_mult"] == 1
+              and c.snap.get("dispatch.flushes") == 1 and c.snap.get("verify.ec") == half,
+              f"mixed flush: launches {c.launches}, snapshot {c.snap}")
+        print(f"ec plane ({flushes} flushes, K5 {launches['plane']}); mixed flush: K1 "
+              f"{c.launches['verify']} + K5 {launches['mixed']}, verify.ec={c.snap.get('verify.ec')} "
+              f"verify.device={c.snap.get('verify.device')}", flush=True)
+        # (d) 256 shares under one replica key
+        (sign_items, sigs, _dt), c = counted(
+            "sign", lambda: ec_sign_phase(sd, ec_replicas[0], "counted"))
+        check_ec_signatures(sign_items, sigs, "EC sign")
+        check(c.snap.get("ec.sign_fault", 0) == 0, f"ec.sign_fault {c.snap.get('ec.sign_fault')}")
+        check(launches["sign"] == {EC_SIGN_SHARES: 1}, f"EC sign K5 shapes {launches['sign']}")
+        check(c.snap.get("signdispatch.device_occupancy{width=ec}") == 1.0,
+              f"EC sign occupancy {c.snap.get('signdispatch.device_occupancy{width=ec}')}")
+        # (e) the limb engine, 8 points
+        rng = random.Random(EC_LIMB_POINTS)
+        pts = [k.public.point for k in ec_replicas[:EC_LIMB_POINTS]]
+        ks = [rng.randrange(host_ec.P256.n) for _ in pts]
+        with flags.override("BFTKV_EC_BACKEND", "limb"), Counted() as c:
+            t0 = time.perf_counter()
+            got = ec_ops.scalar_mult_hosts(pts, ks, device=dev)
+            limb_ms = (time.perf_counter() - t0) * 1e3
+        check(got == [host_ec.P256.scalar_mult(p, k) for p, k in zip(pts, ks)],
+              "limb engine scalar mults differ from the host curve")
+        check(c.launches["ec_scalar_mult"] == 0, "the limb engine launched K5")
+        print(f"ec sign phase: {len(sigs)} signatures under one key, ec.sign_fault=0, "
+              f"K5 {launches['sign']}; limb engine {EC_LIMB_POINTS} points {limb_ms:.1f} ms",
+              flush=True)
+
+        # timed flushes (after the warm-up above)
+        v_s = [verify_phase(vd, ec_items)[1] for _ in range(EC_TIMED_REPS)]
+        p_s = [verify_phase(vd_plane, ec_items)[1] for _ in range(EC_TIMED_REPS)]
+        m_s = [verify_phase(vd, mixed)[1] for _ in range(EC_TIMED_REPS)]
+        s_s = [ec_sign_phase(sd, ec_replicas[0], f"timed{r}")[2] for r in range(EC_TIMED_REPS)]
+        split = split_ec_verify_flush(vd_split, ec_items)
+    finally:
+        for d in (vd, vd_plane, sd, vd_split):
+            d.stop()
+    print("ec verify flush split (median of %d, ms): " % SPLIT_REPS
+          + ", ".join(f"{k[:-3]} {v:.4f}" for k, v in split.items()), flush=True)
+
+    # K5 against its plain version on every recorded shape
+    attrs = cuda_ec.kernel_attrs()["ec_scalar_mult"]
+    by_t: dict = {}
+    for phase, counts in launches.items():
+        for t, n in counts.items():
+            by_t.setdefault(t, {})[phase] = n
+    records = []
+    for phase, t, reps, what in (
+        ("verify", 2 * VERIFY_FLUSH, 5, ""), ("plane", 2 * PLANE_MAX_BATCH, 10, "dispatch plane"),
+        ("mixed", None, 5, "mixed RSA + EC flush"), ("sign", EC_SIGN_SHARES, 20, "EC sign flush"),
+    ):
+        args = [a for a in recorded[phase] if t is None or T(a) == t][0]
+        rec = ec_record(args, sum(by_t[T(args)].values()), reps,
+                        phase_launches=by_t[T(args)], **attrs)
+        if what:
+            rec["name"] += f" (T={T(args)}, {what})"
+        records.append(rec)
+    (k1_args,) = rec_k1.calls["verify_cuda"]
+    records.append(rns_record(
+        "K1 rns_verify_kernel (mixed RSA + EC flush)", "verify", "bftkv_tpu/ops/pallas_rns.py:517",
+        k1_args, 1, 20, 3, phase_launches={"ec_mixed": 1},
+        **cuda_rns.kernel_attrs()["verify"]))
+    print("K5 this run: " + ", ".join(f"T={r['rows']} {r['ms']:.4f} ms (plain {r['plain_ms']:.1f})"
+                                      for r in records if r["name"].startswith("K5")),
+          flush=True)
+    med = statistics.median
+    return {
+        "verify_flush_ms_median": med(v_s) * 1e3,
+        "verify_items_per_s": len(ec_items) / med(v_s),
+        "plane_round_ms_median": med(p_s) * 1e3,
+        "mixed_flush_ms_median": med(m_s) * 1e3,
+        "sign_flush_ms_median": med(s_s) * 1e3,
+        "signatures_per_s": EC_SIGN_SHARES / med(s_s),
+        "limb_8_points_ms": limb_ms,
+        "k5_launches": launches,
+        "verify_flush_split_ms": split,
+        "records": records,
+    }
+
+
 def cuda_ms(fn, reps: int) -> float:
     fn()
     torch.cuda.synchronize()
@@ -684,9 +1045,15 @@ def main() -> int:
         items, expect, rns_capable, n_forged, n_hostile, n_big = verify_items(
             pool, replicas, writers, args.seed
         )
+        ec_replicas, ec_writers = ec_keys(args.seed)
+        ec_items, ec_expect, ec_forged, ec_bad = ec_verify_items(
+            pool, ec_replicas, ec_writers, args.seed
+        )
     print(f"setup: {len(replicas)} replica + {len(writers)} writer RSA-2048 keys, "
           f"{len(items)} verify items ({n_forged} forged, {n_hostile} hostile moduli, "
-          f"{n_big} with s >= n) in {time.perf_counter() - t0:.1f} s", flush=True)
+          f"{n_big} with s >= n); {len(ec_replicas)} + {len(ec_writers)} P-256 keys, "
+          f"{len(ec_items)} EC verify items ({ec_forged} forged, {ec_bad} malformed) "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 2. build (one nvcc per source, in parallel)
     t0 = time.perf_counter()
@@ -878,6 +1245,9 @@ def main() -> int:
     print("plane verify flush split (median of %d, ms): " % SPLIT_REPS
           + ", ".join(f"{k[:-3]} {v:.4f}" for k, v in split.items()), flush=True)
 
+    # 9. EC phase: the same cluster on P-256 identity keys
+    ec = ec_phase(dev, items, expect, ec_items, ec_expect, ec_replicas)
+
     v_med, s_med = statistics.median(v_times), statistics.median(s_times)
     p_med, l_med = statistics.median(p_times), statistics.median(l_times)
     print(f"verify flush (rns): median {v_med * 1e3:.3f} ms of {TIMED_REPS} "
@@ -895,7 +1265,7 @@ def main() -> int:
           f"({SIGN_SHARES / l_med:.0f} signatures/s), all {[t * 1e3 for t in l_times]}",
           flush=True)
 
-    # 9. each kernel against its plain version, on the main paths' operands
+    # 10. each kernel against its plain version, on the main paths' operands
     v_args = [a for a in rec_v.calls["verify_cuda"] if a[0].shape[0] == VERIFY_FLUSH]
     check(len(v_args) == 1, f"expected one {VERIFY_FLUSH}-row verify launch")
     p_args = rec_s.calls["pow_cuda"]
@@ -958,8 +1328,9 @@ def main() -> int:
                    **attrs["pow"]),
         k3_record(k3_args[0], p_launch["mont_verify"]),
     ]
-    kernels[-1].update(phase_launches={"verify_pallas": p_launch["mont_verify"]},
-                       **attrs["mont_verify"])
+    k3 = kernels[-1]
+    k3.update(phase_launches={"verify_pallas": p_launch["mont_verify"]}, **attrs["mont_verify"])
+    kernels += ec.pop("records")
     print(f"K1 before its redesign, not measured in this run ({K1_EARLIER_OF}): "
           + ", ".join(f"T={t} {ms} ms" for t, ms in K1_EARLIER_MS.items())
           + "; this run: " + ", ".join(f"T={r['rows']} {r['ms']:.4f} ms" for r in kernels[0:3]),
@@ -971,7 +1342,7 @@ def main() -> int:
           flush=True)
     print(f"K3 before its redesign, not measured in this run ({K3_EARLIER_OF}): "
           + ", ".join(f"T={t} {ms} ms" for t, ms in K3_EARLIER_MS.items())
-          + f"; this run: T={kernels[-1]['rows']} {kernels[-1]['ms']:.4f} ms", flush=True)
+          + f"; this run: T={k3['rows']} {k3['ms']:.4f} ms", flush=True)
     print(json.dumps({
         "kernels": kernels,
         "not_yet_ported": [],
@@ -991,9 +1362,10 @@ def main() -> int:
             "modexp_fragment_limb_ms": f_dt * 1e3,
         },
         "dispatch_plane": plane,
+        "ec": ec,
     }), flush=True)
 
-    # 10. the card, as nvidia-smi reports it
+    # 11. the card, as nvidia-smi reports it
     print(nvidia_smi("name,power.limit") or "nvidia-smi: no output", flush=True)
     print(json.dumps({
         "ok": True,

@@ -435,3 +435,111 @@ def test_ring_never_hands_out_inflight_slot_on_card(dev):
     ring.release(s2)
     with pytest.raises(RuntimeError, match="not in flight"):
         ring.release(s2)
+
+
+# -- K5: the P-256 scalar mult -------------------------------------------------
+
+
+def _k5_operands(dev, t: int, seed: int):
+    """Staged K5 operands at T = t: the edge lanes first — identity points,
+    scalars 0, 1, 2 (the doubling lane 2·G), n − 1, n (whose last add is
+    P + (−P)), n + 1 — then seeded random points and scalars."""
+    from bftkv_tpu_torch.crypto.ec import P256
+    from bftkv_tpu_torch.ops import ec_rns
+
+    g = (P256.gx, P256.gy)
+    rng = random.Random(seed)
+    pts = [None, None, g, g, g, g, g, g, g]
+    ks = [5, 0, 0, 1, 2, P256.n - 1, P256.n, P256.n + 1, 3]
+    while len(pts) < t:
+        pts.append(P256.scalar_base_mult(rng.randrange(1, P256.n)) if len(pts) < 24 else g)
+        ks.append(rng.randrange(P256.n))
+    pts, ks = pts[:t], ks[:t]
+    eng = ec_rns.engine(dev)
+    block = np.zeros((3, 2 * eng.k + 1, t), dtype=np.int32)
+    ec_rns.engine("cpu").encode_points_into(pts, block)
+    res = torch.from_numpy(block).to(dev)
+    nib = torch.from_numpy(ec_rns._nibbles(ks)).to(dev)
+    return eng, res, nib, pts, ks
+
+
+@pytest.mark.parametrize("t", [8, 256, 2048])
+def test_k5_matches_plain_on_card(dev, t):
+    from bftkv_tpu_torch.crypto.ec import P256
+    from bftkv_tpu_torch.ops import cuda_ec, ec_rns
+
+    eng, res, nib, pts, ks = _k5_operands(dev, t, seed=t)
+    cuda_ec.reset_launches()
+    got = cuda_ec.scalar_mult_cuda(res, nib, eng)
+    torch.cuda.synchronize()
+    assert cuda_ec.LAUNCHES == {"ec_scalar_mult": 1}
+    plain = ec_rns._scalar_mult(eng, res, nib)
+    assert torch.equal(got, plain)
+    n_check = min(t, 32)
+    decoded = ec_rns.engine("cpu").decode_points(got[:, :, :n_check].cpu().numpy())
+    assert decoded == [P256.scalar_mult(p, k) if p is not None else None
+                       for p, k in zip(pts[:n_check], ks[:n_check])]
+
+
+def test_k5_wrapper_refuses_wrong_operands_on_card(dev):
+    from bftkv_tpu_torch.ops import cuda_ec
+
+    eng, res, nib, _pts, _ks = _k5_operands(dev, 8, seed=1)
+    cuda_ec.reset_launches()
+    bad = [
+        (res.to(torch.int64), nib, TypeError),
+        (res[:, :-1].contiguous(), nib, ValueError),
+        (res, nib[:, :4].contiguous(), ValueError),
+        (res[:, :, ::2], nib[:, ::2], ValueError),
+        (res, nib.cpu(), ValueError),
+    ]
+    for r, n, err in bad:
+        with pytest.raises(err):
+            cuda_ec.scalar_mult_cuda(r, n, eng)
+    assert cuda_ec.LAUNCHES == {"ec_scalar_mult": 0}
+
+
+def test_k5_launch_error_reaches_the_verify_caller(dev, monkeypatch):
+    """A refused K5 launch raises out of VerifierDomain.verify_batch: never
+    answered by the limb engine or the host, and no staging slot is left
+    in flight."""
+    from bftkv_tpu_torch.crypto import ecdsa
+    from bftkv_tpu_torch.ops import _build, devbuf
+    from bftkv_tpu_torch.ops import ec as ec_ops
+
+    lib = _build.library()
+
+    class Refusing:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        @staticmethod
+        def ec_scalar_mult_launch(*args):
+            return 1  # cudaErrorInvalidValue
+
+    key = ecdsa.generate(seed=7)
+    items = [(b"m%d" % i, ecdsa.sign(b"m%d" % i, key), key.public) for i in range(30)]
+    monkeypatch.setattr(_build, "library", lambda: Refusing())
+    monkeypatch.setattr(ecdsa, "verify_host", lambda *a: pytest.fail("host verify reached"))
+    monkeypatch.setattr(ec_ops, "scalar_mult_jac", lambda *a: pytest.fail("limb engine reached"))
+    with pytest.raises(RuntimeError, match="ec_scalar_mult kernel launch failed"):
+        rsa.VerifierDomain(device=dev, host_threshold=0).verify_batch(items)
+    assert all(r["in_flight"] == 0 for r in devbuf.stats().values())
+
+
+def test_ecdsa_batches_on_card_launch_k5_once_each(dev):
+    from bftkv_tpu_torch.crypto import ecdsa
+    from bftkv_tpu_torch.ops import cuda_ec
+
+    key = ecdsa.generate(seed=8)
+    msgs = [b"card %d" % i for i in range(40)]
+    cuda_ec.reset_launches()
+    sigs = ecdsa.sign_batch(msgs, key, device=dev)
+    assert cuda_ec.LAUNCHES == {"ec_scalar_mult": 1}
+    assert all(ecdsa.verify_host(m, s, key.public) for m, s in zip(msgs, sigs))
+    items = [(m, s, key.public) for m, s in zip(msgs, sigs)]
+    items[3] = (msgs[3], sigs[4], key.public)
+    assert ecdsa.verify_batch(items, device=dev) == [i != 3 for i in range(40)]
+    assert cuda_ec.LAUNCHES == {"ec_scalar_mult": 2}
+    attrs = cuda_ec.kernel_attrs()["ec_scalar_mult"]
+    assert 0 < attrs["registers"] <= 255 and attrs["points_per_block"] >= 1

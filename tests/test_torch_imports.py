@@ -58,6 +58,9 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import bftkv_tpu_torch.ops.cuda_mont, bftkv_tpu_torch.ops.modexp\n"
         "import bftkv_tpu_torch.ops.devbuf, bftkv_tpu_torch.trace\n"
         "import bftkv_tpu_torch.faults.failpoint, bftkv_tpu_torch.devtools.lockwatch\n"
+        "import bftkv_tpu_torch.errors, bftkv_tpu_torch.crypto.rng, bftkv_tpu_torch.crypto.ec\n"
+        "import bftkv_tpu_torch.crypto.ecdsa, bftkv_tpu_torch.ops.ec\n"
+        "import bftkv_tpu_torch.ops.ec_rns, bftkv_tpu_torch.ops.cuda_ec\n"
         "new = {m.split('.')[0] for m in set(sys.modules) - before}\n"
         "print(sorted(new & {'jax', 'jaxlib', 'bftkv_tpu'}))\n"
     )
@@ -70,13 +73,24 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
 
 
 def _entry_points():
-    from bftkv_tpu_torch.crypto import rsa
-    from bftkv_tpu_torch.ops import bigint, dispatch, modexp, rns
+    from bftkv_tpu_torch.crypto import ecdsa, rsa
+    from bftkv_tpu_torch.crypto.ec import P256
+    from bftkv_tpu_torch.ops import bigint, dispatch, ec, ec_rns, modexp, rns
     from bftkv_tpu_torch.ops import rsa as rsa_ops
 
     ctx = rns.context(16, 256)
     digits = np.zeros((256, 128), np.uint32)
+    g = (P256.gx, P256.gy)
+    key = ecdsa.ECPrivateKey(d=1, public=ecdsa.ECPublicKey(x=P256.gx, y=P256.gy))
+    # Both batches at their crossover, so they reach the device.
+    verify_items = [(b"m", ecdsa.sign(b"m", key), key.public)] * ecdsa.VERIFY_HOST_CROSSOVER
+    sign_msgs = [b"m"] * ecdsa.SIGN_HOST_CROSSOVER
     return {
+        "ec_scalar_mult_hosts": lambda: ec.scalar_mult_hosts([g], [3], device="cuda"),
+        "ec_rns_scalar_mult_hosts": lambda: ec_rns.scalar_mult_hosts([g], [3], device="cuda"),
+        "ec_rns_engine": lambda: ec_rns.engine("cuda"),
+        "ecdsa_sign_batch": lambda: ecdsa.sign_batch(sign_msgs, key, device="cuda"),
+        "ecdsa_verify_batch": lambda: ecdsa.verify_batch(verify_items, device="cuda"),
         "verify_e65537_rns_indexed": lambda: rns.verify_e65537_rns_indexed(
             [0], [0], [0], [rns.context().key_rows((1 << 2047) + 1)], device="cuda",
         ),
@@ -108,7 +122,9 @@ def _entry_points():
 ENTRY_POINTS = [
     "BatchModExp", "ModexpDispatcher", "SignDispatcher", "SignerDomain", "SignerDomain_limb",
     "VerifierDomain", "VerifierDomain_limb", "VerifierDomain_pallas",
-    "VerifyDispatcher", "calibration", "consts_from_numpy", "key_rows_from_numpy",
+    "VerifyDispatcher", "calibration", "consts_from_numpy", "ec_rns_engine",
+    "ec_rns_scalar_mult_hosts", "ec_scalar_mult_hosts", "ecdsa_sign_batch",
+    "ecdsa_verify_batch", "key_rows_from_numpy",
     "limbs_from_numpy", "power_batch", "power_mod_rns", "verify_batch_e65537",
     "verify_e65537_rns_indexed",
 ]
@@ -153,6 +169,10 @@ def test_flag_seam():
         "BFTKV_DISPATCH_ASYNC",
         "BFTKV_DISPATCH_DEVBUF",
         "BFTKV_DISPATCH_DEVBUF_RING",
+        "BFTKV_EC_BACKEND",
+        "BFTKV_EC_SIGN_THRESHOLD",
+        "BFTKV_EC_VERIFY_THRESHOLD",
+        "BFTKV_OS_RNG",
         "BFTKV_TRACE",
         "BFTKV_SLOW_TRACE_SECONDS",
         "BFTKV_LOCKWATCH",
@@ -163,3 +183,17 @@ def test_flag_seam():
     assert [n for n in flags.declared() if n not in blob] == []
     pat = re.compile(r"(?:environ(?:\.get)?\s*[\(\[]|getenv\s*\()\s*f?['\"]BFTKV_")
     assert not [p for p in _port_files() if p.name != "flags.py" and pat.search(p.read_text())]
+
+
+def test_flag_override_sets_and_restores(monkeypatch):
+    monkeypatch.delenv("BFTKV_EC_BACKEND", raising=False)
+    with flags.override("BFTKV_EC_BACKEND", "limb"):
+        assert flags.raw("BFTKV_EC_BACKEND") == "limb"
+    assert flags.raw("BFTKV_EC_BACKEND") is None
+    monkeypatch.setenv("BFTKV_EC_BACKEND", "rns")
+    with pytest.raises(RuntimeError), flags.override("BFTKV_EC_BACKEND", "limb"):
+        raise RuntimeError("inside")
+    assert flags.raw("BFTKV_EC_BACKEND") == "rns"
+    with pytest.raises(KeyError):
+        with flags.override("BFTKV_NOT_DECLARED", "1"):
+            pass
