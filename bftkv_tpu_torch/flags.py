@@ -10,11 +10,10 @@ read yet; each later slice adds the names it starts to read.
 
 from __future__ import annotations
 
-import contextlib
 import os
 from typing import NamedTuple
 
-__all__ = ["Flag", "FLAGS", "declared", "enabled", "get", "get_int", "override", "raw"]
+__all__ = ["Flag", "FLAGS", "declared", "enabled", "get", "get_int", "raw"]
 
 
 class Flag(NamedTuple):
@@ -143,21 +142,3 @@ def enabled(name: str, default: str | None = None) -> bool:
         if v == "":
             return False
     return v.lower() not in ("off", "0", "false")
-
-
-@contextlib.contextmanager
-def override(name: str, value: str):
-    """Sets the declared flag ``name`` to ``value`` for the block (this
-    process's environment), then restores it: a run that drives one path
-    under another setting, as ``chip_smoke.py`` does for the limb EC
-    engine."""
-    _check(name)
-    saved = os.environ.get(name)
-    os.environ[name] = value
-    try:
-        yield
-    finally:
-        if saved is None:
-            os.environ.pop(name, None)
-        else:
-            os.environ[name] = saved

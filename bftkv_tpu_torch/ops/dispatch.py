@@ -675,8 +675,9 @@ class SignDispatcher(_BatchDispatcher):
             self.signer.host_threshold = self._signer_default_threshold
 
     def _run_batch(self, items: list):
-        # EC keys carry a curve: the reference's rule (crypto/cert.py::is_ec).
-        ec_pos = [i for i, (_m, key) in enumerate(items) if hasattr(key, "curve")]
+        from bftkv_tpu_torch.crypto import rsa as rsamod
+
+        ec_pos = [i for i, (_m, key) in enumerate(items) if rsamod._is_ec(key)]
         if not ec_pos:
             return self.signer.sign_batch(items)
         from bftkv_tpu_torch.crypto import ecdsa

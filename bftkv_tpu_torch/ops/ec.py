@@ -41,6 +41,7 @@ __all__ = [
     "p256",
     "scalar_base_mult_hosts",
     "scalar_mult_hosts",
+    "scalar_mult_hosts_limb",
     "scalar_mult_jac",
     "to_affine",
 ]
@@ -289,6 +290,15 @@ def scalar_mult_hosts(points: list, scalars: list[int], device=None) -> list:
         from bftkv_tpu_torch.ops import ec_rns
 
         return ec_rns.scalar_mult_hosts(points, scalars, device=dev)
+    return scalar_mult_hosts_limb(points, scalars, device=dev)
+
+
+def scalar_mult_hosts_limb(points: list, scalars: list[int], device=None) -> list:
+    """:func:`scalar_mult_hosts` on this module's limb engine, whatever
+    ``BFTKV_EC_BACKEND`` says."""
+    dev = devmod.resolve(device)
+    if not points:
+        return []
     d = p256()
     k = len(points)
     padded = max(8, 1 << (k - 1).bit_length())

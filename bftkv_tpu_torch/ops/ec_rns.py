@@ -258,23 +258,26 @@ class _P256RNS:
             sums = rns.bytes_rows(vals, 32).astype(np.int64) @ self.byte_weights
             res[c] = (sums % self.moduli).T
 
-    def decode_points(self, block: np.ndarray) -> list:
-        """Jacobian Montgomery residues (3, 2k+1, T) → affine host points.
-        One product by ones strips the Montgomery factor (in the plain
-        version, on this engine's device), then the CRT rebuild of σ and a
-        host ``pow`` inverse per point, as the reference does."""
-        ctx = self.ctx
+    def strip_sigma(self, block: torch.Tensor) -> torch.Tensor:
+        """Jacobian Montgomery residues (3, 2k+1, T) → σ (3, T, k) int32 on
+        this engine's device: one product by ones strips the Montgomery
+        factor (the three coordinates stacked into one product), then
+        σ_i = v_i·(M/m_i)⁻¹ mod m_i over B — the device half of the
+        reference's ``decode_points``."""
+        t = block.shape[-1]
+        trip = tuple(torch.cat(c, dim=0) for c in zip(*self.unstack(block)))  # (3T, w)
+        plain = self.fmul(trip, tuple(torch.ones_like(c) for c in trip))
+        sigma = rns._mulmod(plain[0], self.cn.invMi_b, self.cn.pb)
+        return sigma.reshape(3, t, self.k).to(torch.int32)
+
+    def decode_sigma(self, sigma: np.ndarray) -> list:
+        """σ (3, T, k) of X, Y, Z → affine host points: the CRT rebuild and
+        a host ``pow`` inverse per point — the host half of the reference's
+        ``decode_points``."""
         p = P256.p
-        comps = self.unstack(torch.as_tensor(block, device=self.device))
-        ones = tuple(torch.ones_like(c) for c in comps[0])
-        outs = []
-        for comp in comps:
-            plain = self.fmul(comp, ones)
-            sigma = rns._mulmod(plain[0], self.cn.invMi_b, self.cn.pb)
-            vals = rns._sigma_to_ints(ctx, sigma.cpu().numpy())
-            outs.append([v % p for v in vals])
+        xs, ys, zs = ([v % p for v in rns._sigma_to_ints(self.ctx, s)] for s in sigma)
         pts = []
-        for x, y, z in zip(*outs):
+        for x, y, z in zip(xs, ys, zs):
             if z == 0:
                 pts.append(None)
                 continue
@@ -282,6 +285,13 @@ class _P256RNS:
             zi2 = zi * zi % p
             pts.append((x * zi2 % p, y * zi2 * zi % p))
         return pts
+
+    def decode_points(self, block: np.ndarray) -> list:
+        """Jacobian Montgomery residues (3, 2k+1, T) → affine host points:
+        :meth:`strip_sigma` on this engine's device, then
+        :meth:`decode_sigma` on the host, as the reference's."""
+        block = torch.as_tensor(block, device=self.device)
+        return self.decode_sigma(self.strip_sigma(block).cpu().numpy())
 
 
 def lane_table(ctx) -> np.ndarray:
@@ -389,8 +399,8 @@ def _nibbles(scalars: list[int]) -> np.ndarray:
 
 
 def _ec_staging(padded: int, dev: torch.device) -> devbuf.Lease:
-    """One K5 launch's slot: the staged residues and nibbles, the output
-    block, and the ``pad_lo`` watermark (host only): columns ``pad_lo:``
+    """One K5 launch's slot: the staged residues and nibbles, σ of the
+    output (:meth:`_P256RNS.strip_sigma`), and the ``pad_lo`` watermark (host only): columns ``pad_lo:``
     already hold the identity encoding and nibble 0 from an earlier call
     in this slot, so a call re-encodes only its live columns and the
     columns an earlier, larger batch dirtied.  The third width class of
@@ -399,7 +409,7 @@ def _ec_staging(padded: int, dev: torch.device) -> devbuf.Lease:
     spec = {
         "res": ((3, 2 * k + 1, padded), torch.int32),
         "nib": ((_NWIN, padded), torch.uint8),
-        "out": ((3, 2 * k + 1, padded), torch.int32),
+        "sigma": ((3, padded, k), torch.int32),
         "pad_lo": ((1,), torch.int64, padded),
     }
     return devbuf.lease(f"ec:{padded}:{dev}", spec, dev, width="ec")
@@ -409,8 +419,9 @@ def scalar_mult_hosts(points: list, scalars: list[int], device=None) -> list:
     """Batched k·P for affine host points (None = identity) and integer
     scalars; the same contract as the reference's (power-of-two padding,
     floor 8; pad columns hold the identity and scalar 0).  One launch of
-    K5 on ``cuda`` (the plain version on ``cpu``); an error of the build
-    or the launch propagates."""
+    K5 on ``cuda`` (the plain version on ``cpu``) and the Montgomery strip
+    on the same device; the host rebuilds the integers from σ.  An error
+    of the build or the launch propagates."""
     from bftkv_tpu_torch.ops import cuda_ec
 
     dev = devmod.resolve(device)
@@ -434,9 +445,9 @@ def scalar_mult_hosts(points: list, scalars: list[int], device=None) -> list:
             nib[:, t:pad_lo] = 0
         lo[0] = t
         d = slot.upload(("res", "nib"))
-        slot.download("out", cuda_ec.scalar_mult_cuda(d["res"], d["nib"], eng))
-    block = lease.collect(lambda s: s["out"][:, :, :t].copy())
-    return engine("cpu").decode_points(block)
+        out = cuda_ec.scalar_mult_cuda(d["res"], d["nib"], eng)
+        slot.download("sigma", eng.strip_sigma(out))
+    return eng.decode_sigma(lease.collect(lambda s: s["sigma"][:, :t].copy()))
 
 
 def scalar_base_mult_hosts(scalars: list[int], device=None) -> list:

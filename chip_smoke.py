@@ -659,8 +659,9 @@ def check_ec_signatures(sign_items, sigs, what: str) -> None:
 def split_ec_verify_flush(vd, items):
     """One EC verify flush through a pipeline-1 VerifyDispatcher (one
     submitter), split into encode (signature parsing, SHA-256, s^-1 mod n,
-    u1/u2), stage (residues and nibbles into the slot), H2D, K5, D2H,
-    decode (Montgomery strip, CRT rebuild, Z inverse) and finish (u1·G +
+    u1/u2), stage (residues and nibbles into the slot), H2D, K5, strip
+    (the Montgomery strip and σ on the card), D2H of σ, decode (CRT
+    rebuild, Z inverse) and finish (u1·G +
     u2·Q, r compare, scatter): host clock at the boundaries, CUDA events
     around the copies and the kernel."""
     from bftkv_tpu_torch.ops import cuda_ec, devbuf, ec_rns
@@ -670,7 +671,8 @@ def split_ec_verify_flush(vd, items):
     real = {
         "entry": ec_rns.scalar_mult_hosts, "k5": cuda_ec.scalar_mult_cuda,
         "upload": devbuf.Slot.upload, "download": devbuf.Slot.download,
-        "decode": ec_rns._P256RNS.decode_points, "batch": vd.verifier.verify_batch,
+        "strip": ec_rns._P256RNS.strip_sigma, "decode": ec_rns._P256RNS.decode_sigma,
+        "batch": vd.verifier.verify_batch,
     }
 
     def timed_events(key, fn):
@@ -701,7 +703,8 @@ def split_ec_verify_flush(vd, items):
     cuda_ec.scalar_mult_cuda = timed_events("k5", real["k5"])
     devbuf.Slot.upload = upload
     devbuf.Slot.download = timed_events("d2h", real["download"])
-    ec_rns._P256RNS.decode_points = host_marks("decode0", "decode1", real["decode"])
+    ec_rns._P256RNS.strip_sigma = timed_events("strip", real["strip"])
+    ec_rns._P256RNS.decode_sigma = host_marks("decode0", "decode1", real["decode"])
     vd.verifier.verify_batch = host_marks("start", "batch_end", real["batch"])
     try:
         for _ in range(SPLIT_REPS):
@@ -716,6 +719,7 @@ def split_ec_verify_flush(vd, items):
                 "device_host_ms": (marks["decode0"] - marks["upload"]) * 1e3,
                 "h2d_ms": marks["h2d"][0].elapsed_time(marks["h2d"][1]),
                 "k5_ms": marks["k5"][0].elapsed_time(marks["k5"][1]),
+                "strip_ms": marks["strip"][0].elapsed_time(marks["strip"][1]),
                 "d2h_ms": marks["d2h"][0].elapsed_time(marks["d2h"][1]),
                 "decode_ms": (marks["decode1"] - marks["decode0"]) * 1e3,
                 "finish_ms": (done - marks["exit"]) * 1e3,
@@ -724,7 +728,8 @@ def split_ec_verify_flush(vd, items):
     finally:
         ec_rns.scalar_mult_hosts, cuda_ec.scalar_mult_cuda = real["entry"], real["k5"]
         devbuf.Slot.upload, devbuf.Slot.download = real["upload"], real["download"]
-        ec_rns._P256RNS.decode_points = real["decode"]
+        ec_rns._P256RNS.strip_sigma = real["strip"]
+        ec_rns._P256RNS.decode_sigma = real["decode"]
         del vd.verifier.verify_batch
     return {key: statistics.median(r[key] for r in rows) for key in rows[0]}
 
@@ -753,6 +758,39 @@ def ec_record(args, launches, kernel_reps: int, **extra):
     )
 
 
+def k5_edge_lanes(dev) -> None:
+    """K5 against its plain version at T=16 on the group law's edge lanes:
+    identity points, scalars 0, 1, 2 (a doubling lane), n − 1, and the raw
+    windows of n and n + 1.  The flushes never reach n's lane, whose last
+    add is P + (−P), because ``ec_rns._nibbles`` reduces scalars mod n;
+    there K5 must give Z = 0 exactly in every channel."""
+    import numpy as np
+
+    from bftkv_tpu_torch.crypto.ec import P256
+    from bftkv_tpu_torch.ops import cuda_ec, ec_rns
+
+    eng = ec_rns.engine(dev)
+    g, n = (P256.gx, P256.gy), P256.n
+    rng = random.Random(16)
+    pts = [None, None, g, g, g, g, g, g] + [P256.scalar_base_mult(i + 7) for i in range(8)]
+    ks = [5, 0, 0, 1, 2, n - 1, n, n + 1] + [rng.randrange(n) for _ in range(8)]
+    block = np.zeros((3, 2 * eng.k + 1, len(pts)), dtype=np.int32)
+    eng.encode_points_into(pts, block)
+    nib = ec_rns._nibbles(ks)
+    for lane in (6, 7):
+        nib[:, lane] = [(ks[lane] >> (4 * (63 - w))) & 0xF for w in range(64)]
+    res, nib = torch.from_numpy(block).to(dev), torch.from_numpy(nib).to(dev)
+    got = cuda_ec.scalar_mult_cuda(res, nib, eng)
+    check(torch.equal(got, ec_rns._scalar_mult(eng, res, nib)),
+          "K5 differs from its plain version on the edge lanes")
+    check(not got[2, :, 6].any(), "K5: P + (−P) left a nonzero Z")
+    check(eng.decode_points(got) == [P256.scalar_mult(p, k) if p is not None else None
+                                     for p, k in zip(pts, ks)],
+          "K5 edge lanes differ from the host curve")
+    print("K5 edge lanes (T=16: identities, 0, 1, 2, n - 1, raw n = P + (-P), raw n + 1): "
+          "equal to the plain version, Z = 0 on the P + (-P) lane", flush=True)
+
+
 def ec_phase(dev, rsa_items, rsa_expect, ec_items, ec_expect, ec_replicas) -> dict:
     """The EC paths, each counted: (a) one 4096-item EC verify flush (K5 at
     T=8192); (b) the same items through VerifyDispatcher(max_batch=1024) (K5
@@ -761,7 +799,6 @@ def ec_phase(dev, rsa_items, rsa_expect, ec_items, ec_expect, ec_replicas) -> di
     (K5 at T=256), every signature checked on the host; (e) one limb-engine
     call at 8 points.  Then timed flushes, one EC verify flush split, and K5
     against its plain version on each recorded operand set."""
-    from bftkv_tpu_torch import flags
     from bftkv_tpu_torch.crypto import ec as host_ec
     from bftkv_tpu_torch.crypto import rsa
     from bftkv_tpu_torch.ops import cuda_ec, cuda_rns, dispatch
@@ -837,9 +874,9 @@ def ec_phase(dev, rsa_items, rsa_expect, ec_items, ec_expect, ec_replicas) -> di
         rng = random.Random(EC_LIMB_POINTS)
         pts = [k.public.point for k in ec_replicas[:EC_LIMB_POINTS]]
         ks = [rng.randrange(host_ec.P256.n) for _ in pts]
-        with flags.override("BFTKV_EC_BACKEND", "limb"), Counted() as c:
+        with Counted() as c:
             t0 = time.perf_counter()
-            got = ec_ops.scalar_mult_hosts(pts, ks, device=dev)
+            got = ec_ops.scalar_mult_hosts_limb(pts, ks, device=dev)
             limb_ms = (time.perf_counter() - t0) * 1e3
         check(got == [host_ec.P256.scalar_mult(p, k) for p, k in zip(pts, ks)],
               "limb engine scalar mults differ from the host curve")
@@ -877,6 +914,7 @@ def ec_phase(dev, rsa_items, rsa_expect, ec_items, ec_expect, ec_replicas) -> di
         if what:
             rec["name"] += f" (T={T(args)}, {what})"
         records.append(rec)
+    k5_edge_lanes(dev)
     (k1_args,) = rec_k1.calls["verify_cuda"]
     records.append(rns_record(
         "K1 rns_verify_kernel (mixed RSA + EC flush)", "verify", "bftkv_tpu/ops/pallas_rns.py:517",

@@ -11,6 +11,7 @@ GPU machine without JAX:
 
 from __future__ import annotations
 
+import functools
 import random
 import threading
 
@@ -440,10 +441,23 @@ def test_ring_never_hands_out_inflight_slot_on_card(dev):
 # -- K5: the P-256 scalar mult -------------------------------------------------
 
 
+def _raw_nibbles(s: int) -> list[int]:
+    """The 64 window values of ``s`` itself, most significant first: unlike
+    ``ec_rns._nibbles``, not reduced mod n."""
+    return [(s >> (4 * (63 - w))) & 0xF for w in range(64)]
+
+
+#: Lanes of :func:`_k5_operands` whose nibble column holds the raw windows
+#: of n and n + 1: the accumulator before the last add is −(n mod 16)·G,
+#: so n's last add is P + (−P) (an exact-0 Z) and n + 1's is a plain add.
+_K5_RAW_N, _K5_RAW_N1 = 6, 7
+
+
 def _k5_operands(dev, t: int, seed: int):
     """Staged K5 operands at T = t: the edge lanes first — identity points,
-    scalars 0, 1, 2 (the doubling lane 2·G), n − 1, n (whose last add is
-    P + (−P)), n + 1 — then seeded random points and scalars."""
+    scalars 0, 1, 2 (the doubling lane 2·G), n − 1, then the raw windows
+    of n (whose last add is P + (−P)) and of n + 1, then 3 — then seeded
+    random points and scalars.  Returns the scalars each lane computes."""
     from bftkv_tpu_torch.crypto.ec import P256
     from bftkv_tpu_torch.ops import ec_rns
 
@@ -458,9 +472,12 @@ def _k5_operands(dev, t: int, seed: int):
     eng = ec_rns.engine(dev)
     block = np.zeros((3, 2 * eng.k + 1, t), dtype=np.int32)
     ec_rns.engine("cpu").encode_points_into(pts, block)
+    nib = ec_rns._nibbles(ks)
+    for lane in (_K5_RAW_N, _K5_RAW_N1):
+        if lane < t:
+            nib[:, lane] = _raw_nibbles(ks[lane])
     res = torch.from_numpy(block).to(dev)
-    nib = torch.from_numpy(ec_rns._nibbles(ks)).to(dev)
-    return eng, res, nib, pts, ks
+    return eng, res, torch.from_numpy(nib).to(dev), pts, ks
 
 
 @pytest.mark.parametrize("t", [8, 256, 2048])
@@ -475,10 +492,38 @@ def test_k5_matches_plain_on_card(dev, t):
     assert cuda_ec.LAUNCHES == {"ec_scalar_mult": 1}
     plain = ec_rns._scalar_mult(eng, res, nib)
     assert torch.equal(got, plain)
+    # The raw-n lane's last add is P + (−P): its Z is exactly 0 in every
+    # channel; the raw n + 1 lane ends on G.
+    assert not got[2, :, _K5_RAW_N].any()
+    assert got[2, :, _K5_RAW_N1].any()
     n_check = min(t, 32)
     decoded = ec_rns.engine("cpu").decode_points(got[:, :, :n_check].cpu().numpy())
     assert decoded == [P256.scalar_mult(p, k) if p is not None else None
                        for p, k in zip(pts[:n_check], ks[:n_check])]
+
+
+def test_ec_scalar_mult_hosts_strips_on_the_card(dev, monkeypatch):
+    """On ``cuda`` the Montgomery strip runs on the card, behind K5: only σ
+    is copied off, and no engine on the cpu is built or used."""
+    from bftkv_tpu_torch.crypto.ec import P256
+    from bftkv_tpu_torch.ops import ec_rns
+
+    seen = []
+    real = ec_rns._P256RNS.strip_sigma
+
+    def strip(self, block):
+        seen.append((self.device.type, block.device.type))
+        return real(self, block)
+
+    monkeypatch.setattr(ec_rns._P256RNS, "strip_sigma", strip)
+    monkeypatch.setattr(ec_rns, "_engine_on", functools.lru_cache(maxsize=8)(
+        lambda d: pytest.fail("an engine on the cpu was built") if d == "cpu"
+        else ec_rns._P256RNS(torch.device(d))))
+    g = (P256.gx, P256.gy)
+    ks = [0, 1, 2, P256.n - 1, 12345]
+    got = ec_rns.scalar_mult_hosts([g] * len(ks), ks, device=dev)
+    assert got == [P256.scalar_mult(g, k) for k in ks]
+    assert seen == [("cuda", "cuda")]
 
 
 def test_k5_wrapper_refuses_wrong_operands_on_card(dev):

@@ -154,6 +154,24 @@ def test_rns_engine_error_is_not_answered_by_the_limb_engine(monkeypatch):
         ec.scalar_mult_hosts([G], [3], device="cpu")
 
 
+def test_limb_entry_ignores_the_backend_flag(monkeypatch):
+    """``scalar_mult_hosts_limb`` is the limb engine whatever
+    ``BFTKV_EC_BACKEND`` says; the RNS engine is never reached."""
+    monkeypatch.setenv("BFTKV_EC_BACKEND", "rns")
+
+    class Reached(Exception):
+        pass
+
+    def limb(*a):
+        raise Reached
+
+    monkeypatch.setattr(ec_rns, "scalar_mult_hosts", lambda *a, **kw: pytest.fail("RNS reached"))
+    monkeypatch.setattr(ec, "scalar_mult_jac", limb)
+    assert ec.scalar_mult_hosts_limb([], [], device="cpu") == []
+    with pytest.raises(Reached):
+        ec.scalar_mult_hosts_limb([G], [3], device="cpu")
+
+
 def test_linear_combine_on_the_rns_engine(monkeypatch):
     monkeypatch.setenv("BFTKV_EC_BACKEND", "rns")
     pts = [P256.scalar_base_mult(i + 1) for i in range(5)]

@@ -220,6 +220,24 @@ def test_staged_residues_equal_encode_points_into(ref, eng):
     np.testing.assert_array_equal(mine, theirs.astype(np.int64))
 
 
+def test_decode_equals_the_reference(ref, eng):
+    """The device half of the decode (the strip and σ) equals the
+    reference's σ bit for bit, and the host half gives the reference's
+    affine points, identities included."""
+    A, B = _group_inputs(eng)
+    block = eng.stack(eng.jac_add(A, B))[:, :, :8]
+    comps = [to_ref(c) for c in eng.unstack(block)]
+    sigma = eng.strip_sigma(block)
+    assert sigma.shape == (3, 8, eng.k) and sigma.dtype == torch.int32
+    for c, comp in enumerate(comps):
+        plain = ref.fmul(comp, tuple(jnp.ones_like(x) for x in comp))
+        want = ref_ec_rns._mulmod(plain[0], ref.invMi_b, ref.ib, ref.pb)
+        np.testing.assert_array_equal(sigma[c].numpy(), np.asarray(want).T.astype(np.int64))
+    got = eng.decode_points(block.numpy())
+    assert got == ref.decode_points(*comps)
+    assert None in got
+
+
 def test_nibbles_equal_the_reference():
     rng = random.Random(31)
     ks = [0, 1, 15, 16, N - 1, N, N + 5, 2**256 - 1] + [rng.randrange(N) for _ in range(8)]

@@ -183,17 +183,3 @@ def test_flag_seam():
     assert [n for n in flags.declared() if n not in blob] == []
     pat = re.compile(r"(?:environ(?:\.get)?\s*[\(\[]|getenv\s*\()\s*f?['\"]BFTKV_")
     assert not [p for p in _port_files() if p.name != "flags.py" and pat.search(p.read_text())]
-
-
-def test_flag_override_sets_and_restores(monkeypatch):
-    monkeypatch.delenv("BFTKV_EC_BACKEND", raising=False)
-    with flags.override("BFTKV_EC_BACKEND", "limb"):
-        assert flags.raw("BFTKV_EC_BACKEND") == "limb"
-    assert flags.raw("BFTKV_EC_BACKEND") is None
-    monkeypatch.setenv("BFTKV_EC_BACKEND", "rns")
-    with pytest.raises(RuntimeError), flags.override("BFTKV_EC_BACKEND", "limb"):
-        raise RuntimeError("inside")
-    assert flags.raw("BFTKV_EC_BACKEND") == "rns"
-    with pytest.raises(KeyError):
-        with flags.override("BFTKV_NOT_DECLARED", "1"):
-            pass
