@@ -3,7 +3,7 @@
 ``torch.utils.cpp_extension.load`` compiles ``csrc/rns_chain.cu`` (K1),
 ``csrc/rns_pow.cu`` (K2), ``csrc/mont_chain.cu`` (K3) and ``csrc/ec_p256.cu``
 (K5) from this checkout for ``sm_90a``
-(K1 and K2 include ``csrc/rns_mma.cuh``, their shared Montgomery product)
+(K1, K2 and K5 include ``csrc/rns_mma.cuh``, their shared Montgomery product)
 into one library under ``bftkv_tpu_torch/_build/`` (listed in
 ``.gitignore``) and loads it; ninja runs one ``nvcc`` per source, in
 parallel.  The sources have a plain C interface and include no PyTorch
@@ -19,7 +19,7 @@ import ctypes
 import os
 import threading
 
-__all__ = ["BUILD_DIR", "bind", "build", "library", "load"]
+__all__ = ["BUILD_DIR", "ERR_SHARED_MEMORY", "bind", "build", "library", "load"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = [os.path.join(_HERE, "csrc", name)
@@ -27,16 +27,27 @@ SOURCES = [os.path.join(_HERE, "csrc", name)
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build", "kernels")
 CUDA_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a"]
 
+#: The RNS launchers' return code (rns_mma::kErrSharedMemory) for "the
+#: block's shared memory does not fit the card"; any other nonzero code is
+#: a cudaError_t value.
+ERR_SHARED_MEMORY = -2
+
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # K1 and K2: (halves, em_halves | nibbles, idx, T, n_keys, 6 key-row
-#  arrays, 5 channel vectors, mu_all and 4 Shoup vectors, E_mma, D,
+#  arrays, 5 channel vectors, mu_all and 3 Shoup vectors, E_mma, D,
 #  invMq_pr, invM_pr, k, digits, out, stream, smem_need, smem_limit)
-_LAUNCH_ARGS = ([_P, _P, _P, _I, _I] + [_P] * 6 + [_P] * 10 + [_P] * 2 + [_I] * 4
+_LAUNCH_ARGS = ([_P, _P, _P, _I, _I] + [_P] * 6 + [_P] * 9 + [_P] * 2 + [_I] * 4
                 + [_P, _P] + [ctypes.POINTER(_I)] * 2)
+
+# K5: (res, nib, chan, T, 3 key-row arrays, 5 channel vectors, mu_all and 3
+#  Shoup vectors, E_mma, field, invMq_pr, invM_pr, k, out, stream,
+#  smem_need, smem_limit)
+_EC_LAUNCH_ARGS = ([_P, _P, _I, _I] + [_P] * 3 + [_P] * 9 + [_P, _P] + [_I] * 3
+                   + [_P, _P] + [ctypes.POINTER(_I)] * 2)
 
 
 def library() -> ctypes.CDLL:
@@ -84,10 +95,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mont_verify_launch.restype = ctypes.c_int
     lib.mont_kernel_attrs.argtypes = [ctypes.POINTER(_I), ctypes.POINTER(_I)]
     lib.mont_kernel_attrs.restype = ctypes.c_int
-    # (res, nib, lane_tab, chan, T, out, stream)
-    lib.ec_scalar_mult_launch.argtypes = [_P, _P, _P, _I, _I, _P, _P]
+    lib.ec_scalar_mult_launch.argtypes = _EC_LAUNCH_ARGS
     lib.ec_scalar_mult_launch.restype = ctypes.c_int
-    lib.ec_kernel_attrs.argtypes = [ctypes.POINTER(_I)] * 3
+    lib.ec_kernel_attrs.argtypes = [ctypes.POINTER(_I)] * 4
     lib.ec_kernel_attrs.restype = ctypes.c_int
     lib.rns_error_string.argtypes = [ctypes.c_int]
     lib.rns_error_string.restype = ctypes.c_char_p

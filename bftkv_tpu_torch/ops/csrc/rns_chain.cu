@@ -130,7 +130,7 @@ int rns_verify_launch(const uint8_t* sig_h, const uint8_t* em_h, const int32_t* 
                       const int32_t* ninv_all, const int32_t* m2_all, const int32_t* m2_r,
                       const int32_t* p_all, const int32_t* invMi_b, const int32_t* invMi_q,
                       const int32_t* Mq_mod_b, const int32_t* invM_q,
-                      const uint32_t* mu_all, const uint32_t* invMi_b_sh, const uint32_t* invMi_q_sh,
+                      const uint32_t* mu_all, const uint32_t* invMi_b_sh,
                       const uint32_t* Mq_mod_b_sh, const uint32_t* invM_q_sh,
                       const int8_t* E_mma, const uint16_t* D,
                       int invMq_pr, int invM_pr, int k, int digits,
@@ -140,7 +140,7 @@ int rns_verify_launch(const uint8_t* sig_h, const uint8_t* em_h, const int32_t* 
   if (T <= 0 || n_keys <= 0 || k <= 0 || k > kMaxK || digits <= 0 || digits > 256)
     return (int)cudaErrorInvalidValue;
   const KeyRows key{n_all, n_r, neg_ninv_b, ninv_all, m2_all, m2_r};
-  const RnsConsts cc{p_all, mu_all, invMi_b, invMi_b_sh, invMi_q, invMi_q_sh,
+  const RnsConsts cc{p_all, mu_all, invMi_b, invMi_b_sh, invMi_q,
                      Mq_mod_b, Mq_mod_b_sh, invM_q, invM_q_sh,
                      reinterpret_cast<const uint4*>(E_mma), D,
                      (uint32_t)invMq_pr, (uint32_t)invM_pr, k, digits};

@@ -1,8 +1,10 @@
 // The RNS Montgomery product on Hopper's int8 tensor cores, shared by K1
-// (rns_chain.cu, the e=65537 verify chain) and K2 (rns_pow.cu, the windowed
-// modexp).  Device code only; each kernel includes it.
+// (rns_chain.cu, the e=65537 verify chain), K2 (rns_pow.cu, the windowed
+// modexp) and K5 (ec_p256.cu, the P-256 scalar mult, which runs its products
+// in rounds of independent ones through mont_n).  Device code only; each
+// kernel includes it.
 //
-// Both kernels compute the reference's ops/rns.py::_mont_mul bit for bit:
+// The kernels compute the reference's ops/rns.py::_mont_mul bit for bit:
 // Bajard's approximate extension B -> B' and the 2^12 channel, then the
 // exact return extension B' -> B with the Shenoy correction.  What bounds a
 // product: integer multiply-adds, almost all of them in the two base
@@ -33,9 +35,12 @@
 //   words, no '%': Barrett for x < 2^32, q = umulhi(x, mu_p) with mu_p =
 //   floor(2^32/p), so q >= floor(x/p) - 1 and r = x - q*p < 2p; Shoup for a*w
 //   with a fixed w < p, q = umulhi(a, w'), w' = floor(w*2^32/p), r = a*w - q*p
-//   (mod 2^32) < 2p; one conditional subtraction each.  The context's mu_p
-//   and w' come from the host (ops/rns.py::_Consts.kern); the w' of the
-//   key's -N^-1 and N are derived once per row at the start.
+//   (mod 2^32) < 2p; one conditional subtraction each, as an unsigned
+//   minimum.  The context's mu_p and w' come from the host
+//   (ops/rns.py::_Consts.kern); the key's multipliers and their w' are
+//   derived once per row at the start.  Fixed multipliers that follow each
+//   other are folded into one: sigma over B is d * (-N^-1 (M/m_j)^-1) and
+//   sigma over B' is (d + q^ N) * (M^-1 (M'/m_j)^-1), each one Shoup step.
 // - The digit -> residue conversion runs one thread per output channel with
 //   the 8 slots' sums in registers: each entry of D is read once per block,
 //   and the slots' digit halves are broadcast from shared memory.
@@ -58,8 +63,7 @@ struct RnsConsts {
   const uint32_t* mu_all;      // (2k): floor(2^32 / p)
   const int32_t* invMi_b;      // (k) and the Shoup w' of each fixed multiplier
   const uint32_t* invMi_b_sh;
-  const int32_t* invMi_q;
-  const uint32_t* invMi_q_sh;
+  const int32_t* invMi_q;      // (k): folded with invM_q at init, no w' of its own
   const int32_t* Mq_mod_b;
   const uint32_t* Mq_mod_b_sh;
   const int32_t* invM_q;
@@ -103,14 +107,16 @@ struct Geo {
   __host__ __device__ size_t bytes() const { return e_bytes + sig_bytes + 32 + work_bytes; }
 };
 
+// r mod p for r < 2p: r - p wraps above r exactly when r < p, so the
+// unsigned minimum is the one conditional subtraction.
+__device__ __forceinline__ uint32_t reduce(uint32_t r, uint32_t p) { return min(r, r - p); }
+
 __device__ __forceinline__ uint32_t barrett(uint32_t x, uint32_t p, uint32_t mu) {
-  const uint32_t r = x - __umulhi(x, mu) * p;
-  return r >= p ? r - p : r;
+  return reduce(x - __umulhi(x, mu) * p, p);
 }
 
 __device__ __forceinline__ uint32_t shoup(uint32_t a, uint32_t w, uint32_t w_sh, uint32_t p) {
-  const uint32_t r = a * w - __umulhi(a, w_sh) * p;
-  return r >= p ? r - p : r;
+  return reduce(a * w - __umulhi(a, w_sh) * p, p);
 }
 
 // w' = floor(w * 2^32 / p) for w < p (an inert channel has w = 0, p = 1).
@@ -144,9 +150,9 @@ struct Chain {
   int j[2], slot[2];
   bool chan[2], red[2];
   uint32_t pb[2], pq[2], mub[2], muq[2];
-  uint32_t invMi_b[2], invMi_b_sh[2], invMi_q[2], invMi_q_sh[2];
+  uint32_t invMi_b[2], invMi_b_sh[2], rsig[2], rsig_sh[2];
   uint32_t Mq_b[2], Mq_b_sh[2], invM_q[2], invM_q_sh[2];
-  uint32_t nninv[4], nninv_sh[4], nq[4], nq_sh[4], nr[2];
+  uint32_t qsig[4], qsig_sh[4], nq[4], nq_sh[4], nr[2];
 
   __device__ Chain(const RnsConsts& cc, unsigned char* raw, const Geo& gg) : c(cc), geo(gg) {
     sE = reinterpret_cast<const uint4*>(raw);
@@ -175,12 +181,14 @@ struct Chain {
       muq[h] = chan[h] ? c.mu_all[k + x] : 0xFFFFFFFFu;
       invMi_b[h] = chan[h] ? (uint32_t)c.invMi_b[x] : 0u;
       invMi_b_sh[h] = chan[h] ? c.invMi_b_sh[x] : 0u;
-      invMi_q[h] = chan[h] ? (uint32_t)c.invMi_q[x] : 0u;
-      invMi_q_sh[h] = chan[h] ? c.invMi_q_sh[x] : 0u;
       Mq_b[h] = chan[h] ? (uint32_t)c.Mq_mod_b[x] : 0u;
       Mq_b_sh[h] = chan[h] ? c.Mq_mod_b_sh[x] : 0u;
       invM_q[h] = chan[h] ? (uint32_t)c.invM_q[x] : 0u;
       invM_q_sh[h] = chan[h] ? c.invM_q_sh[x] : 0u;
+      // sigma over B' straight from (d + q^ N): M^-1 (M'/m_j)^-1 mod p_j.
+      const uint32_t invMi_q = chan[h] ? (uint32_t)c.invMi_q[x] : 0u;
+      rsig[h] = barrett(invM_q[h] * invMi_q, pq[h], muq[h]);
+      rsig_sh[h] = shoup_const(rsig[h], pq[h]);
     }
 #pragma unroll
     for (int cs = 0; cs < 2; ++cs) {
@@ -191,9 +199,11 @@ struct Chain {
     for (int p = 0; p < 4; ++p) {
       const int h = p >> 1, cs = p & 1;
       const int x = chan[h] ? j[h] : 0;
-      nninv[p] = chan[h] ? (uint32_t)key.neg_ninv_b[(size_t)kid[cs] * k + x] : 0u;
+      // sigma over B straight from d: -N^-1 (M/m_j)^-1 mod p_j.
+      const uint32_t nninv = chan[h] ? (uint32_t)key.neg_ninv_b[(size_t)kid[cs] * k + x] : 0u;
+      qsig[p] = barrett(nninv * invMi_b[h], pb[h], mub[h]);
       nq[p] = chan[h] ? (uint32_t)key.n_all[(size_t)kid[cs] * 2 * k + k + x] : 0u;
-      nninv_sh[p] = shoup_const(nninv[p], pb[h]);
+      qsig_sh[p] = shoup_const(qsig[p], pb[h]);
       nq_sh[p] = shoup_const(nq[p], pq[h]);
     }
   }
@@ -241,19 +251,21 @@ struct Chain {
     x.r[0] = x.r[1] = 1u;
   }
 
-  // Writes sigma of pair p as two int8 planes of extension e's input.
-  __device__ __forceinline__ void put_sigma(int e, int p, uint32_t s) const {
+  // Writes sigma of pair p as two int8 planes of extension e's input into
+  // the sigma buffer sg (2 ext x 2 planes x 8 slots x sstride bytes).
+  __device__ __forceinline__ void put_sigma(uint8_t* sg, int e, int p, uint32_t s) const {
     const int h = p >> 1, cs = p & 1;
-    uint8_t* lo = sig + (size_t)(e * 2) * kSlots * geo.sstride;
+    uint8_t* lo = sg + (size_t)(e * 2) * kSlots * geo.sstride;
     const size_t at = (size_t)slot[cs] * geo.sstride + j[h];
     lo[at] = (uint8_t)(s & 63u);
     lo[(size_t)kSlots * geo.sstride + at] = (uint8_t)(s >> 6);
   }
 
-  // S[p] = Sigma_i sigma[slot][i] * E_e[i][j] for this thread's 4 pairs, exact.
-  __device__ __forceinline__ void extend(int e, uint32_t (&S)[4]) const {
+  // S[p] = Sigma_i sigma[slot][i] * E_e[i][j] for this thread's 4 pairs, exact,
+  // with sigma from buffer sg.
+  __device__ __forceinline__ void extend(const uint8_t* sg, int e, uint32_t (&S)[4]) const {
     uint32_t ll[4] = {0u, 0u, 0u, 0u}, ss[4] = {0u, 0u, 0u, 0u}, hh[4] = {0u, 0u, 0u, 0u};
-    const uint8_t* slo = sig + (size_t)(e * 2) * kSlots * geo.sstride + g * geo.sstride + 4 * t;
+    const uint8_t* slo = sg + (size_t)(e * 2) * kSlots * geo.sstride + g * geo.sstride + 4 * t;
     const uint8_t* shi = slo + (size_t)kSlots * geo.sstride;
     const uint4* alo = sE + ((size_t)(e * 2 + 0) * geo.mt + warp) * geo.ks * 32 + lane;
     const uint4* ahi = sE + ((size_t)(e * 2 + 1) * geo.mt + warp) * geo.ks * 32 + lane;
@@ -280,59 +292,87 @@ struct Chain {
     return red[1] ? S[2 + cs] : S[cs];
   }
 
-  // o = a * b * M^-1 mod N in RNS (Bajard AMM + Shenoy).  Every input is read
-  // before the first barrier, so o may alias a or b.
-  __device__ __forceinline__ void mont(const Num& a, const Num& b, Num& o) const {
-    uint32_t dq[4], dr[2], rq[4], rr[2], S[4];
+  // o[i] = a[i] * b[i] * M^-1 mod N in RNS (Bajard AMM + Shenoy) for NP
+  // independent products at once: their steps interleave, so a thread has
+  // NP times the independent work between the three barriers they share.
+  // Product i exchanges sigma through buffer i of sigs (NP x geo.sig_bytes)
+  // and alpha through alphas[8 i .. 8 i + 7].  Every input is read before
+  // the first barrier, so o[i] may alias an input.
+  template <int NP>
+  __device__ __forceinline__ void mont_n(const Num (&a)[NP], const Num (&b)[NP], Num (&o)[NP],
+                                         uint8_t* sigs, uint32_t* alphas) const {
+    uint32_t dq[NP][4], dr[NP][2], rq[NP][4], rr[NP][2], eb[NP][4];
 #pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      const int h = p >> 1;
-      dq[p] = barrett(a.q[p] * b.q[p], pq[h], muq[h]);
-      const uint32_t db = barrett(a.b[p] * b.b[p], pb[h], mub[h]);
-      const uint32_t qb = shoup(db, nninv[p], nninv_sh[p], pb[h]);  // q = d * (-N^-1)
-      put_sigma(0, p, shoup(qb, invMi_b[h], invMi_b_sh[h], pb[h]));
-    }
+    for (int i = 0; i < NP; ++i) {
+      uint8_t* sg = sigs + (size_t)i * geo.sig_bytes;
 #pragma unroll
-    for (int cs = 0; cs < 2; ++cs) dr[cs] = (a.r[cs] * b.r[cs]) & kPrMask;
-    __syncthreads();
-    extend(0, S);  // q^ = Sigma sigma_i M_i over B' and 2^12
+      for (int p = 0; p < 4; ++p) {
+        const int h = p >> 1;
+        dq[i][p] = barrett(a[i].q[p] * b[i].q[p], pq[h], muq[h]);
+        // sigma_j = q_j (M/m_j)^-1 with q = d (-N^-1): one step from d.
+        const uint32_t db = barrett(a[i].b[p] * b[i].b[p], pb[h], mub[h]);
+        put_sigma(sg, 0, p, shoup(db, qsig[p], qsig_sh[p], pb[h]));
+      }
 #pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      const int h = p >> 1;
-      const uint32_t tq = shoup(barrett(S[p], pq[h], muq[h]), nq[p], nq_sh[p], pq[h]);
-      uint32_t x = dq[p] + tq;
-      x = x >= pq[h] ? x - pq[h] : x;
-      rq[p] = shoup(x, invM_q[h], invM_q_sh[h], pq[h]);  // r = (d + q^ N) / M
-      put_sigma(1, p, shoup(rq[p], invMi_q[h], invMi_q_sh[h], pq[h]));
-    }
-#pragma unroll
-    for (int cs = 0; cs < 2; ++cs) {
-      const uint32_t qr = red_of(S, cs) & kPrMask;
-      rr[cs] = (((dr[cs] + qr * nr[cs]) & kPrMask) * c.invM_pr) & kPrMask;
+      for (int cs = 0; cs < 2; ++cs) dr[i][cs] = (a[i].r[cs] * b[i].r[cs]) & kPrMask;
     }
     __syncthreads();
-    extend(1, S);  // exact return extension B' -> B and 2^12
-    if (red[0] || red[1]) {
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      uint8_t* sg = sigs + (size_t)i * geo.sig_bytes;
+      uint32_t S[4];
+      extend(sg, 0, S);  // q^ = Sigma sigma_i M_i over B' and 2^12
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const int h = p >> 1;
+        const uint32_t tq = shoup(barrett(S[p], pq[h], muq[h]), nq[p], nq_sh[p], pq[h]);
+        const uint32_t x = reduce(dq[i][p] + tq, pq[h]);  // r = (d + q^ N) / M
+        rq[i][p] = shoup(x, invM_q[h], invM_q_sh[h], pq[h]);
+        put_sigma(sg, 1, p, shoup(x, rsig[h], rsig_sh[h], pq[h]));  // r (M'/m_j)^-1
+      }
 #pragma unroll
       for (int cs = 0; cs < 2; ++cs) {
-        // ((ext_r - rr) mod 2^12) * (Mq^-1 mod 2^12): the uint32 difference
-        // wraps modulo 2^32, a multiple of 2^12.
-        alpha[slot[cs]] = (((red_of(S, cs) - rr[cs]) & kPrMask) * c.invMq_pr) & kPrMask;
+        const uint32_t qr = red_of(S, cs) & kPrMask;
+        rr[i][cs] = (((dr[i][cs] + qr * nr[cs]) & kPrMask) * c.invM_pr) & kPrMask;
       }
     }
-    uint32_t eb[4];
-#pragma unroll
-    for (int p = 0; p < 4; ++p) eb[p] = barrett(S[p], pb[p >> 1], mub[p >> 1]);
     __syncthreads();
 #pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      const int h = p >> 1;
-      const uint32_t corr = shoup(alpha[slot[p & 1]], Mq_b[h], Mq_b_sh[h], pb[h]);
-      o.b[p] = eb[p] >= corr ? eb[p] - corr : eb[p] + pb[h] - corr;
-      o.q[p] = rq[p];
-    }
+    for (int i = 0; i < NP; ++i) {
+      uint32_t S[4];
+      extend(sigs + (size_t)i * geo.sig_bytes, 1, S);  // exact return extension B' -> B and 2^12
+      if (red[0] || red[1]) {
 #pragma unroll
-    for (int cs = 0; cs < 2; ++cs) o.r[cs] = rr[cs];
+        for (int cs = 0; cs < 2; ++cs) {
+          // ((ext_r - rr) mod 2^12) * (Mq^-1 mod 2^12): the uint32 difference
+          // wraps modulo 2^32, a multiple of 2^12.
+          alphas[8 * i + slot[cs]] = (((red_of(S, cs) - rr[i][cs]) & kPrMask) * c.invMq_pr) & kPrMask;
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < 4; ++p) eb[i][p] = barrett(S[p], pb[p >> 1], mub[p >> 1]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const int h = p >> 1;
+        const uint32_t corr = shoup(alphas[8 * i + slot[p & 1]], Mq_b[h], Mq_b_sh[h], pb[h]);
+        o[i].b[p] = reduce(eb[i][p] + pb[h] - corr, pb[h]);
+        o[i].q[p] = rq[i][p];
+      }
+#pragma unroll
+      for (int cs = 0; cs < 2; ++cs) o[i].r[cs] = rr[i][cs];
+    }
+  }
+
+  // o = a * b * M^-1 mod N (one product, through the block's own buffers).
+  // Every input is read before the first barrier, so o may alias a or b.
+  __device__ __forceinline__ void mont(const Num& a, const Num& b, Num& o) const {
+    using One = Num[1];
+    mont_n<1>(reinterpret_cast<const One&>(a), reinterpret_cast<const One&>(b),
+              reinterpret_cast<One&>(o), sig, alpha);
   }
 
   // Digit halves of the 8 slots' rows (slot s runs row row0 + s % R, clamped

@@ -37,8 +37,6 @@ __all__ = ["LAUNCHES", "kernel_attrs", "pow_cuda", "reset_launches", "verify_cud
 LAUNCHES = {"verify": 0, "pow": 0}
 _count_lock = threading.Lock()
 
-#: The launchers' code for "the block's shared memory does not fit the card".
-_ERR_SHARED_MEMORY = -2
 
 def reset_launches() -> None:
     with _count_lock:
@@ -107,13 +105,13 @@ def _launch(which: str, a, b, idx, ukey, cn, out: torch.Tensor) -> torch.Tensor:
         *(u.data_ptr() for u in ukey),
         *(kc[n].data_ptr() for n in (
             "p_all", "invMi_b", "invMi_q", "Mq_mod_b", "invM_q",
-            "mu_all", "invMi_b_sh", "invMi_q_sh", "Mq_mod_b_sh", "invM_q_sh", "E_mma", "D",
+            "mu_all", "invMi_b_sh", "Mq_mod_b_sh", "invM_q_sh", "E_mma", "D",
         )),
         cn.invMq_pr, cn.invM_pr, k, digits,
         out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         ctypes.byref(need), ctypes.byref(limit),
     )
-    if rc == _ERR_SHARED_MEMORY:
+    if rc == _build.ERR_SHARED_MEMORY:
         raise RuntimeError(
             f"rns {which} kernel at k={k}, {digits} digits needs {need.value} bytes "
             f"of shared memory per block; the device allows {limit.value}"

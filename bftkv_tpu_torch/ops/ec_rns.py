@@ -44,7 +44,7 @@ from bftkv_tpu_torch import device as devmod
 from bftkv_tpu_torch.crypto.ec import P256
 from bftkv_tpu_torch.ops import devbuf, rns
 
-__all__ = ["LANE_ROWS", "scalar_mult_hosts", "scalar_base_mult_hosts"]
+__all__ = ["FIELD_ROWS", "scalar_mult_hosts", "scalar_base_mult_hosts"]
 
 _DIGITS = 16  # 256 bits / 16-bit digits: the context rns.context(16, 256)
 _WINDOW = 4
@@ -60,21 +60,11 @@ _S_L2 = 1 << 16
 
 _PR_MASK = rns.PR - 1
 
-#: Rows of the kernel's lane-constant table (``csrc/ec_p256.cu``, enum
-#: ``Row``): one int32 per lane of a warp.  Lane j < k owns channel j of B
-#: (the ``b`` slot) and of B′ (the ``q`` slot); lane k holds the 2^12
-#: channel in its ``q`` slot (modulus 4096, ``nq`` = N mod 2^12,
-#: ``invM_q`` = M⁻¹ mod 2^12) and computes the second extension's 2^12
-#: output in its ``b`` slot (``pb`` = 4096); lanes past k are idle (moduli
-#: 4096, constants 0).  Then the extension matrices, one row per source
-#: channel: ``E1[i][lane]`` (B → B′ and 2^12) and ``E2[j][lane]``
-#: (B′ → B and 2^12).
-LANE_ROWS = (
-    "pb", "mub", "pq", "muq", "neg_ninv_b", "invMi_b", "nq", "invM_q", "invMi_q",
-    "Mq_mod_b", "pinv_b", "one_b", "one_q", "sp_small_b", "sp_small_q", "sp_l1_b",
-    "sp_l1_q", "sp_l2_b", "sp_l2_q", "invMq_pr",
-)
-LANES = 32
+#: Rows of the kernel's field table (``csrc/ec_p256.cu``, enum ``FieldRow``),
+#: each over the channels [B | B′ | 2^12]: p⁻¹ mod p_j (over B; 0 elsewhere),
+#: the Montgomery one (M mod p), and the three slacks s·p.  The product's
+#: constants are the context's (``rns.consts``) and P-256's key rows.
+FIELD_ROWS = ("pinv_b", "one", "sp_small", "sp_l1", "sp_l2")
 
 
 class _P256RNS:
@@ -106,7 +96,15 @@ class _P256RNS:
         self.byte_weights = np.asarray(
             [[pow(256, i, int(m)) for m in self.moduli] for i in range(32)], dtype=np.int64
         )
-        self.lane = torch.as_tensor(lane_table(ctx), device=device)
+        # The kernel's constants: P-256's key rows as int32 (1, ·) tensors
+        # (rns.key_rows_from_numpy's form) and the field table.
+        self.ukey = rns.key_rows_from_numpy(rns.stack_key_rows([ctx.key_rows(p)]), device)
+        cat = lambda c: torch.cat(c, dim=1)
+        nil = torch.zeros((1, 2 * k + 1), dtype=torch.int64, device=device)
+        rows = {"pinv_b": nil.index_copy(1, torch.arange(k, device=device), self.pinv_b),
+                "one": cat(self.one_m), "sp_small": cat(self.sp[_S_SMALL]),
+                "sp_l1": cat(self.sp[_S_L1]), "sp_l2": cat(self.sp[_S_L2])}
+        self.field = torch.cat([rows[n] for n in FIELD_ROWS]).to(torch.int32).contiguous()
         if device.type == "cuda":
             # Built on the first caller's stream; every flush worker's
             # stream reads these tensors, so wait for their copies once.
@@ -292,49 +290,6 @@ class _P256RNS:
         :meth:`decode_sigma` on the host, as the reference's."""
         block = torch.as_tensor(block, device=self.device)
         return self.decode_sigma(self.strip_sigma(block).cpu().numpy())
-
-
-def lane_table(ctx) -> np.ndarray:
-    """The kernel's (len(LANE_ROWS) + 2k, 32) int32 lane constants (see
-    :data:`LANE_ROWS`) for P-256's prime over ``ctx``."""
-    k = ctx.k
-    if k + 1 > LANES:
-        raise ValueError(f"k={k}: the kernel holds k + 1 <= {LANES} channels in one warp")
-    p = P256.p
-    n_all, n_r, neg_ninv_b = ctx.key_rows(p)[:3]
-    tab = {name: np.zeros(LANES, dtype=np.int64) for name in LANE_ROWS}
-    for name in ("pb", "pq"):
-        tab[name][:] = rns.PR
-    pb = np.asarray(ctx.pb, dtype=np.int64)
-    pq = np.asarray(ctx.pq, dtype=np.int64)
-    tab["pb"][:k] = pb
-    tab["pq"][:k] = pq
-    tab["neg_ninv_b"][:k] = np.asarray(neg_ninv_b, dtype=np.int64)
-    tab["invMi_b"][:k] = np.asarray(ctx.invMi_b, dtype=np.int64)
-    tab["nq"][:k] = np.asarray(n_all[k:], dtype=np.int64)
-    tab["nq"][k] = int(n_r)
-    tab["invM_q"][:k] = np.asarray(ctx.invM_q, dtype=np.int64)
-    tab["invM_q"][k] = int(ctx.invM_pr)
-    tab["invMi_q"][:k] = np.asarray(ctx.invMi_q, dtype=np.int64)
-    tab["Mq_mod_b"][:k] = np.asarray(ctx.Mq_mod_b, dtype=np.int64)
-    tab["pinv_b"][:k] = [pow(p % int(q), -1, int(q)) for q in pb]
-    one = ctx.M % p
-    for name, v in (("one", one), ("sp_small", _S_SMALL * p), ("sp_l1", _S_L1 * p),
-                    ("sp_l2", _S_L2 * p)):
-        tab[f"{name}_b"][:k] = [v % int(q) for q in pb]
-        tab[f"{name}_q"][:k] = [v % int(q) for q in pq]
-        tab[f"{name}_q"][k] = v % rns.PR
-    tab["invMq_pr"][:] = int(ctx.invMq_pr)
-    tab["mub"] = rns.barrett_mu(tab["pb"]).astype(np.int64)
-    tab["muq"] = rns.barrett_mu(tab["pq"]).astype(np.int64)
-    E1 = (ctx._E1[0] + 64.0 * ctx._E1[1]).astype(np.int64)  # (k, k+1)
-    E2 = (ctx._E2[0] + 64.0 * ctx._E2[1]).astype(np.int64)
-    e1 = np.zeros((k, LANES), dtype=np.int64)
-    e2 = np.zeros((k, LANES), dtype=np.int64)
-    e1[:, : k + 1] = E1
-    e2[:, : k + 1] = E2
-    out = np.concatenate([np.stack([tab[name] for name in LANE_ROWS]), e1, e2])
-    return out.astype(np.uint32).view(np.int32)
 
 
 @functools.lru_cache(maxsize=8)

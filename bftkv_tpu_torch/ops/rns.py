@@ -359,7 +359,6 @@ class _Consts:
             # per channel of [B | B'], Shoup's w' of each fixed multiplier.
             "mu_all": u32(barrett_mu(p_all)),
             "invMi_b_sh": u32(shoup_w(vec("invMi_b"), pb)),
-            "invMi_q_sh": u32(shoup_w(vec("invMi_q"), pq)),
             "Mq_mod_b_sh": u32(shoup_w(vec("Mq_mod_b"), pb)),
             "invM_q_sh": u32(shoup_w(vec("invM_q"), pq)),
             # The extension matrices as int8 6-bit planes in mma fragment order.

@@ -1,5 +1,5 @@
-"""Times K1 (``rns_verify_kernel``), K2 (``rns_pow_kernel``) and K3
-(``mont_verify_kernel``) on one GPU.
+"""Times K1 (``rns_verify_kernel``), K2 (``rns_pow_kernel``), K3
+(``mont_verify_kernel``) and K5 (``ec_scalar_mult_kernel``) on one GPU.
 
 All run on seeded operands at the main path's shapes:
 
@@ -15,19 +15,26 @@ All run on seeded operands at the main path's shapes:
 - K3 at T=4096 (the ``pallas`` verify flush) and T=256, on
   :func:`mont_operands`' rows, which the card tests share: valid, forged,
   s = 0 and s >= n rows, the moduli 2^2048 - 1 and 2^2047 + 1 and the
-  multiplicands that stress the carries.
+  multiplicands that stress the carries;
+- K5 at T=8192 (the EC verify flush), 2048 (the EC plane), 4096 (the mixed
+  flush) and 256 (the EC sign flush), on :func:`ec_operands`' points,
+  which the card tests and ``chip_smoke.py`` share: the group law's edge
+  lanes first, then seeded points and scalars.
 
 ``--other NAME=DIR`` (repeatable) builds another library from DIR's copies
 of the kernel sources (an earlier tree's ``bftkv_tpu_torch/ops/csrc``, or
-a variant, with this tree's C interface) and times its kernels on the
-same operands under NAME.
+a variant) and times its kernels on the same operands under NAME.  K1, K2
+and K3 need this tree's C interface (PR 5 or later); K5 binds either this
+tree's launcher or the one-warp-a-point launcher of PR 8, which takes a
+lane table, built by the ``ops/ec_rns.py`` beside DIR.
 
 Every variant is timed in turns by CUDA events (each once, then again in
 reverse order) and must agree with the plain version bit for bit; one that
 cannot launch (shared memory) is recorded with its error.
 
 Run from the repository root:
-    python3 -m bftkv_tpu_torch.tools.time_rns [--rows 2,8] [--other NAME=DIR ...]
+    python3 -m bftkv_tpu_torch.tools.time_rns [--kernels k1,k2,k3,k5]
+        [--rows 2,8] [--other NAME=DIR ...]
 It prints one JSON object, with the card's name and power limit.
 """
 
@@ -35,6 +42,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import json
 import os
 import random
@@ -44,14 +52,20 @@ import sys
 import numpy as np
 import torch
 
-from bftkv_tpu_torch.ops import _build, bigint, cuda_mont, cuda_rns, limb, rns
+from bftkv_tpu_torch.crypto.ec import P256
+from bftkv_tpu_torch.ops import _build, bigint, cuda_ec, cuda_mont, cuda_rns, ec_rns, limb, rns
 from bftkv_tpu_torch.ops import rsa as rsa_ops
 
 REPS = 10
 K1_ROWS = (4096, 256)
 K2_SHAPES = ((64, 1024, 512), (128, 2048, 64), (64, 1024, 4096))  # (digits, n_bits, T)
 K3_ROWS = (4096, 256)
+K5_ROWS = (8192, 2048, 4096, 256)
 R = 1 << 2048
+#: Lanes of :func:`ec_operands` whose nibble column holds the raw windows
+#: of n and n + 1: the accumulator before the last add is −(n mod 16)·G,
+#: so n's last add is P + (−P) (an exact-0 Z) and n + 1's is a plain add.
+EC_RAW_N, EC_RAW_N1 = 6, 7
 
 
 def _moduli(ctx, bits: int, count: int, seed: int) -> list[int]:
@@ -131,6 +145,39 @@ def mont_operands(n_rows: int, seed: int, dev):
     return ops, [pow(s, 65537, ns[i]) == e for s, e, i in zip(sigs, ems, idx)]
 
 
+def raw_nibbles(s: int) -> list[int]:
+    """The 64 window values of ``s`` itself, most significant first: unlike
+    ``ec_rns._nibbles``, not reduced mod n."""
+    return [(s >> (4 * (63 - w))) & 0xF for w in range(64)]
+
+
+def ec_operands(t: int, seed: int, dev):
+    """Staged K5 operands at T = t: (engine, res, nib, points, scalars).
+
+    The edge lanes come first, all in K5's first group of 8 points:
+    identity points (scalars 5 and 0), scalars 0, 1, 2 (the doubling lane
+    2·G) and n − 1 of G, the raw windows of n (whose last add is P + (−P))
+    and of n + 1; then 3·G, 15 seeded random points and, past lane 24, G,
+    each with a seeded scalar.  ``scalars`` are the integers each lane
+    computes (n and n + 1 unreduced)."""
+    g, n = (P256.gx, P256.gy), P256.n
+    rng = random.Random(seed)
+    pts = [None, None, g, g, g, g, g, g, g]
+    ks = [5, 0, 0, 1, 2, n - 1, n, n + 1, 3]
+    while len(pts) < t:
+        pts.append(P256.scalar_base_mult(rng.randrange(1, n)) if len(pts) < 24 else g)
+        ks.append(rng.randrange(n))
+    pts, ks = pts[:t], ks[:t]
+    eng = ec_rns.engine(dev)
+    block = np.zeros((3, 2 * eng.k + 1, t), dtype=np.int32)
+    ec_rns.engine("cpu").encode_points_into(pts, block)
+    nib = ec_rns._nibbles(ks)
+    for lane in (EC_RAW_N, EC_RAW_N1):
+        if lane < t:
+            nib[:, lane] = raw_nibbles(ks[lane])
+    return (eng, torch.from_numpy(block).to(dev), torch.from_numpy(nib).to(dev), pts, ks)
+
+
 def _ms(fn) -> float:
     fn()
     torch.cuda.synchronize()
@@ -156,6 +203,35 @@ def _through(lib, fn):
     return run
 
 
+def _k5_variant(lib, src_dir: str):
+    """K5 of another library, bound by its own C interface: this tree's, or
+    PR 8's one-warp-a-point launcher (res, nib, lane_tab, chan, T, out,
+    stream), fed the lane table of the ``ec_rns.py`` beside ``src_dir``."""
+    with open(os.path.join(src_dir, "ec_p256.cu")) as f:
+        if "lane_tab" not in f.read():
+            return _through(lib, cuda_ec.scalar_mult_cuda)
+    path = os.path.join(src_dir, os.pardir, "ec_rns.py")
+    spec = importlib.util.spec_from_file_location("_other_ec_rns", path)
+    other = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(other)
+    fn = lib.ec_scalar_mult_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    lanes = {}
+
+    def run(res, nib, eng):
+        if res.device not in lanes:
+            lanes[res.device] = torch.as_tensor(other.lane_table(eng.ctx), device=res.device)
+        out = torch.empty_like(res)
+        rc = fn(res.data_ptr(), nib.data_ptr(), lanes[res.device].data_ptr(), res.shape[1],
+                res.shape[2], out.data_ptr(), torch.cuda.current_stream(res.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"ec_scalar_mult ({src_dir}) launch failed ({rc})")
+        return out
+
+    return run
+
+
 def _time(variants: dict, args, plain, same) -> dict:
     rec = {"ms": {}, "errors": {}, "bit_identical": {}}
     live = []
@@ -175,6 +251,7 @@ def _time(variants: dict, args, plain, same) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernels", default="k1,k2,k3,k5", help="comma-separated kernels to time")
     ap.add_argument("--rows", default="", help="comma-separated K2 rows per block to build besides the library's")
     ap.add_argument("--other", action="append", default=[], metavar="NAME=DIR",
                     help="also build and time the kernel sources in DIR (repeatable)")
@@ -183,12 +260,15 @@ def main() -> int:
         print("time_rns: needs one CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
+    which = set(args.kernels.split(","))
     _build.library()
-    attrs = {"current": {**cuda_rns.kernel_attrs(), **cuda_mont.kernel_attrs()}}
+    attrs = {"current": {**cuda_rns.kernel_attrs(), **cuda_mont.kernel_attrs(),
+                         **cuda_ec.kernel_attrs()}}
     built = attrs["current"]["pow"]["rows_per_block"]
     k1 = {"current": cuda_rns.verify_cuda}
     k2 = {f"rows{built}": cuda_rns.pow_cuda}
     k3 = {"current": cuda_mont.verify_diff}
+    k5 = {"current": cuda_ec.scalar_mult_cuda}
     for r in sorted({int(x) for x in args.rows.split(",") if x} - {built}):
         lib = _build.load(f"bftkv_kernels_rows{r}",
                           os.path.join(os.path.dirname(_build.BUILD_DIR), f"kernels_rows{r}"),
@@ -204,17 +284,24 @@ def main() -> int:
         _build.bind(lib)
         # K3's registers and local bytes come from the library; its threads
         # per row and rows per block are this tree's constants, so not its.
+        # K3's and K5's registers and local bytes come from the library;
+        # K3's threads per row and rows per block are this tree's constants,
+        # so not its, and PR 8's K5 reports no blocks per SM.
         mont = _through(lib, cuda_mont.kernel_attrs)()["mont_verify"]
+        ec = _through(lib, cuda_ec.kernel_attrs)()["ec_scalar_mult"]
         attrs[name] = {**_through(lib, cuda_rns.kernel_attrs)(),
-                       "mont_verify": {k: mont[k] for k in ("registers", "local_bytes")}}
+                       "mont_verify": {k: mont[k] for k in ("registers", "local_bytes")},
+                       "ec_scalar_mult": {k: ec[k] for k in ("registers", "local_bytes",
+                                                             "points_per_block")}}
         k1[name] = _through(lib, cuda_rns.verify_cuda)
         k2[name] = _through(lib, cuda_rns.pow_cuda)
         k3[name] = _through(lib, cuda_mont.verify_diff)
+        k5[name] = _k5_variant(lib, src)
 
-    out = {"built_rows": built, "attrs": attrs, "k1": [], "k2": [], "k3": []}
+    out = {"built_rows": built, "attrs": attrs, "k1": [], "k2": [], "k3": [], "k5": []}
     ok = True
     full = _verify_operands(max(K1_ROWS), 8, dev, seed=61)
-    for t in K1_ROWS:
+    for t in K1_ROWS if "k1" in which else ():
         a = tuple(x[:t] for x in full[:3]) + full[3:]
         plain = rns._verify_kernel(a[4], a[0], a[1], rns.gather_key(a[3], a[2]))
         rec = {"k": a[4].k, "digits": a[4].digits, "rows": t,
@@ -222,7 +309,7 @@ def main() -> int:
                **_time(k1, a, plain, lambda g, p: bool(torch.equal(g, p)))}
         ok = ok and all(rec["bit_identical"].values()) and not rec["errors"]
         out["k1"].append(rec)
-    for digits, n_bits, t in K2_SHAPES:
+    for digits, n_bits, t in K2_SHAPES if "k2" in which else ():
         a = _pow_operands(digits, n_bits, t, 8, dev, seed=digits + t)
         plain = rns._pow_kernel(a[4], a[0], a[1], rns.gather_key(a[3], a[2]))
         rec = {"k": a[4].k, "digits": digits, "rows": t,
@@ -230,13 +317,21 @@ def main() -> int:
         ok = ok and all(rec["bit_identical"].values())
         out["k2"].append(rec)
     ops, want = mont_operands(max(K3_ROWS), 71, dev)
-    for t in K3_ROWS:
+    for t in K3_ROWS if "k3" in which else ():
         a = tuple(x[:t] for x in ops)
         plain = rsa_ops._verify_chain(*(x.long() for x in a))
         rec = {"rows": t, "valid_rows": sum(want[:t]),
                **_time(k3, a, plain, lambda g, p: bool(torch.equal(g.long(), p)))}
         ok = ok and all(rec["bit_identical"].values()) and not rec["errors"]
         out["k3"].append(rec)
+    for t in K5_ROWS if "k5" in which else ():
+        eng, res, nib, _pts, _ks = ec_operands(t, t, dev)
+        plain = ec_rns._scalar_mult(eng, res, nib)
+        rec = {"rows": t, **_time(k5, (res, nib, eng), plain,
+                                  lambda g, p: bool(torch.equal(g, p)))}
+        rec["edge_z_exact_zero"] = not plain[2, :, EC_RAW_N].any().item()
+        ok = ok and all(rec["bit_identical"].values()) and not rec["errors"]
+        out["k5"].append(rec)
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,

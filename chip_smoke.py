@@ -127,10 +127,14 @@ EC_LIMB_POINTS = 8
 # ops/ec_rns.py::_scalar_mult: 14 table adds of 24 (16 of the add, 8 of the
 # doubling it also evaluates), then 64 windows of 4 doublings (8 each) and one add.
 EC_PRODUCTS = 14 * 24 + 64 * (4 * 8 + 24)
-# K5's base extensions run on the CUDA cores: per product, k(k+1) multiply-adds
-# each way, and 2k + 1 warp shuffles (k per extension, one for alpha) issued at
-# one warp instruction per clock per SM.
-SHFL_PER_CLOCK_PER_SM = 1
+# K5's base extensions run on the int8 tensor cores; its elementwise floor is
+# the integer multiplies of the Barrett and Shoup steps of each product, counted
+# from rns_mma.cuh's Chain::mont per (channel, point) pair: 4 Barrett steps (2
+# IMAD: umulhi, multiply-subtract), 6 Shoup steps (3: the product, umulhi,
+# multiply-subtract) and the 2 residue products, at each of the 32 channel rows
+# (2 M tiles of 16) a point holds, issued at 64 IMAD a clock per SM.
+EC_IMAD_PER_PAIR = 4 * 2 + 6 * 3 + 2
+EC_ROWS_PER_POINT = 32
 
 
 def fail(msg: str) -> None:
@@ -660,11 +664,15 @@ def split_ec_verify_flush(vd, items):
     """One EC verify flush through a pipeline-1 VerifyDispatcher (one
     submitter), split into encode (signature parsing, SHA-256, s^-1 mod n,
     u1/u2), stage (residues and nibbles into the slot), H2D, K5, strip
-    (the Montgomery strip and σ on the card), D2H of σ, decode (CRT
-    rebuild, Z inverse) and finish (u1·G +
-    u2·Q, r compare, scatter): host clock at the boundaries, CUDA events
-    around the copies and the kernel."""
-    from bftkv_tpu_torch.ops import cuda_ec, devbuf, ec_rns
+    (the Montgomery strip and σ on the card), D2H of σ, decode (the three
+    CRT rebuilds ``rns._sigma_to_ints``, then per point a ``pow`` inverse
+    of Z and the affine products) and finish (u1·G + u2·Q, r compare,
+    scatter): host clock at the boundaries, CUDA events around the copies
+    and the kernel.  Then, on the last flush's Z values, the per-point
+    ``pow`` inverses alone against one batch inversion (Montgomery's trick:
+    one ``pow`` and 3(n − 1) products), what batching would save."""
+    from bftkv_tpu_torch.crypto.ec import P256
+    from bftkv_tpu_torch.ops import cuda_ec, devbuf, ec_rns, rns
 
     marks: dict = {}
     ev = lambda: torch.cuda.Event(enable_timing=True)
@@ -698,13 +706,25 @@ def split_ec_verify_flush(vd, items):
         marks["upload"] = time.perf_counter()
         return timed_events("h2d", real["upload"])(self, names)
 
+    def crt(*a, **kw):
+        t0 = time.perf_counter()
+        out = real["crt"](*a, **kw)
+        marks["crt"] = marks.get("crt", 0.0) + time.perf_counter() - t0
+        return out
+
+    def decode(self, sigma):
+        marks["sigma"] = (self.ctx, sigma)
+        return host_marks("decode0", "decode1", real["decode"])(self, sigma)
+
+    real["crt"] = rns._sigma_to_ints
     rows = []
     ec_rns.scalar_mult_hosts = host_marks("entry", "exit", real["entry"])
     cuda_ec.scalar_mult_cuda = timed_events("k5", real["k5"])
     devbuf.Slot.upload = upload
     devbuf.Slot.download = timed_events("d2h", real["download"])
     ec_rns._P256RNS.strip_sigma = timed_events("strip", real["strip"])
-    ec_rns._P256RNS.decode_sigma = host_marks("decode0", "decode1", real["decode"])
+    ec_rns._P256RNS.decode_sigma = decode
+    rns._sigma_to_ints = crt
     vd.verifier.verify_batch = host_marks("start", "batch_end", real["batch"])
     try:
         for _ in range(SPLIT_REPS):
@@ -722,6 +742,8 @@ def split_ec_verify_flush(vd, items):
                 "strip_ms": marks["strip"][0].elapsed_time(marks["strip"][1]),
                 "d2h_ms": marks["d2h"][0].elapsed_time(marks["d2h"][1]),
                 "decode_ms": (marks["decode1"] - marks["decode0"]) * 1e3,
+                "decode_crt_ms": marks["crt"] * 1e3,
+                "decode_inverse_ms": (marks["decode1"] - marks["decode0"] - marks["crt"]) * 1e3,
                 "finish_ms": (done - marks["exit"]) * 1e3,
                 "flush_ms": (done - marks["start"]) * 1e3,
             })
@@ -730,8 +752,29 @@ def split_ec_verify_flush(vd, items):
         devbuf.Slot.upload, devbuf.Slot.download = real["upload"], real["download"]
         ec_rns._P256RNS.strip_sigma = real["strip"]
         ec_rns._P256RNS.decode_sigma = real["decode"]
+        rns._sigma_to_ints = real["crt"]
         del vd.verifier.verify_batch
-    return {key: statistics.median(r[key] for r in rows) for key in rows[0]}
+    out = {key: statistics.median(r[key] for r in rows) for key in rows[0]}
+    ctx, sigma = marks["sigma"]
+    pr = P256.p
+    zs = [v % pr for v in rns._sigma_to_ints(ctx, sigma[2])]
+    zs = [z for z in zs if z]
+    t0 = time.perf_counter()
+    each = [pow(z, -1, pr) for z in zs]
+    t1 = time.perf_counter()
+    prefix = [1]
+    for z in zs:
+        prefix.append(prefix[-1] * z % pr)
+    inv = pow(prefix[-1], -1, pr)
+    batch = [0] * len(zs)
+    for i in range(len(zs) - 1, -1, -1):
+        batch[i] = inv * prefix[i] % pr
+        inv = inv * zs[i] % pr
+    t2 = time.perf_counter()
+    check(batch == each, "batch inversion differs from the per-point inverses")
+    out.update(inverse_points=len(zs), inverse_pow_ms=(t1 - t0) * 1e3,
+               inverse_batch_ms=(t2 - t1) * 1e3)
+    return out
 
 
 def ec_record(args, launches, kernel_reps: int, **extra):
@@ -741,11 +784,12 @@ def ec_record(args, launches, kernel_reps: int, **extra):
     res, nib, eng = args
     t, k = res.shape[-1], eng.k
     macs_point = EC_PRODUCTS * 2 * k * (k + 1)
-    n_bytes = 2 * nbytes(res) + nbytes(nib, eng.lane)
+    n_bytes = 2 * nbytes(res) + nbytes(nib, eng.field, eng.cn.kern["E_mma"])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     clock_hz = float(nvidia_smi("clocks.max.sm", "nounits")) * 1e6
-    floor_ms = t * macs_point / (sms * IMAD_PER_CLOCK_PER_SM[0] * clock_hz) * 1e3
-    shfl_ms = t * EC_PRODUCTS * (2 * k + 1) / (sms * SHFL_PER_CLOCK_PER_SM * clock_hz) * 1e3
+    floor_ms = (t * EC_PRODUCTS * EC_ROWS_PER_POINT * EC_IMAD_PER_PAIR
+                / (sms * IMAD_PER_CLOCK_PER_SM[0] * clock_hz) * 1e3)
+    groups = -(-t // extra["points_per_block"])
     return kernel_record(
         "K5 ec_scalar_mult_kernel", "bftkv_tpu_torch/ops/csrc/ec_p256.cu",
         "bftkv_tpu/ops/ec_rns.py:437", launches,
@@ -753,42 +797,32 @@ def ec_record(args, launches, kernel_reps: int, **extra):
         lambda: ec_rns._scalar_mult(eng, res, nib),
         t * macs_point * RNS_OPS_PER_MAC, n_bytes, kernel_reps, 1,
         rows=t, k=k, compared="(3, 2k+1, T) Jacobian residues",
-        products_per_point=EC_PRODUCTS, cuda_core_floor_ms=floor_ms,
-        shuffle_issue_floor_ms=shfl_ms, sm_clock_max_mhz=clock_hz / 1e6, **extra,
+        products_per_point=EC_PRODUCTS, elementwise_floor_ms=floor_ms, groups=groups,
+        waves=groups / (sms * extra["blocks_per_sm"]), sm_clock_max_mhz=clock_hz / 1e6, **extra,
     )
 
 
 def k5_edge_lanes(dev) -> None:
-    """K5 against its plain version at T=16 on the group law's edge lanes:
-    identity points, scalars 0, 1, 2 (a doubling lane), n − 1, and the raw
-    windows of n and n + 1.  The flushes never reach n's lane, whose last
-    add is P + (−P), because ``ec_rns._nibbles`` reduces scalars mod n;
-    there K5 must give Z = 0 exactly in every channel."""
-    import numpy as np
-
+    """K5 against its plain version at T=16 on the group law's edge lanes,
+    all in its first group of 8 points: identity points, scalars 0, 1, 2 (a
+    doubling lane), n − 1, and the raw windows of n and n + 1
+    (``time_rns.ec_operands``).  The flushes never reach n's lane, whose
+    last add is P + (−P), because ``ec_rns._nibbles`` reduces scalars mod
+    n; there K5 must give Z = 0 exactly in every channel."""
     from bftkv_tpu_torch.crypto.ec import P256
     from bftkv_tpu_torch.ops import cuda_ec, ec_rns
+    from bftkv_tpu_torch.tools.time_rns import EC_RAW_N, ec_operands
 
-    eng = ec_rns.engine(dev)
-    g, n = (P256.gx, P256.gy), P256.n
-    rng = random.Random(16)
-    pts = [None, None, g, g, g, g, g, g] + [P256.scalar_base_mult(i + 7) for i in range(8)]
-    ks = [5, 0, 0, 1, 2, n - 1, n, n + 1] + [rng.randrange(n) for _ in range(8)]
-    block = np.zeros((3, 2 * eng.k + 1, len(pts)), dtype=np.int32)
-    eng.encode_points_into(pts, block)
-    nib = ec_rns._nibbles(ks)
-    for lane in (6, 7):
-        nib[:, lane] = [(ks[lane] >> (4 * (63 - w))) & 0xF for w in range(64)]
-    res, nib = torch.from_numpy(block).to(dev), torch.from_numpy(nib).to(dev)
+    eng, res, nib, pts, ks = ec_operands(16, 16, dev)
     got = cuda_ec.scalar_mult_cuda(res, nib, eng)
     check(torch.equal(got, ec_rns._scalar_mult(eng, res, nib)),
           "K5 differs from its plain version on the edge lanes")
-    check(not got[2, :, 6].any(), "K5: P + (−P) left a nonzero Z")
-    check(eng.decode_points(got) == [P256.scalar_mult(p, k) if p is not None else None
+    check(not got[2, :, EC_RAW_N].any(), "K5: P + (−P) left a nonzero Z")
+    check(eng.decode_points(got) == [P256.scalar_mult(p, k % P256.n) if p is not None else None
                                      for p, k in zip(pts, ks)],
           "K5 edge lanes differ from the host curve")
-    print("K5 edge lanes (T=16: identities, 0, 1, 2, n - 1, raw n = P + (-P), raw n + 1): "
-          "equal to the plain version, Z = 0 on the P + (-P) lane", flush=True)
+    print("K5 edge lanes (T=16: identities, 0, 1, 2, n - 1, raw n = P + (-P), raw n + 1 "
+          "in one group): equal to the plain version, Z = 0 on the P + (-P) lane", flush=True)
 
 
 def ec_phase(dev, rsa_items, rsa_expect, ec_items, ec_expect, ec_replicas) -> dict:
@@ -895,7 +929,7 @@ def ec_phase(dev, rsa_items, rsa_expect, ec_items, ec_expect, ec_replicas) -> di
         for d in (vd, vd_plane, sd, vd_split):
             d.stop()
     print("ec verify flush split (median of %d, ms): " % SPLIT_REPS
-          + ", ".join(f"{k[:-3]} {v:.4f}" for k, v in split.items()), flush=True)
+          + ", ".join(f"{k.removesuffix('_ms')} {v:.4f}" for k, v in split.items()), flush=True)
 
     # K5 against its plain version on every recorded shape
     attrs = cuda_ec.kernel_attrs()["ec_scalar_mult"]

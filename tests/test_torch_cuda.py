@@ -23,7 +23,7 @@ from bftkv_tpu_torch.crypto import rsa
 from bftkv_tpu_torch.metrics import registry as metrics
 from bftkv_tpu_torch.ops import cuda_mont, cuda_rns, limb, modexp, rns
 from bftkv_tpu_torch.ops import rsa as rsa_ops
-from bftkv_tpu_torch.tools.time_rns import mont_operands
+from bftkv_tpu_torch.tools.time_rns import EC_RAW_N, EC_RAW_N1, ec_operands, mont_operands
 from test_torch_utils import moduli as _moduli
 
 pytestmark = pytest.mark.cuda
@@ -441,51 +441,20 @@ def test_ring_never_hands_out_inflight_slot_on_card(dev):
 # -- K5: the P-256 scalar mult -------------------------------------------------
 
 
-def _raw_nibbles(s: int) -> list[int]:
-    """The 64 window values of ``s`` itself, most significant first: unlike
-    ``ec_rns._nibbles``, not reduced mod n."""
-    return [(s >> (4 * (63 - w))) & 0xF for w in range(64)]
-
-
-#: Lanes of :func:`_k5_operands` whose nibble column holds the raw windows
-#: of n and n + 1: the accumulator before the last add is −(n mod 16)·G,
-#: so n's last add is P + (−P) (an exact-0 Z) and n + 1's is a plain add.
-_K5_RAW_N, _K5_RAW_N1 = 6, 7
-
-
 def _k5_operands(dev, t: int, seed: int):
-    """Staged K5 operands at T = t: the edge lanes first — identity points,
-    scalars 0, 1, 2 (the doubling lane 2·G), n − 1, then the raw windows
-    of n (whose last add is P + (−P)) and of n + 1, then 3 — then seeded
-    random points and scalars.  Returns the scalars each lane computes."""
-    from bftkv_tpu_torch.crypto.ec import P256
-    from bftkv_tpu_torch.ops import ec_rns
-
-    g = (P256.gx, P256.gy)
-    rng = random.Random(seed)
-    pts = [None, None, g, g, g, g, g, g, g]
-    ks = [5, 0, 0, 1, 2, P256.n - 1, P256.n, P256.n + 1, 3]
-    while len(pts) < t:
-        pts.append(P256.scalar_base_mult(rng.randrange(1, P256.n)) if len(pts) < 24 else g)
-        ks.append(rng.randrange(P256.n))
-    pts, ks = pts[:t], ks[:t]
-    eng = ec_rns.engine(dev)
-    block = np.zeros((3, 2 * eng.k + 1, t), dtype=np.int32)
-    ec_rns.engine("cpu").encode_points_into(pts, block)
-    nib = ec_rns._nibbles(ks)
-    for lane in (_K5_RAW_N, _K5_RAW_N1):
-        if lane < t:
-            nib[:, lane] = _raw_nibbles(ks[lane])
-    res = torch.from_numpy(block).to(dev)
-    return eng, res, torch.from_numpy(nib).to(dev), pts, ks
+    """Staged K5 operands at T = t (``time_rns.ec_operands``): the edge lanes
+    (identities, scalars 0, 1, 2, n − 1, the raw windows of n and n + 1)
+    in the first group of 8 points, then seeded points and scalars."""
+    return ec_operands(t, seed, dev)
 
 
-@pytest.mark.parametrize("t", [8, 256, 2048])
+@pytest.mark.parametrize("t", [8, 13, 256, 2048])
 def test_k5_matches_plain_on_card(dev, t):
     from bftkv_tpu_torch.crypto.ec import P256
     from bftkv_tpu_torch.ops import cuda_ec, ec_rns
 
     eng, res, nib, pts, ks = _k5_operands(dev, t, seed=t)
+    assert EC_RAW_N1 < 8  # the edge lanes share K5's first group
     cuda_ec.reset_launches()
     got = cuda_ec.scalar_mult_cuda(res, nib, eng)
     torch.cuda.synchronize()
@@ -494,12 +463,22 @@ def test_k5_matches_plain_on_card(dev, t):
     assert torch.equal(got, plain)
     # The raw-n lane's last add is P + (−P): its Z is exactly 0 in every
     # channel; the raw n + 1 lane ends on G.
-    assert not got[2, :, _K5_RAW_N].any()
-    assert got[2, :, _K5_RAW_N1].any()
+    assert not got[2, :, EC_RAW_N].any()
+    assert got[2, :, EC_RAW_N1].any()
     n_check = min(t, 32)
     decoded = ec_rns.engine("cpu").decode_points(got[:, :, :n_check].cpu().numpy())
     assert decoded == [P256.scalar_mult(p, k) if p is not None else None
                        for p, k in zip(pts[:n_check], ks[:n_check])]
+    # Nothing at or past T is written: the block's last row ends the live
+    # words of a buffer filled with a sentinel (T=13: the last group holds
+    # 5 points and 3 slots past T).
+    sentinel = -0x5A5A5A5B
+    buf = torch.full((res.numel() + 64,), sentinel, dtype=torch.int32, device=dev)
+    cuda_ec._launch(res, nib, eng, buf[: res.numel()].view(res.shape))
+    torch.cuda.synchronize()
+    assert torch.equal(buf[: res.numel()].view(res.shape), plain)
+    assert (buf[res.numel():] == sentinel).all()
+    assert cuda_ec.LAUNCHES == {"ec_scalar_mult": 2}
 
 
 def test_ec_scalar_mult_hosts_strips_on_the_card(dev, monkeypatch):
@@ -587,4 +566,5 @@ def test_ecdsa_batches_on_card_launch_k5_once_each(dev):
     assert ecdsa.verify_batch(items, device=dev) == [i != 3 for i in range(40)]
     assert cuda_ec.LAUNCHES == {"ec_scalar_mult": 2}
     attrs = cuda_ec.kernel_attrs()["ec_scalar_mult"]
-    assert 0 < attrs["registers"] <= 255 and attrs["points_per_block"] >= 1
+    assert 0 < attrs["registers"] <= 255 and attrs["points_per_block"] == 8
+    assert attrs["local_bytes"] == 0 and attrs["blocks_per_sm"] >= 1

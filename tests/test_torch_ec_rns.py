@@ -103,16 +103,26 @@ def test_constants_equal_the_reference(ref, eng):
     for name in ("invMi_b", "invMi_q", "Mq_mod_b", "invM_q"):
         np.testing.assert_array_equal(getattr(cn, name).numpy(), col(getattr(ref, name)))
     assert cn.invMq_pr == int(ref.invMq_pr) and cn.invM_pr == int(ref.invM_pr)
-    # The kernel's lane table: its E rows are the reference's split matrices.
-    lane = eng.lane.numpy().view(np.uint32).astype(np.int64)
-    e1 = lane[len(ec_rns.LANE_ROWS) : len(ec_rns.LANE_ROWS) + k]
-    e2 = lane[len(ec_rns.LANE_ROWS) + k :]
+    # The kernel's constants: E1 and E2 as int8 planes in mma fragment order
+    # (rns.mma_planes at k = 27) are the reference's split matrices; the
+    # field table and the key rows are the values checked above.
+    from test_torch_k2_arith import _unpack_a
+
+    planes = cn.kern["E_mma"].numpy()
     join = lambda pair: (np.asarray(pair[0]) + 64 * np.asarray(pair[1])).astype(np.int64)
-    np.testing.assert_array_equal(e1[:, :k], join(ref.E1qT).T)
-    np.testing.assert_array_equal(e1[:, k], join(ref.E1r)[:, 0])
-    np.testing.assert_array_equal(e2[:, :k], join(ref.E2bT).T)
-    np.testing.assert_array_equal(e2[:, k], join(ref.E2r)[:, 0])
-    assert not e1[:, k + 1 :].any() and not e2[:, k + 1 :].any()
+    for e, (main, red) in enumerate(((ref.E1qT, ref.E1r), (ref.E2bT, ref.E2r))):
+        a = _unpack_a(planes[e, 0]) + 64 * _unpack_a(planes[e, 1])  # Eᵀ, zero padded
+        np.testing.assert_array_equal(a[:k, :k], join(main))
+        np.testing.assert_array_equal(a[k, :k], join(red)[:, 0])
+        assert not a[k + 1 :].any() and not a[:, k:].any()
+    field = dict(zip(ec_rns.FIELD_ROWS, eng.field.numpy().astype(np.int64)))
+    cat = lambda trip: np.concatenate([col(x) for x in trip])
+    np.testing.assert_array_equal(field["pinv_b"], np.concatenate([col(ref.pinv_b), [0] * (k + 1)]))
+    np.testing.assert_array_equal(field["one"], cat(ref.one_m))
+    for name, s in (("sp_small", ec_rns._S_SMALL), ("sp_l1", ec_rns._S_L1), ("sp_l2", ec_rns._S_L2)):
+        np.testing.assert_array_equal(field[name], cat(ref.sp[s]))
+    for mine, theirs in zip(eng.ukey, eng.key):
+        np.testing.assert_array_equal(mine.numpy(), theirs.numpy())
 
 
 # -- field ops, op by op --------------------------------------------------------

@@ -84,20 +84,29 @@ def test_shoup_with_w_prime_is_exact_for_every_fixed_multiplier(digits, n_bits):
     k = cn.k
     p = cn.kern["p_all"].numpy().astype(np.uint64)
     rng = np.random.default_rng(n_bits)
-    for name, ps in (("invMi_b", p[:k]), ("invMi_q", p[k:]), ("Mq_mod_b", p[:k]),
-                     ("invM_q", p[k:])):
+    for name, ps in (("invMi_b", p[:k]), ("Mq_mod_b", p[:k]), ("invM_q", p[k:])):
         w = cn.kern[name].numpy().astype(np.uint64)
         w_sh = _u32(cn.kern[name + "_sh"])
         np.testing.assert_array_equal(w_sh, (w << np.uint64(32)) // ps, err_msg=name)
         a = _edges(ps, rng, 500)  # includes the largest a, 2^32 − 1
         got = shoup_model(a, w[:, None], w_sh[:, None], ps[:, None])
         np.testing.assert_array_equal(got, (a * w[:, None]) % ps[:, None], err_msg=name)
+    # The product folds M^-1 and (M'/m_j)^-1 over B' into one multiplier,
+    # derived at the start as Barrett of the product and w' = floor(w 2^32/p).
+    mu = _u32(cn.kern["mu_all"])[k:]
+    w = barrett_model(cn.kern["invM_q"].numpy().astype(np.uint64)
+                      * cn.kern["invMi_q"].numpy().astype(np.uint64), p[k:], mu)
+    w_sh = (w << np.uint64(32)) // p[k:]
+    a = _edges(p[k:], rng, 500)
+    np.testing.assert_array_equal(shoup_model(a, w[:, None], w_sh[:, None], p[k:, None]),
+                                  (a * w[:, None]) % p[k:, None])
 
 
 @pytest.mark.parametrize("digits,n_bits", CONTEXTS)
 def test_shoup_with_the_per_row_key_constants_is_exact(digits, n_bits):
-    """The kernel derives w′ of the key's −N⁻¹ (over B) and N (over B′)
-    once per row, as ⌊w·2^32/p⌋; the products it reduces are < 2^24."""
+    """The kernel derives its key multipliers once per row — −N⁻¹·(M/m_j)⁻¹
+    over B (Barrett of the product) and N over B′ — and their w′ as
+    ⌊w·2^32/p⌋; the products it reduces are < 2^24."""
     ctx = rns.context(digits, n_bits)
     k = ctx.k
     p = np.asarray(ctx.p_all, dtype=np.uint64)
@@ -109,8 +118,10 @@ def test_shoup_with_the_per_row_key_constants_is_exact(digits, n_bits):
         if rows is None:
             continue
         found += 1
-        for w, ps in ((np.asarray(rows[2], np.uint64), p[:k]),
-                      (np.asarray(rows[0], np.uint64)[k:], p[k:])):
+        mu = (np.uint64(1) << np.uint64(32)) // p[:k]
+        invmi_b = np.asarray(ctx.invMi_b, dtype=np.float64).astype(np.uint64)
+        qsig = barrett_model(np.asarray(rows[2], np.uint64) * invmi_b, p[:k], mu)
+        for w, ps in ((qsig, p[:k]), (np.asarray(rows[0], np.uint64)[k:], p[k:])):
             w_sh = (w << np.uint64(32)) // ps
             a = _edges(ps, rng, 200)
             np.testing.assert_array_equal(shoup_model(a, w[:, None], w_sh[:, None], ps[:, None]),
