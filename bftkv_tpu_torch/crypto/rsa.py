@@ -41,6 +41,7 @@ import torch
 
 from bftkv_tpu_torch import device as devmod
 from bftkv_tpu_torch import flags
+from bftkv_tpu_torch.crypto.cert import is_ec
 from bftkv_tpu_torch.metrics import registry as metrics
 from bftkv_tpu_torch.ops import bigint, cuda_mont, devbuf, limb
 from bftkv_tpu_torch.ops import rsa as rsa_ops
@@ -248,11 +249,6 @@ def verify_host(message: bytes, sig: bytes, key) -> bool:
     return pow(s, key.e, key.n) == emsa_pkcs1v15_sha256(message, key.size_bytes)
 
 
-def _is_ec(key) -> bool:
-    """The reference's algorithm rule (``crypto/cert.py::is_ec``)."""
-    return hasattr(key, "curve")
-
-
 def _backend(backend: str | None, flag: str, allowed: tuple[str, ...]) -> str:
     """The caller's backend, else the flag's value (default ``rns``), as
     the reference's domains read it."""
@@ -428,7 +424,7 @@ class SignerDomain:
         out: list[bytes | None] = [None] * len(items)
         by_width: dict[int, list] = {}
         host_idx: list[int] = []
-        if any(_is_ec(key) for _m, key in items):
+        if any(is_ec(key) for _m, key in items):
             raise _no_ec()
         if len(items) < self.host_threshold:
             host_idx = list(range(len(items)))
@@ -529,7 +525,7 @@ class VerifierDomain:
         ec_idx: list[int] = []
         ec_items: list = []
         for i, (message, sig_bytes, key) in enumerate(items):
-            if _is_ec(key):
+            if is_ec(key):
                 # ECDSA P-256 identity keys: two scalar mults per item, all
                 # of the flush's in one launch (crypto/ecdsa.verify_batch).
                 ec_idx.append(i)

@@ -5,13 +5,19 @@ Replaces the reference's JAX-only ``hostcpu.force_cpu`` and
 resolves it here.  ``None`` means ``cuda:0``; ``"cpu"`` is honoured only
 when asked for.  Asking for CUDA where there is none raises
 ``RuntimeError`` — there is no quiet fallback to the CPU.
+
+:func:`stream` hands each thread its own CUDA streams, one per (card,
+lane): a flush worker that splits a launch over several cards (or
+several shards of one card) runs each shard on its own stream.
 """
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
-__all__ = ["DEFAULT", "resolve"]
+__all__ = ["DEFAULT", "resolve", "stream"]
 
 DEFAULT = "cuda:0"
 
@@ -31,3 +37,19 @@ def resolve(device: str | torch.device | None = None) -> torch.device:
     if dev.type == "cpu":
         return dev
     raise RuntimeError(f"unsupported device {str(dev)!r} (cuda or cpu)")
+
+
+_streams = threading.local()
+
+
+def stream(dev: torch.device, lane: int) -> torch.cuda.Stream:
+    """The calling thread's CUDA stream number ``lane`` on the card ``dev``,
+    created on first use and kept for the thread's life."""
+    table = getattr(_streams, "table", None)
+    if table is None:
+        table = _streams.table = {}
+    key = (dev.index, lane)
+    s = table.get(key)
+    if s is None:
+        s = table[key] = torch.cuda.Stream(dev)
+    return s

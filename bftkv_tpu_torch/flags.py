@@ -13,7 +13,7 @@ from __future__ import annotations
 import os
 from typing import NamedTuple
 
-__all__ = ["Flag", "FLAGS", "declared", "enabled", "get", "get_int", "raw"]
+__all__ = ["Flag", "FLAGS", "declared", "enabled", "get", "get_float", "get_int", "raw"]
 
 
 class Flag(NamedTuple):
@@ -77,6 +77,36 @@ _flag("BFTKV_EC_SIGN_THRESHOLD", None, "int",
 _flag("BFTKV_EC_VERIFY_THRESHOLD", None, "int",
       "ECDSA batch size below which verifies stay on host (unset: "
       "ecdsa.VERIFY_HOST_CROSSOVER).")
+_flag("BFTKV_SHARD", "auto", "str",
+      "Split of the RNS verify and sign launches over every local cuda device "
+      "(ops/rns.py, contiguous row shards); `off` pins one device.")
+_flag("BFTKV_DISPATCH_RECAL_S", "60", "float",
+      "Sidecar online-recalibration period in seconds: the boot-time "
+      "crossover pin is re-measured from observed launch RTTs, so an "
+      "attached accelerator engages without a restart (0 disables).")
+_flag("BFTKV_SIDECAR_SIGN", "on", "switch",
+      "Clients remote their RSA signing to the shared sidecar when the "
+      "channel can carry keys (unix socket or HMAC secret); `off` keeps "
+      "signing in-process (verification still remotes).")
+_flag("BFTKV_SIDECAR_SPOT_RATE", "0.05", "float",
+      "Fraction of remote verify batches whose verdicts are re-checked "
+      "locally on one sampled item; a mismatch opens the sidecar "
+      "breaker and raises crypto.sidecar.dishonest.")
+_flag("BFTKV_SIDECAR_BREAKER", "30", "float",
+      "Seconds the sidecar breaker skips the service after a transport "
+      "failure or a dishonest result before retrying.")
+_flag("BFTKV_SIDECAR_MAX_INFLIGHT", "4", "int",
+      "Sidecar admission: crypto batches served concurrently; more "
+      "wait, then shed (sidecar.shed).")
+_flag("BFTKV_SIDECAR_MAX_QUEUE", "64", "int",
+      "Sidecar admission: batches allowed to WAIT for a service slot "
+      "before instant shedding.")
+_flag("BFTKV_SIDECAR_MAX_WAIT", "0.5", "float",
+      "Sidecar admission: longest a batch may wait for a service slot "
+      "before it is shed.")
+_flag("BFTKV_SIDECAR_MAX_KEYS", "64", "int",
+      "Sign-key handles one sidecar connection may register (bounds "
+      "hostile registration floods).")
 _flag("BFTKV_OS_RNG", "", "switch",
       "`1` makes crypto/rng.generate_random read os.urandom on every call "
       "instead of the per-thread hash-DRBG.")
@@ -129,6 +159,18 @@ def get_int(name: str, default: int | None = None) -> int | None:
             return default
         return int(f.default) if f.default is not None else None
     return int(v)
+
+
+def get_float(name: str, default: float | None = None) -> float | None:
+    """Float value; unset or empty falls back to ``default``, then to
+    the registry default."""
+    f = _check(name)
+    v = os.environ.get(name)
+    if v is None or v == "":
+        if default is not None:
+            return default
+        return float(f.default) if f.default is not None else None
+    return float(v)
 
 
 def enabled(name: str, default: str | None = None) -> bool:

@@ -17,14 +17,28 @@ so a run of the port reads like a run of the reference:
   ``verify.launch``.  The snapshot carries ``<name>.count``,
   ``<name>.sum``, ``<name>.p50`` and ``<name>.p99``.
 
+- the sidecar's (``cmd/verify_sidecar.py``, ``crypto/remote_verify.py``):
+  ``sidecar.ops{op=…}``, ``sidecar.items{op=…}``, ``sidecar.shed{op=…}``,
+  ``sidecar.recalibrations``, ``sidecar.recalibration_errors``; on the
+  tenant side ``verify.remote``, ``verify.remote_fallback``,
+  ``verify.remote_shed``, ``verify.remote_breaker_open``,
+  ``verify.remote_bad_mac``, ``verify.spot_check``, ``sign.remote``,
+  ``sign.remote_fallback``, ``sign.remote_shed``, ``sign.remote_refused``,
+  ``sign.remote_register``, ``modexp.remote``, ``modexp.remote_fallback``,
+  ``modexp.remote_shed``, ``crypto.sidecar.dishonest``; the admission
+  queue's gauges ``admission.inflight`` / ``.waiting`` / ``.limit`` /
+  ``.queue_limit`` and samples ``admission.wait{resource=sidecar}``.
+
 A labelled series flattens to ``name{k=v,...}`` in the snapshot, as in
-the reference.  ``chip_smoke.py`` reads the snapshot to show which path
-ran.
+the reference; :meth:`Registry.prometheus` renders the same series as
+Prometheus text (the sidecar's stats endpoint).  ``chip_smoke.py`` reads
+the snapshot to show which path ran.
 """
 
 from __future__ import annotations
 
 import contextlib
+import re
 import time
 
 from bftkv_tpu_torch.devtools.lockwatch import named_lock
@@ -44,6 +58,10 @@ def _flat(name: str, labels: tuple) -> str:
     if not labels:
         return name
     return name + "{" + ",".join(f"{k}={v}" for k, v in labels) + "}"
+
+
+def _prom_escape(v) -> str:
+    return str(v).replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
 
 
 class Registry:
@@ -105,6 +123,25 @@ class Registry:
             for q, tag in ((0.5, "p50"), (0.99, "p99")):
                 out[_flat(f"{name}.{tag}", labels)] = ring[min(len(ring) - 1, int(q * len(ring)))]
         return out
+
+    def prometheus(self) -> str:
+        """Prometheus text exposition (format 0.0.4): counters as
+        ``bftkv_<name>_total``, gauges plain, samples as ``_sum`` and
+        ``_count``."""
+        with self._lock:
+            rows = [("counter", k, v, "_total") for k, v in self._counters.items()]
+            rows += [("gauge", k, v, "") for k, v in self._gauges.items()]
+            for k, (count, total, _ring, _pos) in self._samples.items():
+                rows += [("summary", k, total, "_sum"), ("summary", k, count, "_count")]
+        lines, typed = [], set()
+        for kind, (name, labels), v, suffix in sorted(rows, key=lambda r: (r[1], r[3])):
+            pn = "bftkv_" + re.sub(r"[^a-zA-Z0-9_:]", "_", name)
+            if pn not in typed:
+                typed.add(pn)
+                lines.append(f"# TYPE {pn}{'_total' if kind == 'counter' else ''} {kind}")
+            lab = ",".join(f'{k}="{_prom_escape(x)}"' for k, x in labels)
+            lines.append(f"{pn}{suffix}{'{' + lab + '}' if lab else ''} {v!r}")
+        return "\n".join(lines) + "\n"
 
     def reset(self) -> None:
         with self._lock:

@@ -25,6 +25,7 @@ import threading
 
 import torch
 
+from bftkv_tpu_torch import device as devmod
 from bftkv_tpu_torch.ops import _build
 
 __all__ = ["LAUNCHES", "kernel_attrs", "reset_launches", "scalar_mult_cuda"]
@@ -41,14 +42,15 @@ def reset_launches() -> None:
         LAUNCHES["ec_scalar_mult"] = 0
 
 
-def kernel_attrs() -> dict[str, dict[str, int]]:
-    """Registers and local-memory bytes per thread of K5 as built, its
-    points per block (one group of 8, the mma's N) and the blocks an SM
-    holds at once."""
+def kernel_attrs(device=None) -> dict[str, dict[str, int]]:
+    """Registers and local-memory bytes per thread of K5 as built for
+    ``device`` (default ``cuda:0``), its points per block (one group of
+    8, the mma's N) and the blocks an SM holds at once."""
     lib = _build.library()
     regs, local, pts, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    rc = lib.ec_kernel_attrs(ctypes.byref(regs), ctypes.byref(local), ctypes.byref(pts),
-                             ctypes.byref(blocks))
+    with torch.cuda.device(devmod.resolve(device)):
+        rc = lib.ec_kernel_attrs(ctypes.byref(regs), ctypes.byref(local), ctypes.byref(pts),
+                                 ctypes.byref(blocks))
     if rc != 0:
         raise RuntimeError(
             f"ec_scalar_mult kernel attributes: {lib.rns_error_string(rc).decode()} ({rc})"
@@ -86,17 +88,20 @@ def _launch(res: torch.Tensor, nib: torch.Tensor, eng, out: torch.Tensor) -> tor
     kc = cn.kern
     lib = _build.library()
     need, limit = ctypes.c_int(), ctypes.c_int()
-    rc = lib.ec_scalar_mult_launch(
-        res.data_ptr(), nib.data_ptr(), res.shape[1], res.shape[2],
-        *(u.data_ptr() for u in eng.ukey[:3]),
-        *(kc[n].data_ptr() for n in (
-            "p_all", "invMi_b", "invMi_q", "Mq_mod_b", "invM_q",
-            "mu_all", "invMi_b_sh", "Mq_mod_b_sh", "invM_q_sh", "E_mma",
-        )),
-        eng.field.data_ptr(), cn.invMq_pr, cn.invM_pr, cn.k,
-        out.data_ptr(), torch.cuda.current_stream(res.device).cuda_stream,
-        ctypes.byref(need), ctypes.byref(limit),
-    )
+    # The launcher sets the kernel's shared-memory attribute on the current
+    # device and launches there: make it the operands' card.
+    with torch.cuda.device(res.device):
+        rc = lib.ec_scalar_mult_launch(
+            res.data_ptr(), nib.data_ptr(), res.shape[1], res.shape[2],
+            *(u.data_ptr() for u in eng.ukey[:3]),
+            *(kc[n].data_ptr() for n in (
+                "p_all", "invMi_b", "invMi_q", "Mq_mod_b", "invM_q",
+                "mu_all", "invMi_b_sh", "Mq_mod_b_sh", "invM_q_sh", "E_mma",
+            )),
+            eng.field.data_ptr(), cn.invMq_pr, cn.invM_pr, cn.k,
+            out.data_ptr(), torch.cuda.current_stream(res.device).cuda_stream,
+            ctypes.byref(need), ctypes.byref(limit),
+        )
     if rc == _build.ERR_SHARED_MEMORY:
         raise RuntimeError(
             f"ec_scalar_mult kernel needs {need.value} bytes of shared memory per block; "

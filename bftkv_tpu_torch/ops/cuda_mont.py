@@ -20,6 +20,7 @@ import threading
 
 import torch
 
+from bftkv_tpu_torch import device as devmod
 from bftkv_tpu_torch.ops import _build
 
 __all__ = ["LAUNCHES", "ROWS_PER_BLOCK", "THREADS_PER_ROW", "TILE", "kernel_attrs",
@@ -43,12 +44,14 @@ def reset_launches() -> None:
         LAUNCHES["mont_verify"] = 0
 
 
-def kernel_attrs() -> dict[str, dict[str, int]]:
-    """Registers and local-memory bytes per thread of K3 as built, beside
-    its threads per row and rows per block."""
+def kernel_attrs(device=None) -> dict[str, dict[str, int]]:
+    """Registers and local-memory bytes per thread of K3 as built for
+    ``device`` (default ``cuda:0``), beside its threads per row and rows
+    per block."""
     lib = _build.library()
     regs, local = ctypes.c_int(), ctypes.c_int()
-    rc = lib.mont_kernel_attrs(ctypes.byref(regs), ctypes.byref(local))
+    with torch.cuda.device(devmod.resolve(device)):
+        rc = lib.mont_kernel_attrs(ctypes.byref(regs), ctypes.byref(local))
     if rc != 0:
         raise RuntimeError(
             f"mont_verify kernel attributes: {lib.rns_error_string(rc).decode()} ({rc})"
@@ -87,10 +90,11 @@ def verify_diff(sig, em, n, nprime, r2) -> torch.Tensor:
     out = torch.empty_like(sig)
     lib = _build.library()
     stream = torch.cuda.current_stream(sig.device).cuda_stream
-    rc = lib.mont_verify_launch(
-        sig.data_ptr(), em.data_ptr(), n.data_ptr(), nprime.data_ptr(),
-        r2.data_ptr(), sig.shape[0], out.data_ptr(), stream,
-    )
+    with torch.cuda.device(sig.device):  # launch on the operands' card
+        rc = lib.mont_verify_launch(
+            sig.data_ptr(), em.data_ptr(), n.data_ptr(), nprime.data_ptr(),
+            r2.data_ptr(), sig.shape[0], out.data_ptr(), stream,
+        )
     if rc != 0:
         raise RuntimeError(
             f"mont_verify kernel launch failed: {lib.rns_error_string(rc).decode()} ({rc})"

@@ -11,7 +11,8 @@ implementation, ``csrc/rns_mma.cuh``, and take the same arguments.
 Each takes device tensors: the (T, ·) operands, the (T,) key index, the
 (K, ·) int32 unique key rows of :func:`rns.key_rows_from_numpy` and
 the :class:`rns._Consts` of the context.  For CUDA tensors it launches
-the kernel on the current stream (gathering the key rows through
+the kernel on the current stream of the tensors' card, with that card
+made current around the launch (gathering the key rows through
 ``idx`` inside the kernel, which clamps an index outside [0, K) to keep
 its reads in bounds and fails such a verify row closed; the entry
 points refuse such indices) or raises; for CPU tensors — and only for
@@ -28,6 +29,7 @@ import threading
 
 import torch
 
+from bftkv_tpu_torch import device as devmod
 from bftkv_tpu_torch.ops import _build
 from bftkv_tpu_torch.ops import rns
 
@@ -44,14 +46,15 @@ def reset_launches() -> None:
             LAUNCHES[name] = 0
 
 
-def kernel_attrs() -> dict[str, dict[str, int]]:
-    """Registers and local-memory bytes per thread of each kernel as built,
-    and its rows per block."""
+def kernel_attrs(device=None) -> dict[str, dict[str, int]]:
+    """Registers and local-memory bytes per thread of each kernel as built
+    for ``device`` (default ``cuda:0``), and its rows per block."""
     lib = _build.library()
     out = {}
     for name, fn in (("verify", lib.rns_verify_attrs), ("pow", lib.rns_pow_attrs)):
         regs, local, rows = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-        rc = fn(ctypes.byref(regs), ctypes.byref(local), ctypes.byref(rows))
+        with torch.cuda.device(devmod.resolve(device)):
+            rc = fn(ctypes.byref(regs), ctypes.byref(local), ctypes.byref(rows))
         if rc != 0:
             raise RuntimeError(
                 f"rns {name} kernel attributes: {lib.rns_error_string(rc).decode()} ({rc})"
@@ -100,17 +103,20 @@ def _launch(which: str, a, b, idx, ukey, cn, out: torch.Tensor) -> torch.Tensor:
     lib = _build.library()
     fn = lib.rns_verify_launch if which == "verify" else lib.rns_pow_launch
     need, limit = ctypes.c_int(), ctypes.c_int()
-    rc = fn(
-        a.data_ptr(), b.data_ptr(), idx.data_ptr(), t, n_keys,
-        *(u.data_ptr() for u in ukey),
-        *(kc[n].data_ptr() for n in (
-            "p_all", "invMi_b", "invMi_q", "Mq_mod_b", "invM_q",
-            "mu_all", "invMi_b_sh", "Mq_mod_b_sh", "invM_q_sh", "E_mma", "D",
-        )),
-        cn.invMq_pr, cn.invM_pr, k, digits,
-        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-        ctypes.byref(need), ctypes.byref(limit),
-    )
+    # The launcher sets the kernel's shared-memory attribute on the current
+    # device and launches there: make it the operands' card.
+    with torch.cuda.device(dev):
+        rc = fn(
+            a.data_ptr(), b.data_ptr(), idx.data_ptr(), t, n_keys,
+            *(u.data_ptr() for u in ukey),
+            *(kc[n].data_ptr() for n in (
+                "p_all", "invMi_b", "invMi_q", "Mq_mod_b", "invM_q",
+                "mu_all", "invMi_b_sh", "Mq_mod_b_sh", "invM_q_sh", "E_mma", "D",
+            )),
+            cn.invMq_pr, cn.invM_pr, k, digits,
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            ctypes.byref(need), ctypes.byref(limit),
+        )
     if rc == _build.ERR_SHARED_MEMORY:
         raise RuntimeError(
             f"rns {which} kernel at k={k}, {digits} digits needs {need.value} bytes "

@@ -17,7 +17,12 @@ The plane is the reference's:
   overrides).  Each worker on a ``cuda`` device owns one CUDA stream and
   runs its flushes under it, so flush N+1's host assembly and copies
   overlap flush N's kernel.  The GIL still lets one worker encode at a
-  time: the overlap is with device and copy time, not between encoders;
+  time: the overlap is with device and copy time, not between encoders.
+  A launch that splits over several cards (``ops/rns.py``) runs its
+  first shard on that stream and each further shard on the worker's own
+  stream of that shard's card (:func:`bftkv_tpu_torch.device.stream`),
+  one per (flush worker, card, shard); a flush's ``DeferredModexp``
+  waits on every shard's event;
 - **async launch/complete** (``BFTKV_DISPATCH_ASYNC``, on): a flush
   whose dispatcher has a non-blocking :meth:`_launch_batch` hands the
   completion to one drain thread, which finalizes launches FIFO;
@@ -675,9 +680,9 @@ class SignDispatcher(_BatchDispatcher):
             self.signer.host_threshold = self._signer_default_threshold
 
     def _run_batch(self, items: list):
-        from bftkv_tpu_torch.crypto import rsa as rsamod
+        from bftkv_tpu_torch.crypto.cert import is_ec
 
-        ec_pos = [i for i, (_m, key) in enumerate(items) if rsamod._is_ec(key)]
+        ec_pos = [i for i, (_m, key) in enumerate(items) if is_ec(key)]
         if not ec_pos:
             return self.signer.sign_batch(items)
         from bftkv_tpu_torch.crypto import ecdsa

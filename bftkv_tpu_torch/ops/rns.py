@@ -34,10 +34,26 @@ Three parts:
   tensors.  On the card the copies in, the launch and the copy out go on
   the calling thread's current stream, and an event recorded behind them
   is what the caller (or :meth:`DeferredModexp.wait`) waits on.
+
+**The split over local cards** (the reference's ``_mesh``, ``_shardable``
+and its ``shard_map`` verify and pow jits).  Both entry points split a
+padded batch into contiguous row shards, one per device of
+:func:`shard_devices` — every local ``cuda:i``, or none under two cards
+or with ``BFTKV_SHARD=off`` — when the padded batch divides by the shard
+count.  Each shard stages into its own card's ring, with the key rows
+and the constants copied to that card, and launches on its own stream
+(shard 0 on the caller's current stream, shard i > 0 on the thread's
+stream i of its card, :func:`bftkv_tpu_torch.device.stream`); the
+results are joined in order.  There is no collective: the shards share
+nothing but the host arrays.  :func:`shard_over` is the test seam in
+place of the reference's ``hostcpu.force_cpu(n)``: it names the shard
+devices, repeats allowed, so that n shards run on one card or on the
+``cpu``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import threading
 
@@ -45,6 +61,7 @@ import numpy as np
 import torch
 
 from bftkv_tpu_torch import device as devmod
+from bftkv_tpu_torch import flags
 from bftkv_tpu_torch.ops import devbuf, limb
 
 __all__ = [
@@ -61,6 +78,9 @@ __all__ = [
     "stack_key_rows",
     "digits_to_halves",
     "digits_to_halves_u8",
+    "shard_devices",
+    "shard_over",
+    "shard_scope",
 ]
 
 PR_BITS = 12
@@ -574,19 +594,24 @@ def _sigma_to_ints(ctx: RNSContext, sigma: np.ndarray) -> list[int]:
 
 
 class DeferredModexp:
-    """Handle for a non-blocking :func:`power_mod_rns` launch: the
-    kernel and the copy of σ out are already on the stream.
-    :meth:`wait` waits for the event behind them, releases the staging
-    slot and rebuilds the integers (once).  ``event`` is that CUDA event
-    (``None`` on the CPU)."""
+    """Handle for a non-blocking :func:`power_mod_rns` launch: each
+    shard's kernel and copy of σ out are already on its stream.
+    :meth:`wait` waits for every shard's event, releases every staging
+    slot and rebuilds the integers (once); an error of any shard
+    propagates after all of them are released.  ``events`` are those
+    CUDA events (none on the CPU); ``event`` is the last one."""
 
-    __slots__ = ("_finish", "_value", "_done", "event")
+    __slots__ = ("_finish", "_value", "_done", "events")
 
-    def __init__(self, finish, event=None):
+    def __init__(self, finish, events=()):
         self._finish = finish
         self._value = None
         self._done = False
-        self.event = event
+        self.events = tuple(events)
+
+    @property
+    def event(self):
+        return self.events[-1] if self.events else None
 
     def wait(self) -> list[int]:
         if not self._done:
@@ -658,6 +683,110 @@ def _stage_key_rows(slot, urows: list) -> None:
         a[n:] = a[0]
 
 
+_shard_lock = threading.Lock()
+_SHARD_OVER: list | None = None
+
+
+@contextlib.contextmanager
+def shard_over(devices):
+    """Test seam: while the block runs, every launch in the process splits
+    over ``devices`` (repeats allowed, e.g. ``["cuda:0", "cuda:0"]`` or
+    ``["cpu", "cpu"]``) instead of over the local cards.
+    ``BFTKV_SHARD=off`` still wins."""
+    global _SHARD_OVER
+    devs = [devmod.resolve(d) for d in devices]
+    if not devs:
+        raise ValueError("shard_over needs at least one device")
+    with _shard_lock:
+        prev, _SHARD_OVER = _SHARD_OVER, devs
+    try:
+        yield devs
+    finally:
+        with _shard_lock:
+            _SHARD_OVER = prev
+
+
+def shard_devices(device=None) -> list | None:
+    """The devices a launch on ``device`` splits over: the :func:`shard_over`
+    list, else every local card when ``device`` is a card and there are
+    two or more; ``None`` (no split) otherwise and under ``BFTKV_SHARD=off``."""
+    if flags.raw("BFTKV_SHARD", "auto") == "off":
+        return None
+    with _shard_lock:
+        over = _SHARD_OVER
+    if over is not None:
+        return list(over)
+    if devmod.resolve(device).type != "cuda" or torch.cuda.device_count() < 2:
+        return None
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def _shardable(padded: int, shards) -> bool:
+    """The reference's rule: the padded batch must divide by the shard count."""
+    return shards is not None and padded % len(shards) == 0
+
+
+def _row_shards(dev: torch.device, padded: int) -> list:
+    """The device of each contiguous row shard of a padded launch."""
+    shards = shard_devices(dev)
+    return shards if _shardable(padded, shards) else [dev]
+
+
+@contextlib.contextmanager
+def shard_scope(dev: torch.device, lane: int):
+    """Shard ``lane``'s scope on ``dev``: the card made current, lane 0 on
+    the caller's current stream of it, lane i > 0 on the thread's stream
+    i of it."""
+    if dev.type != "cuda":
+        yield
+        return
+    with torch.cuda.device(dev):
+        if lane == 0:
+            yield
+        else:
+            with torch.cuda.stream(devmod.stream(dev, lane)):
+                yield
+
+
+def _launch_shards(dev: torch.device, t: int, padded: int, lease_for, fill) -> list:
+    """Launches a padded batch of ``t`` live rows as contiguous row shards
+    (one, unless the batch splits): per shard, ``lease_for(rows, device)``
+    gives its slot and ``fill(slot, lo, live, device)`` stages rows
+    ``[lo, lo + live)`` and launches, inside the shard's scope.  Returns
+    ``[(lease, live)]``; a launch error releases every slot."""
+    shards = _row_shards(dev, padded)
+    per = padded // len(shards)
+    launches: list = []
+    try:
+        for lane, sdev in enumerate(shards):
+            lo = lane * per
+            live = max(0, min(t, lo + per) - lo)
+            with shard_scope(sdev, lane):
+                lease = lease_for(per, sdev)
+                launches.append((lease, live))
+                with lease.launch() as slot:
+                    fill(slot, lo, live, sdev)
+    except BaseException:
+        for lease, _live in launches:
+            lease.release()
+        raise
+    return launches
+
+
+def _collect_all(launches, read) -> list:
+    """``read(slot, live)`` of every shard in order, each slot released; the
+    first error propagates after every slot is released."""
+    out, err = [], None
+    for lease, live in launches:
+        try:
+            out.append(lease.collect(lambda slot: read(slot, live)))
+        except Exception as e:
+            err = err or e
+    if err is not None:
+        raise err
+    return out
+
+
 def _pad_rows(t: int, floor: int) -> int:
     """Power-of-two buckets with a floor, as the reference pads."""
     return max(floor, 1 << (t - 1).bit_length())
@@ -672,9 +801,10 @@ def power_mod_rns(
     ride the RNS path (the caller falls back).
 
     ``defer=True`` returns a :class:`DeferredModexp`: the launch is on
-    the current stream, nothing has waited for it yet, and the staging
-    slot stays in flight until ``wait()``.  An error of the build or the
-    launch propagates, the slot released.
+    the current stream (each shard's on its own, where the batch splits),
+    nothing has waited for it yet, and the staging slots stay in flight
+    until ``wait()``.  An error of the build or a launch propagates, every
+    slot released.
     """
     from bftkv_tpu_torch.ops import cuda_rns
 
@@ -700,38 +830,47 @@ def power_mod_rns(
         idxs.append(u)
     t = len(idxs)
     # Power-of-two batch buckets (floor 64) and a unique-modulus axis with
-    # floor 64, as the reference pads.
+    # floor 64, as the reference pads.  Only the t live rows are encoded;
+    # the pad rows copy row 0 (pad base = row 0's, pad key index 0), as
+    # the reference stages.
     padded = _pad_rows(t, 64)
-    cn = consts(digits, n_bits, dev)
-    lease = _pow_staging(digits, n_bits, padded, _pad_rows(len(urows), 64), dev)
-    with lease.launch() as slot:
-        # Only the t live rows are encoded; the pad region copies row 0
-        # (pad base = row 0's, pad key index 0), as the reference stages.
+    kpad = _pad_rows(len(urows), 64)
+    nb = 2 * digits
+    base_rows = bytes_rows([b % m for b, m in zip(bases, mods)], nb)
+    eb = bytes_rows(exps, nb)
+    nib = np.empty((t, 2 * nb), dtype=np.uint8)
+    nib[:, 0::2] = eb & 0xF  # nibbles least significant first
+    nib[:, 1::2] = eb >> 4
+    nib = nib[:, ::-1]  # most-significant nibble first
+
+    def fill(slot, lo, live, sdev):
         bh, nt, ix = slot["base_halves"], slot["nib_t"], slot["idx"]
-        nb = 2 * digits
-        bh[:t] = bytes_rows([b % m for b, m in zip(bases, mods)], nb)
-        eb = bytes_rows(exps, nb)
-        nib = np.empty((t, 2 * nb), dtype=np.uint8)
-        nib[:, 0::2] = eb & 0xF  # nibbles least significant first
-        nib[:, 1::2] = eb >> 4
-        nt[:, :t] = nib[:, ::-1].T  # most-significant nibble first
-        ix[:t] = idxs
-        if padded > t:
-            bh[t:] = bh[0:1]
-            nt[:, t:] = nt[:, 0:1]
-            ix[t:] = 0
+        bh[:live] = base_rows[lo : lo + live]
+        nt[:, :live] = nib[lo : lo + live].T
+        ix[:live] = idxs[lo : lo + live]
+        if len(ix) > live:
+            bh[live:] = base_rows[0]
+            nt[:, live:] = nib[0][:, None]
+            ix[live:] = 0
         _stage_key_rows(slot, urows)
         d = slot.upload(("base_halves", "nib_t", "idx") + KEY_ROWS)
         slot.download("sigma", cuda_rns.pow_cuda(
-            d["base_halves"], d["nib_t"], d["idx"], tuple(d[n] for n in KEY_ROWS), cn
+            d["base_halves"], d["nib_t"], d["idx"], tuple(d[n] for n in KEY_ROWS),
+            consts(digits, n_bits, sdev),
         ))
+
+    launches = _launch_shards(
+        dev, t, padded, lambda rows, sdev: _pow_staging(digits, n_bits, rows, kpad, sdev), fill)
     mods_live = list(mods)
 
     def finish() -> list[int]:
-        vals = _sigma_to_ints(ctx, lease.collect(lambda s: s["sigma"][:t].copy()))
+        sigma = np.concatenate(_collect_all(launches, lambda s, live: s["sigma"][:live].copy()))
+        vals = _sigma_to_ints(ctx, sigma)
         return [v % m for v, m in zip(vals, mods_live)]
 
-    return DeferredModexp(finish, lease.slot.event) if defer else finish()
+    if not defer:
+        return finish()
+    return DeferredModexp(finish, [l.slot.event for l, _ in launches if l.slot.event is not None])
 
 
 def digits_to_halves(digits_u32: np.ndarray) -> np.ndarray:
@@ -755,11 +894,11 @@ def verify_e65537_rns_indexed(
 
     ``sigs``/``ems``: integers below 2^2048 (the caller keeps s < n);
     ``unique_rows``: :meth:`RNSContext.key_rows` of the *distinct* keys
-    only; ``key_idx`` maps each item to its key row.  One launch of K1:
-    the rows are padded to a power of two (floor 256) with s = 0 against
-    row 0's em and key — 0^e never equals a PKCS#1 encoding — and the
-    key axis to a floor of 64 with copies of row 0; the gather happens
-    on the device.
+    only; ``key_idx`` maps each item to its key row.  One launch of K1
+    (one per shard where the batch splits): the rows are padded to a
+    power of two (floor 256) with s = 0 against row 0's em and key —
+    0^e never equals a PKCS#1 encoding — and the key axis to a floor of
+    64 with copies of row 0; the gather happens on the device.
     """
     from bftkv_tpu_torch.ops import cuda_rns
 
@@ -770,23 +909,29 @@ def verify_e65537_rns_indexed(
     if t == 0 or len(ems) != t or idx.shape != (t,) or (idx < 0).any() or (idx >= n_keys).any():
         raise ValueError("key_idx must map every row into the unique key rows")
     padded = _pad_rows(t, 256)
-    cn = consts(DIGITS, 2048, dev)
-    lease = _verify_staging(padded, _pad_rows(n_keys, 64), dev)
-    with lease.launch() as slot:
+    kpad = _pad_rows(n_keys, 64)
+    sig_rows = bytes_rows(sigs, 2 * DIGITS)
+    em_rows = bytes_rows(ems, 2 * DIGITS)
+
+    def fill(slot, lo, live, sdev):
         sh, eh, ix = slot["sig_halves"], slot["em_halves"], slot["idx"]
-        sh[:t] = bytes_rows(sigs, 2 * DIGITS)
-        eh[:t] = bytes_rows(ems, 2 * DIGITS)
-        ix[:t] = idx
-        if padded > t:
-            sh[t:] = 0
-            eh[t:] = eh[0:1]
-            ix[t:] = 0
+        sh[:live] = sig_rows[lo : lo + live]
+        eh[:live] = em_rows[lo : lo + live]
+        ix[:live] = idx[lo : lo + live]
+        if len(ix) > live:
+            sh[live:] = 0
+            eh[live:] = em_rows[0]
+            ix[live:] = 0
         _stage_key_rows(slot, unique_rows)
         d = slot.upload(("sig_halves", "em_halves", "idx") + KEY_ROWS)
         slot.download("ok", cuda_rns.verify_cuda(
-            d["sig_halves"], d["em_halves"], d["idx"], tuple(d[n] for n in KEY_ROWS), cn
+            d["sig_halves"], d["em_halves"], d["idx"], tuple(d[n] for n in KEY_ROWS),
+            consts(DIGITS, 2048, sdev),
         ))
-    return lease.collect(lambda s: s["ok"][:t] != 0)
+
+    launches = _launch_shards(
+        dev, t, padded, lambda rows, sdev: _verify_staging(rows, kpad, sdev), fill)
+    return np.concatenate(_collect_all(launches, lambda s, live: s["ok"][:live] != 0))
 
 
 def stack_key_rows(rows: list):

@@ -45,11 +45,27 @@ holds every hand-written kernel against its plain PyTorch version:
    limb engine is never reached on the rns path.  Then timed flushes, one
    EC verify flush split into encode, stage, H2D, K5, D2H, decode and
    finish, and K5 against its plain version on each recorded operand set;
-10. each kernel against its plain version on the card, on the operands the
+10. sidecar phase, the deployment of bftkv_tpu_torch/cmd/verify_sidecar.py:
+   the port's sidecar on a Unix socket on the card (max_batch=4096) and 8
+   tenant threads, each on its own SidecarChannel: (a) the 4096 RSA verify
+   items, 512 a tenant, each batch mixed with 32 of 256 EC items, which the
+   tenant verifies on its own VerifierDomain on the card (K5); (b) 256 sign
+   shares under 8 replica keys, REGISTER first; (c) 128 MODEXP items, 64 at
+   2048 bits and 64 at 1024 bits.  Every answer equals the host's, no tenant
+   falls back, is shed or sees ERR, the sidecar's flushes launch K1 and K2,
+   more than one tenant's 512 items ride each K1 launch; then 3 timed rounds
+   of verify and of sign (tenant round trips, the sidecar's flushes), the
+   STATS frame's rings, and every K1 and K2 launch of the sidecar held
+   against its plain version;
+11. shard phase: torch.cuda.device_count(); entry.dryrun_multichip(2) (both
+   shards on this card, on separate streams); the verify at T=4096 and the
+   sign modexp at k=94 T=512 split over two shards of this card and, with
+   two or more cards, over every card, bit-identical to the unsplit launch;
+12. each kernel against its plain version on the card, on the operands the
    main paths gave it: K1 verdicts (T=4096, T=1024 and every fault check's
    T=256), K2 sigma (k=94 at T=512 and T=64, k=188), K3's whole
    (4096, 128) diff and K5's Jacobian residues bit-identical;
-11. times: median of 5 timed flushes per verify/RNS-sign phase, 3 for the
+13. times: median of 5 timed flushes per verify/RNS-sign phase, 3 for the
    limb sign and the EC flushes, and kernel times by CUDA events, beside
    nvidia-smi's name and power limit.
 
@@ -65,6 +81,7 @@ The last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import multiprocessing
 import os
@@ -135,6 +152,16 @@ EC_PRODUCTS = 14 * 24 + 64 * (4 * 8 + 24)
 # (2 M tiles of 16) a point holds, issued at 64 IMAD a clock per SM.
 EC_IMAD_PER_PAIR = 4 * 2 + 6 * 3 + 2
 EC_ROWS_PER_POINT = 32
+# The sidecar phase: the documented deployment, replicas sharing one card.
+SIDECAR_TENANTS = 8
+SIDECAR_EC_ITEMS = 256  # mixed into the tenants' verify batches, verified in the tenants
+SIDECAR_MODEXP = 128  # 64 at 2048 bits, 64 at 1024 bits
+SIDECAR_ROUNDS = 3  # timed rounds of verify and of sign
+# The sidecar's dispatcher window: wide enough that the tenants' frames,
+# released together but sent after their own EC items (tens to a couple of
+# hundred ms apart on a loaded host), coalesce into shared flushes; a flush
+# leaves early once all 4096 items are in.
+SIDECAR_MAX_WAIT = 0.2
 
 
 def fail(msg: str) -> None:
@@ -972,6 +999,373 @@ def ec_phase(dev, rsa_items, rsa_expect, ec_items, ec_expect, ec_replicas) -> di
     }
 
 
+# -- the sidecar phase -------------------------------------------------------------
+
+
+class _Tenant:
+    """One tenant of the sidecar: its own channel and the three remote
+    domains on it; the EC items of its verify batches stay local, on a
+    VerifierDomain on the card (kernel K5 in the tenant)."""
+
+    def __init__(self, addr: str, dev):
+        from bftkv_tpu_torch.crypto import rsa
+        from bftkv_tpu_torch.crypto.remote_verify import (
+            RemoteModexpDomain, RemoteSignerDomain, RemoteVerifierDomain, SidecarChannel,
+        )
+
+        self.channel = SidecarChannel(addr)
+        # Host clock around each round trip on the channel (frame out,
+        # the sidecar's work, frame back): the rest of a tenant's call is
+        # its own work (encoding, the local EC items, the spot check).
+        self.request_s: list[float] = []
+        real = self.channel._request
+
+        def timed(op, payload):
+            t0 = time.perf_counter()
+            try:
+                return real(op, payload)
+            finally:
+                self.request_s.append(time.perf_counter() - t0)
+
+        self.channel._request = timed
+        self.verifier = RemoteVerifierDomain(
+            channel=self.channel, local=rsa.VerifierDomain(device=dev), spot_rate=1.0)
+        # ... and around its EC items' verify on its own VerifierDomain (K5).
+        self.local_s: list[float] = []
+        local_verify = self.verifier.local.verify_batch
+
+        def timed_local(items):
+            t0 = time.perf_counter()
+            try:
+                return local_verify(items)
+            finally:
+                self.local_s.append(time.perf_counter() - t0)
+
+        self.verifier.local.verify_batch = timed_local
+        self.signer = RemoteSignerDomain(channel=self.channel)
+        self.modexp = RemoteModexpDomain(channel=self.channel, spot_rate=1.0)
+
+
+def _tenant_rounds(tenants, jobs, call):
+    """Runs call(tenant, job) on one thread per tenant, released together;
+    returns the results and each call's round-trip seconds."""
+    out, rtt = [None] * len(tenants), [0.0] * len(tenants)
+
+    def body(t):
+        t0 = time.perf_counter()
+        out[t] = call(tenants[t], jobs[t])
+        rtt[t] = time.perf_counter() - t0
+
+    run_threads(len(tenants), body)
+    return out, rtt
+
+
+def sidecar_phase(dev, rsa_items, rsa_expect, ec_items, ec_expect, replicas, seed: int) -> dict:
+    """The port's crypto sidecar on a Unix socket on the card
+    (max_batch=4096), with SIDECAR_TENANTS tenant threads, each on its own
+    channel: (a) the 4096 RSA verify items, 512 a tenant, each tenant's
+    batch mixed with 32 of 256 EC items (which stay in the tenant: K5);
+    (b) 256 sign shares under 8 replica keys, each tenant registering its
+    key first; (c) 128 MODEXP items, 64 at 2048 bits and 64 at 1024 bits.
+    Every answer must equal the host's, with no tenant fallback, shed or
+    error, and the sidecar's flushes must launch K1 and K2.  Then timed
+    rounds, the STATS frame, and K1 and K2 against their plain versions on
+    the sidecar's own operands."""
+    import tempfile
+
+    from bftkv_tpu_torch.cmd import verify_sidecar as vs
+    from bftkv_tpu_torch.metrics import registry as metrics
+    from bftkv_tpu_torch.ops import cuda_rns, rns
+
+    n_t = SIDECAR_TENANTS
+    per = len(rsa_items) // n_t
+    ec_per = SIDECAR_EC_ITEMS // n_t
+    v_jobs = [rsa_items[t * per:(t + 1) * per] + ec_items[t * ec_per:(t + 1) * ec_per]
+              for t in range(n_t)]
+    v_want = [rsa_expect[t * per:(t + 1) * per] + ec_expect[t * ec_per:(t + 1) * ec_per]
+              for t in range(n_t)]
+    share = SIGN_SHARES // n_t
+    keys = replicas[:n_t]
+    rng = random.Random(seed + 11)
+    m_per = SIDECAR_MODEXP // n_t
+    m_jobs = [[(rng.getrandbits(2048), rng.getrandbits(2048), keys[t].n) for _ in range(m_per // 2)]
+              + [(rng.getrandbits(1024), rng.getrandbits(1024), keys[t].p) for _ in range(m_per // 2)]
+              for t in range(n_t)]
+
+    def s_jobs(tag):
+        return [[(b"sidecar-share-%s-%d-%d" % (tag.encode(), t, j), keys[t]) for j in range(share)]
+                for t in range(n_t)]
+
+    sock_dir = tempfile.mkdtemp(prefix="bftkv-sidecar-")
+    addr = f"unix:{os.path.join(sock_dir, 'crypto.sock')}"
+    # Admission sized for the 8 tenants (one service slot each, where the
+    # default is 4), and the online recalibration loop off: it would
+    # re-price the crossover from the modexp round trips of the earlier
+    # phases mid-run.
+    env = {"BFTKV_SIDECAR_MAX_INFLIGHT": str(n_t), "BFTKV_DISPATCH_RECAL_S": "0"}
+    prev = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        srv, _thread = vs.serve(addr, max_batch=VERIFY_FLUSH, max_wait=SIDECAR_MAX_WAIT, device=dev)
+    finally:
+        for k, v in prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    svc = srv.service
+    tenants: list = []
+    quiet = ("verify.remote_fallback", "sign.remote_fallback", "modexp.remote_fallback",
+             "verify.remote_shed", "sign.remote_shed", "modexp.remote_shed",
+             "verify.remote_breaker_open", "verify.remote_bad_mac", "sign.remote_refused",
+             "crypto.sidecar.dishonest", "sign.host", "modexp.host")
+
+    def clean(c, what):
+        bad = {k: c.snap[k] for k in quiet if c.snap.get(k)}
+        check(not bad, f"sidecar {what}: a tenant fell back, was shed or saw ERR: {bad}")
+        check(svc.admission.shed == 0, f"sidecar {what}: admission shed {svc.admission.shed}")
+
+    verify_call = lambda tn, job: [bool(v) for v in tn.verifier.verify_batch(job)]
+    sign_call = lambda tn, job: tn.signer.sign_batch(job)
+    modexp_call = lambda tn, job: tn.modexp.powmod_batch(job)
+    try:
+        tenants += [_Tenant(addr, dev) for _ in range(n_t)]
+        # (a) verify, counted
+        with Recorder(cuda_rns, ("verify_cuda", "pow_cuda")) as rec_v, Counted() as c_v:
+            got, _ = _tenant_rounds(tenants, v_jobs, verify_call)
+        check(got == v_want, "sidecar verify verdicts differ from the host on "
+              f"{sum(g != w for gs, ws in zip(got, v_want) for g, w in zip(gs, ws))} items")
+        clean(c_v, "verify")
+        rsa_n = per * n_t
+        rns_capable = sum(1 for m, s, pub in rsa_items
+                          if rns.context().key_rows(pub.n) is not None
+                          and int.from_bytes(s, "big") < pub.n)
+        check(c_v.snap.get("verify.remote", 0) == rsa_n, f"verify.remote {c_v.snap.get('verify.remote')}")
+        check(c_v.snap.get("verify.device", 0) == rns_capable,
+              f"sidecar verify.device {c_v.snap.get('verify.device')} != {rns_capable}")
+        check(c_v.snap.get("verify.ec", 0) == SIDECAR_EC_ITEMS, f"tenant verify.ec {c_v.snap.get('verify.ec')}")
+        k1 = c_v.launches["verify"]
+        check(k1 >= 1, "the sidecar's verify flushes launched no K1")
+        check(c_v.launches["ec_scalar_mult"] >= 1, "the tenants' EC items launched no K5")
+        items_per_k1 = c_v.snap["verify.device"] / k1
+        check(items_per_k1 > per, f"items per K1 launch {items_per_k1} <= one tenant's {per}: "
+              "no coalescing across tenants")
+        print(f"sidecar verify: {n_t} tenants x ({per} RSA + {ec_per} EC) items, "
+              f"verify.remote={c_v.snap.get('verify.remote')} verify.device={c_v.snap['verify.device']} "
+              f"flushes={c_v.snap.get('dispatch.flushes')} K1 launches {k1} "
+              f"({items_per_k1:.1f} items a launch), tenant K5 launches "
+              f"{c_v.launches['ec_scalar_mult']}", flush=True)
+        # (b) sign, counted: each tenant registers its key, then signs
+        with Recorder(cuda_rns, ("verify_cuda", "pow_cuda")) as rec_s, Counted() as c_s:
+            jobs = s_jobs("counted")
+            got, _ = _tenant_rounds(tenants, jobs, sign_call)
+        for job, sigs in zip(jobs, got):
+            check_signatures(job, sigs, "sidecar sign")
+        clean(c_s, "sign")
+        check(c_s.snap.get("sign.remote", 0) == SIGN_SHARES and c_s.snap.get("sign.device", 0)
+              == SIGN_SHARES, f"sidecar sign: remote {c_s.snap.get('sign.remote')} device "
+              f"{c_s.snap.get('sign.device')}")
+        check(c_s.snap.get("sign.remote_register", 0) == n_t,
+              f"sign.remote_register {c_s.snap.get('sign.remote_register')}")
+        check(c_s.snap.get("sign.fault", 0) == 0, f"sidecar sign.fault {c_s.snap.get('sign.fault')}")
+        check(c_s.launches["pow"] >= 1, "the sidecar's sign flushes launched no K2")
+        print(f"sidecar sign: {SIGN_SHARES} shares under {n_t} keys, "
+              f"sign.remote_register={c_s.snap['sign.remote_register']} "
+              f"flushes={c_s.snap.get('signdispatch.flushes')} launches K2 {c_s.launches['pow']} "
+              f"K1 {c_s.launches['verify']}", flush=True)
+        # (c) modexp, counted
+        with Recorder(cuda_rns, ("pow_cuda",)) as rec_m, Counted() as c_m:
+            got, _ = _tenant_rounds(tenants, m_jobs, modexp_call)
+        check(got == [[pow(b, e, m) for b, e, m in job] for job in m_jobs],
+              "sidecar modexps differ from host pow")
+        clean(c_m, "modexp")
+        check(c_m.snap.get("modexp.remote", 0) == SIDECAR_MODEXP
+              and c_m.snap.get("modexp.device", 0) == SIDECAR_MODEXP,
+              f"sidecar modexp: remote {c_m.snap.get('modexp.remote')} device "
+              f"{c_m.snap.get('modexp.device')}")
+        check(c_m.launches["pow"] >= 2, f"sidecar modexp launched {c_m.launches}")
+        print(f"sidecar modexp: {SIDECAR_MODEXP} items (2048 and 1024 bits), "
+              f"flushes={c_m.snap.get('modexpdispatch.flushes')} K2 launches {c_m.launches['pow']}",
+              flush=True)
+
+        # timed rounds: tenant round trips, the sidecar's flushes beside them
+        with FlushClock(svc.verify) as fv, FlushClock(svc.sign) as fs:
+            for tn in tenants:
+                tn.request_s.clear()
+                tn.local_s.clear()
+            metrics.reset()
+            v_rtt = [_tenant_rounds(tenants, v_jobs, verify_call)[1] for _ in range(SIDECAR_ROUNDS)]
+            v_req = [list(tn.request_s) for tn in tenants]
+            v_local = [list(tn.local_s) for tn in tenants]
+            v_snap = metrics.snapshot()
+            for tn in tenants:
+                tn.request_s.clear()
+            s_rtt = [_tenant_rounds(tenants, s_jobs(f"timed{r}"), sign_call)[1]
+                     for r in range(SIDECAR_ROUNDS)]
+            s_req = [list(tn.request_s) for tn in tenants]
+            s_snap = metrics.snapshot()
+        stats = tenants[0].channel.stats()  # its counters: the timed rounds
+        check(stats is not None and stats["device_plane"]["device"] == str(dev),
+              f"sidecar STATS frame {stats}")
+        rings = stats["device_plane"]["buffer_rings"]
+        check(all(r["in_flight"] == 0 for r in rings.values()), f"a sidecar slot in flight: {rings}")
+    finally:
+        for tn in tenants:
+            tn.channel.close()
+        svc.stop()
+        srv.shutdown()
+        srv.server_close()
+        try:
+            os.unlink(addr[len("unix:"):])
+            os.rmdir(sock_dir)
+        except OSError:
+            pass
+
+    # K1 and K2 against their plain versions on the sidecar's own operands
+    k1_calls = rec_v.calls["verify_cuda"] + rec_s.calls["verify_cuda"]
+    k2_calls = rec_s.calls["pow_cuda"] + rec_m.calls["pow_cuda"]
+    check(len(k1_calls) == c_v.launches["verify"] + c_s.launches["verify"]
+          and len(k2_calls) == c_s.launches["pow"] + c_m.launches["pow"],
+          "recorded sidecar launches differ from the launch counts")
+    for a in k1_calls:
+        g = cuda_rns.verify_cuda(*a)
+        p = rns._verify_kernel(a[4], a[0], a[1], rns.gather_key(a[3], a[2]))
+        check(torch.equal(g, p), f"K1 differs from its plain version on sidecar operands (T={a[0].shape[0]})")
+    for a in k2_calls:
+        g = cuda_rns.pow_cuda(*a)
+        p = rns._pow_kernel(a[4], a[0], a[1], rns.gather_key(a[3], a[2]))
+        check(torch.equal(g.long(), p.long()),
+              f"K2 differs from its plain version on sidecar operands (k={a[4].k}, T={a[0].shape[0]})")
+    records = [
+        rns_record("K1 rns_verify_kernel (sidecar verify flush)", "verify",
+                   "bftkv_tpu/ops/pallas_rns.py:517", rec_v.calls["verify_cuda"][0], k1, 20, 3,
+                   phase_launches={"sidecar_verify": k1}, **cuda_rns.kernel_attrs()["verify"]),
+        rns_record("K2 rns_pow_kernel (sidecar sign flush)", "pow",
+                   "bftkv_tpu/ops/pallas_rns.py:403", rec_s.calls["pow_cuda"][0],
+                   c_s.launches["pow"], 10, 2, phase_launches={"sidecar_sign": c_s.launches["pow"]},
+                   **cuda_rns.kernel_attrs()["pow"]),
+    ]
+    med = statistics.median
+    per_tenant_v = [med(r[t] for r in v_rtt) * 1e3 for t in range(n_t)]
+    per_tenant_s = [med(r[t] for r in s_rtt) * 1e3 for t in range(n_t)]
+    out = {
+        "tenants": n_t,
+        "verify_items_per_k1_launch": items_per_k1,
+        "launches": {"verify": dict(c_v.launches), "sign": dict(c_s.launches),
+                     "modexp": dict(c_m.launches)},
+        "verify_rtt_ms_median_per_tenant": per_tenant_v,
+        "sign_rtt_ms_median_per_tenant": per_tenant_s,
+        "verify_request_ms_median_per_tenant": [med(r) * 1e3 for r in v_req],
+        "verify_local_ec_ms_median_per_tenant": [med(r) * 1e3 for r in v_local],
+        "sign_request_ms_median_per_tenant": [med(r) * 1e3 for r in s_req],
+        "verify_dispatch_wait_ms_p50": v_snap["dispatch.wait.p50"] * 1e3,
+        "sign_dispatch_wait_ms_p50": s_snap["signdispatch.wait.p50"] * 1e3,
+        "verify_flush_ms_median": med(fv.seconds) * 1e3,
+        "verify_flushes_timed": len(fv.seconds),
+        "sign_flush_ms_median": med(fs.seconds) * 1e3,
+        "sign_flushes_timed": len(fs.seconds),
+        "stats_rings": rings,
+        "stats_batch": stats["batch"],
+        "k1_checked": [a[0].shape[0] for a in k1_calls],
+        "k2_checked": [(a[4].k, a[0].shape[0]) for a in k2_calls],
+        "records": records,
+    }
+    print("sidecar round trips (median of %d rounds, ms): verify per tenant %s; sign per tenant %s"
+          % (SIDECAR_ROUNDS, [round(x, 3) for x in per_tenant_v], [round(x, 3) for x in per_tenant_s]),
+          flush=True)
+    print("sidecar round trips on the channel (median, ms): verify per tenant %s; sign per tenant %s"
+          % ([round(x, 3) for x in out["verify_request_ms_median_per_tenant"]],
+             [round(x, 3) for x in out["sign_request_ms_median_per_tenant"]]), flush=True)
+    print("tenants' own EC items, verified in the tenant (K5; median, ms): %s"
+          % [round(x, 3) for x in out["verify_local_ec_ms_median_per_tenant"]], flush=True)
+    print(f"sidecar flushes (median, ms): verify {out['verify_flush_ms_median']:.3f} over "
+          f"{len(fv.seconds)} flushes (dispatcher wait p50 {out['verify_dispatch_wait_ms_p50']:.3f}), "
+          f"sign {out['sign_flush_ms_median']:.3f} over {len(fs.seconds)} (wait p50 "
+          f"{out['sign_dispatch_wait_ms_p50']:.3f})", flush=True)
+    print("sidecar STATS rings (acquires/overflows, none in flight): "
+          + ", ".join(f"{k} {r['acquires']}/{r['overflows']}" for k, r in sorted(rings.items())),
+          flush=True)
+    return out
+
+
+# -- the shard phase ---------------------------------------------------------------
+
+
+def shard_phase(dev, rsa_items, replicas) -> dict:
+    """The split of the RNS launches (ops/rns.py): entry.dryrun_multichip(2);
+    then the verify at T=4096 and the sign modexp at k=94 T=512, split over
+    two shards of this card (separate streams) and, with two or more cards,
+    over every card, each bit for bit against the unsplit launch."""
+    from bftkv_tpu_torch import entry
+    from bftkv_tpu_torch.crypto import rsa
+    from bftkv_tpu_torch.ops import rns
+
+    count = torch.cuda.device_count()
+    print(f"shard phase: torch.cuda.device_count() = {count}", flush=True)
+    os.environ.update(BFTKV_SHARD="auto")
+    with Counted() as c_d:
+        dry = entry.dryrun_multichip(2)
+    check(c_d.launches["verify"] == 2 and c_d.launches["pow"] == dry["pow_shards"] == 2,
+          f"dryrun_multichip(2) launched {c_d.launches}, pow shards {dry['pow_shards']}")
+
+    ctx = rns.context()
+    unique, urows, idx, sigs, ems = {}, [], [], [], []
+    for m, s, pub in rsa_items:
+        kr, sv = ctx.key_rows(pub.n), int.from_bytes(s, "big")
+        if kr is None or sv >= pub.n:
+            continue
+        if pub.n not in unique:
+            unique[pub.n] = len(urows)
+            urows.append(kr)
+        idx.append(unique[pub.n])
+        sigs.append(sv)
+        ems.append(rsa.emsa_pkcs1v15_sha256(m, pub.size_bytes))
+    rng = random.Random(len(sigs))
+    bases, exps, mods = [], [], []
+    for j in range(SIGN_SHARES):
+        key = replicas[j % len(replicas)]
+        c = rng.randrange(key.n)
+        for pr in (key.p, key.q):
+            bases.append(c % pr)
+            exps.append(key.d % (pr - 1))
+            mods.append(pr)
+    want_pow = [pow(b, e, m) for b, e, m in zip(bases, exps, mods)]
+
+    def run(shards):
+        scope = rns.shard_over(shards) if shards else contextlib.nullcontext()
+        with scope, Counted() as c:
+            t0 = time.perf_counter()
+            v = rns.verify_e65537_rns_indexed(sigs, ems, idx, urows, device=dev)
+            t1 = time.perf_counter()
+            p = rns.power_mod_rns(bases, exps, mods, n_bits=1024, device=dev)
+            t2 = time.perf_counter()
+        return v, p, c.launches, (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+    v0, p0, l0, v0_ms, p0_ms = run([dev])  # one shard: the unsplit launch
+    check(p0 == want_pow, "unsplit sign modexp differs from host pow")
+    check(l0["verify"] == 1 and l0["pow"] == 1, f"unsplit launches {l0}")
+    out = {"device_count": count, "dryrun": dry, "dryrun_launches": dict(c_d.launches),
+           "verify_rows": len(sigs), "pow_rows": len(bases),
+           "unsplit": {"verify_ms": v0_ms, "pow_ms": p0_ms, "launches": dict(l0)}}
+    runs = [("one_card_two_streams", [dev, dev])]
+    if count >= 2:
+        runs.append(("every_card", None))  # the default split: every local card
+    for name, shards in runs:
+        v, p, launches, v_ms, p_ms = run(shards)
+        n = len(shards) if shards else count
+        check(v.shape == v0.shape and bool((v == v0).all()),
+              f"split verify ({name}) differs from the unsplit launch")
+        check(p == p0, f"split sign modexp ({name}) differs from the unsplit launch")
+        check(launches["verify"] == n and launches["pow"] == n, f"split ({name}) launched {launches}")
+        out[name] = {"shards": n, "verify_ms": v_ms, "pow_ms": p_ms, "launches": dict(launches)}
+    print(f"shard phase: dryrun_multichip(2) votes {dry['votes']}/{dry['batch']} on {dry['devices']}; "
+          f"split verify T={rns._pad_rows(len(sigs), 256)} and pow k=94 T={len(bases)} bit-identical to unsplit: "
+          + ", ".join(f"{k} ({out[k]['shards']} shards, verify {out[k]['verify_ms']:.1f} ms, "
+                      f"pow {out[k]['pow_ms']:.1f} ms)" for k, _s in runs)
+          + f"; unsplit verify {v0_ms:.1f} ms, pow {p0_ms:.1f} ms (host clock)", flush=True)
+    return out
+
+
 def cuda_ms(fn, reps: int) -> float:
     fn()
     torch.cuda.synchronize()
@@ -1108,6 +1502,10 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     build_dir = os.path.dirname(_build.BUILD_DIR)
+    # Every phase before the shard phase counts one launch a flush: on a
+    # machine with two or more cards they run unsplit, and the shard phase
+    # runs the split.
+    os.environ.update(BFTKV_SHARD="off")
 
     # 1. keys and signed items (host, outside every timed phase)
     t0 = time.perf_counter()
@@ -1320,6 +1718,12 @@ def main() -> int:
     # 9. EC phase: the same cluster on P-256 identity keys
     ec = ec_phase(dev, items, expect, ec_items, ec_expect, ec_replicas)
 
+    # 10. sidecar phase: the port's crypto sidecar serving 8 tenants
+    sidecar = sidecar_phase(dev, items, expect, ec_items, ec_expect, replicas, args.seed)
+
+    # 11. shard phase: the RNS launches split over shards
+    shard = shard_phase(dev, items, replicas)
+
     v_med, s_med = statistics.median(v_times), statistics.median(s_times)
     p_med, l_med = statistics.median(p_times), statistics.median(l_times)
     print(f"verify flush (rns): median {v_med * 1e3:.3f} ms of {TIMED_REPS} "
@@ -1336,8 +1740,16 @@ def main() -> int:
     print(f"sign flush (limb): median {l_med * 1e3:.3f} ms of {LIMB_SIGN_REPS} "
           f"({SIGN_SHARES / l_med:.0f} signatures/s), all {[t * 1e3 for t in l_times]}",
           flush=True)
+    print(f"socket hop: sidecar verify flush median {sidecar['verify_flush_ms_median']:.3f} ms "
+          f"and tenant round trip median {statistics.median(sidecar['verify_rtt_ms_median_per_tenant']):.3f} "
+          f"ms ({VERIFY_FLUSH // SIDECAR_TENANTS} RSA + {SIDECAR_EC_ITEMS // SIDECAR_TENANTS} EC items) "
+          f"beside the in-process rns verify flush {v_med * 1e3:.3f} ms; sidecar sign flush median "
+          f"{sidecar['sign_flush_ms_median']:.3f} ms and tenant round trip median "
+          f"{statistics.median(sidecar['sign_rtt_ms_median_per_tenant']):.3f} ms "
+          f"({SIGN_SHARES // SIDECAR_TENANTS} shares) beside the in-process rns sign flush "
+          f"{s_med * 1e3:.3f} ms", flush=True)
 
-    # 10. each kernel against its plain version, on the main paths' operands
+    # 12. each kernel against its plain version, on the main paths' operands
     v_args = [a for a in rec_v.calls["verify_cuda"] if a[0].shape[0] == VERIFY_FLUSH]
     check(len(v_args) == 1, f"expected one {VERIFY_FLUSH}-row verify launch")
     p_args = rec_s.calls["pow_cuda"]
@@ -1403,6 +1815,7 @@ def main() -> int:
     k3 = kernels[-1]
     k3.update(phase_launches={"verify_pallas": p_launch["mont_verify"]}, **attrs["mont_verify"])
     kernels += ec.pop("records")
+    kernels += sidecar.pop("records")
     print(f"K1 before its redesign, not measured in this run ({K1_EARLIER_OF}): "
           + ", ".join(f"T={t} {ms} ms" for t, ms in K1_EARLIER_MS.items())
           + "; this run: " + ", ".join(f"T={r['rows']} {r['ms']:.4f} ms" for r in kernels[0:3]),
@@ -1435,9 +1848,11 @@ def main() -> int:
         },
         "dispatch_plane": plane,
         "ec": ec,
+        "sidecar": sidecar,
+        "shard": shard,
     }), flush=True)
 
-    # 11. the card, as nvidia-smi reports it
+    # 13. the card, as nvidia-smi reports it
     print(nvidia_smi("name,power.limit") or "nvidia-smi: no output", flush=True)
     print(json.dumps({
         "ok": True,

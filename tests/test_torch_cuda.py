@@ -568,3 +568,177 @@ def test_ecdsa_batches_on_card_launch_k5_once_each(dev):
     attrs = cuda_ec.kernel_attrs()["ec_scalar_mult"]
     assert 0 < attrs["registers"] <= 255 and attrs["points_per_block"] == 8
     assert attrs["local_bytes"] == 0 and attrs["blocks_per_sm"] >= 1
+
+
+# -- the sidecar and the split (M10, M11) ----------------------------------------
+
+
+@pytest.fixture
+def card_sidecar(dev, tmp_path, monkeypatch):
+    """The port's sidecar on a Unix socket on the card, its crossover pinned
+    at 16 items (every frame below reaches the kernels), and one channel."""
+    from bftkv_tpu_torch.cmd import verify_sidecar as vs
+    from bftkv_tpu_torch.crypto.remote_verify import SidecarChannel
+    from bftkv_tpu_torch.ops import dispatch
+
+    monkeypatch.setenv("BFTKV_DISPATCH_RECAL_S", "0")
+    addr = f"unix:{tmp_path}/card.sock"
+    srv, _t = vs.serve(addr, max_wait=0.01, device=dev)
+    monkeypatch.setenv("BFTKV_DISPATCH_CROSSOVER", "16")
+    srv.service.recalibrate()
+    chan = SidecarChannel(addr)
+    yield srv, chan
+    chan.close()
+    srv.service.stop()
+    srv.shutdown()
+    srv.server_close()
+    monkeypatch.delenv("BFTKV_DISPATCH_CROSSOVER")
+    dispatch.calibration(force=True, device=dev)
+
+
+def test_sidecar_on_card_answers_verify_sign_and_modexp_frames(dev, card_sidecar):
+    """VERIFY, REGISTER + SIGN and MODEXP frames answered from the card: K1
+    and K2 launched, every answer equal to the host's."""
+    import io
+    import struct
+
+    from bftkv_tpu_torch.cmd import verify_sidecar as vs
+    from bftkv_tpu_torch.packet import read_chunk
+
+    srv, chan = card_sidecar
+    key = rsa.generate(2048, seed=81)
+    items = [(b"card-sc-%d" % i, rsa.sign(b"card-sc-%d" % i, key), key.public) for i in range(32)]
+    items[5] = (items[5][0], items[6][1], key.public)
+    cuda_rns.reset_launches()
+    metrics.reset()
+    st, body = chan.request(vs.OP_VERIFY, vs.encode_request(items))
+    assert st == vs.ST_OK and body == bytes(i != 5 for i in range(32))
+    assert cuda_rns.LAUNCHES["verify"] == 1
+    st, body = chan.request(vs.OP_REGISTER, vs.encode_register_request([key]))
+    assert st == vs.ST_OK and struct.unpack(">II", body) == (1, 1)
+    msgs = [b"card-share-%d" % i for i in range(16)]
+    st, body = chan.request(vs.OP_SIGN, vs.encode_sign_request([(1, m) for m in msgs]))
+    r = io.BytesIO(body)
+    assert st == vs.ST_OK and [read_chunk(r) for _ in msgs] == [rsa.sign(m, key) for m in msgs]
+    assert cuda_rns.LAUNCHES["pow"] == 1
+    rng = random.Random(82)
+    mx = [(rng.getrandbits(2048), rng.getrandbits(2048), key.n) for _ in range(16)]
+    st, body = chan.request(vs.OP_MODEXP, vs.encode_modexp_request(mx))
+    r = io.BytesIO(body)
+    assert st == vs.ST_OK
+    assert [int.from_bytes(read_chunk(r), "big") for _ in mx] == [pow(*it) for it in mx]
+    assert cuda_rns.LAUNCHES["pow"] == 2
+    snap = metrics.snapshot()
+    assert snap["verify.device"] == 32 and snap["sign.device"] == 16 and snap["modexp.device"] == 16
+    assert not any(snap.get(k) for k in ("verify.host", "sign.host", "modexp.host"))
+
+
+def test_k2_error_inside_the_sidecar_reaches_the_tenant_as_err(dev, card_sidecar, monkeypatch):
+    """A refused K2 launch inside the sidecar: the frame gets ST_ERR and the
+    sidecar answers nothing from its own host crypto; the tenant's domain
+    falls back to local pow and opens its breaker."""
+    from bftkv_tpu_torch.cmd import verify_sidecar as vs
+    from bftkv_tpu_torch.crypto.remote_verify import RemoteModexpDomain
+    from bftkv_tpu_torch.ops import _build, devbuf
+
+    srv, chan = card_sidecar
+    lib = _build.library()
+
+    class Refusing:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        @staticmethod
+        def rns_pow_launch(*args):
+            return 1  # cudaErrorInvalidValue
+
+    monkeypatch.setattr(_build, "library", lambda: Refusing())
+    n = rsa.generate(2048, seed=83).n
+    rng = random.Random(84)
+    mx = [(rng.getrandbits(2048), rng.getrandbits(2048), n) for _ in range(16)]
+    metrics.reset()
+    st, body = chan.request(vs.OP_MODEXP, vs.encode_modexp_request(mx))
+    assert st == vs.ST_ERR and body == b""
+    md = RemoteModexpDomain(channel=chan, spot_rate=0.0)
+    assert md.powmod_batch(mx) == [pow(*it) for it in mx]
+    snap = metrics.snapshot()
+    assert snap["modexp.remote_fallback"] == 16 and chan.tripped()
+    assert not snap.get("modexp.host") and not snap.get("modexp.device")
+    assert all(r["in_flight"] == 0 for r in devbuf.stats().values())
+
+
+def test_split_over_two_shards_of_one_card_equals_unsplit(dev):
+    """The verify and the sign modexp split over ["cuda:0", "cuda:0"] (two
+    streams of one card): bit-identical to the unsplit launch, one launch a
+    shard."""
+    ctx = rns.context()
+    ns = _moduli(ctx, 2048, 3, seed=85)
+    rng = random.Random(86)
+    idx = [rng.randrange(3) for _ in range(300)]
+    sigs = [rng.randrange(ns[i]) for i in idx]
+    ems = [pow(s, 65537, ns[i]) if j % 3 else rng.randrange(ns[i]) for j, (s, i) in enumerate(zip(sigs, idx))]
+    urows = [ctx.key_rows(n) for n in ns]
+    mods = _moduli(rns.context(64, 1024), 1024, 4, seed=87)
+    bases = [rng.getrandbits(1024) for _ in range(100)]
+    exps = [rng.getrandbits(1024) for _ in range(100)]
+    mods = [mods[i % 4] for i in range(100)]
+    cuda_rns.reset_launches()
+    v0 = rns.verify_e65537_rns_indexed(sigs, ems, idx, urows, device=dev)
+    p0 = rns.power_mod_rns(bases, exps, mods, device=dev)
+    assert cuda_rns.LAUNCHES == {"verify": 1, "pow": 1}
+    with rns.shard_over([dev, dev]):
+        v = rns.verify_e65537_rns_indexed(sigs, ems, idx, urows, device=dev)
+        d = rns.power_mod_rns(bases, exps, mods, device=dev, defer=True)
+        assert len(d.events) == 2
+        p = d.wait()
+    assert cuda_rns.LAUNCHES == {"verify": 3, "pow": 3}
+    np.testing.assert_array_equal(v, v0)
+    np.testing.assert_array_equal(v0, [j % 3 != 0 for j in range(300)])
+    assert p == p0 == [pow(b, e, m) for b, e, m in zip(bases, exps, mods)]
+
+
+def test_kernels_launch_on_their_tensors_card(dev):
+    """K1 and K2 on operands on cuda:1, launched from a thread whose current
+    card is cuda:0: the wrappers make the operands' card current, so the
+    shared-memory attribute and the launch land on cuda:1."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    dev1 = torch.device("cuda", 1)
+    a1, want = _k1_operands(dev1, 64, 2, seed=88)
+    ctx = rns.context(64, 1024)
+    ns = _moduli(ctx, 1024, 2, seed=89)
+    rng = random.Random(90)
+    bases = [rng.getrandbits(1024) for _ in range(40)]
+    exps = [rng.getrandbits(1024) for _ in range(40)]
+    mods = [ns[i % 2] for i in range(40)]
+    with torch.cuda.device(0):
+        got = cuda_rns.verify_cuda(*a1)
+        torch.cuda.synchronize(dev1)
+        assert got.device == dev1 and got.cpu().tolist() == want
+        assert rns.power_mod_rns(bases, exps, mods, device=dev1) == [
+            pow(b, e, m) for b, e, m in zip(bases, exps, mods)]
+        assert torch.cuda.current_device() == 0
+
+
+def test_tallies_on_card_equal_the_cpu(dev):
+    """The tallies on the card (a float32 product, where CUDA may use TF32)
+    equal the CPU's, which tests/test_torch_tally.py holds against the
+    reference's jits."""
+    from bftkv_tpu_torch.ops import tally
+
+    rng = np.random.default_rng(91)
+    membership = rng.random((9, 300)) < 0.4
+    candidates = rng.random((2000, 300)) < 0.5
+    f = rng.integers(-1, 60, size=9).astype(np.int32)
+    min_ = rng.integers(0, 120, size=9).astype(np.int32)
+    got = tally.counts(membership, candidates, device=dev)
+    assert got.device == dev and got.dtype == torch.int32
+    assert torch.equal(got.cpu(), tally.counts(membership, candidates, device="cpu"))
+    for name, args in (("is_threshold_batch", (min_,)), ("is_quorum_batch", (f, min_)),
+                       ("is_sufficient_batch", (min_,)), ("reject_batch", (f,))):
+        mine = getattr(tally, name)(membership, candidates, *args, device=dev)
+        assert torch.equal(mine.cpu(), getattr(tally, name)(membership, candidates, *args,
+                                                            device="cpu"))
+    signer_sets = rng.random((5, 300)) < 0.3
+    assert torch.equal(tally.equivocation_pairs(signer_sets, device=dev).cpu(),
+                       tally.equivocation_pairs(signer_sets, device="cpu"))

@@ -61,21 +61,30 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import bftkv_tpu_torch.errors, bftkv_tpu_torch.crypto.rng, bftkv_tpu_torch.crypto.ec\n"
         "import bftkv_tpu_torch.crypto.ecdsa, bftkv_tpu_torch.ops.ec\n"
         "import bftkv_tpu_torch.ops.ec_rns, bftkv_tpu_torch.ops.cuda_ec\n"
-        "new = {m.split('.')[0] for m in set(sys.modules) - before}\n"
-        "print(sorted(new & {'jax', 'jaxlib', 'bftkv_tpu'}))\n"
+        "import bftkv_tpu_torch.ops.tally, bftkv_tpu_torch.entry, bftkv_tpu_torch.admission\n"
+        "import bftkv_tpu_torch.packet, bftkv_tpu_torch.crypto.aead, bftkv_tpu_torch.crypto.cert\n"
+        "import bftkv_tpu_torch.cmd.verify_sidecar, bftkv_tpu_torch.crypto.remote_verify\n"
+        "from bftkv_tpu_torch.ops import _build\n"
+        "new = set(sys.modules) - before\n"
+        "tops = {m.split('.')[0] for m in new}\n"
+        "print(sorted(tops & {'jax', 'jaxlib', 'bftkv_tpu', 'triton'}),\n"
+        "      'torch.utils.cpp_extension' in new, _build._lib is None)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True,
         env=env, cwd=str(ROOT), timeout=120, check=True,
     )
-    assert out.stdout.strip() == "[]", out.stdout + out.stderr
+    # No JAX, no reference, no Triton, no kernel build at import.
+    assert out.stdout.strip() == "[] False True", out.stdout + out.stderr
 
 
 def _entry_points():
     from bftkv_tpu_torch.crypto import ecdsa, rsa
     from bftkv_tpu_torch.crypto.ec import P256
-    from bftkv_tpu_torch.ops import bigint, dispatch, ec, ec_rns, modexp, rns
+    from bftkv_tpu_torch import entry
+    from bftkv_tpu_torch.cmd import verify_sidecar
+    from bftkv_tpu_torch.ops import bigint, dispatch, ec, ec_rns, modexp, rns, tally
     from bftkv_tpu_torch.ops import rsa as rsa_ops
 
     ctx = rns.context(16, 256)
@@ -116,17 +125,26 @@ def _entry_points():
         "VerifierDomain_limb": lambda: rsa.VerifierDomain(device="cuda", backend="limb"),
         "VerifierDomain_pallas": lambda: rsa.VerifierDomain(device="cuda", backend="pallas"),
         "SignerDomain_limb": lambda: rsa.SignerDomain(device="cuda", backend="limb"),
+        "tally_counts": lambda: tally.counts(np.ones((2, 3), bool), np.ones((4, 3), bool),
+                                             device="cuda"),
+        "entry": lambda: entry.entry("cuda"),
+        "flat_verify": lambda: entry.flat_verify(*(np.zeros((1, 1), np.float32),) * 8,
+                                                 device="cuda"),
+        "dryrun_multichip": lambda: entry.dryrun_multichip(2, "cuda"),
+        "shard_over": lambda: rns.shard_over(["cuda:0"]).__enter__(),
+        "SidecarService": lambda: verify_sidecar.SidecarService(device="cuda"),
+        "serve": lambda: verify_sidecar.serve("127.0.0.1:0", device="cuda"),
     }
 
 
 ENTRY_POINTS = [
-    "BatchModExp", "ModexpDispatcher", "SignDispatcher", "SignerDomain", "SignerDomain_limb",
-    "VerifierDomain", "VerifierDomain_limb", "VerifierDomain_pallas",
-    "VerifyDispatcher", "calibration", "consts_from_numpy", "ec_rns_engine",
+    "BatchModExp", "ModexpDispatcher", "SidecarService", "SignDispatcher", "SignerDomain",
+    "SignerDomain_limb", "VerifierDomain", "VerifierDomain_limb", "VerifierDomain_pallas",
+    "VerifyDispatcher", "calibration", "consts_from_numpy", "dryrun_multichip", "ec_rns_engine",
     "ec_rns_scalar_mult_hosts", "ec_scalar_mult_hosts", "ecdsa_sign_batch",
-    "ecdsa_verify_batch", "key_rows_from_numpy",
-    "limbs_from_numpy", "power_batch", "power_mod_rns", "verify_batch_e65537",
-    "verify_e65537_rns_indexed",
+    "ecdsa_verify_batch", "entry", "flat_verify", "key_rows_from_numpy",
+    "limbs_from_numpy", "power_batch", "power_mod_rns", "serve", "shard_over", "tally_counts",
+    "verify_batch_e65537", "verify_e65537_rns_indexed",
 ]
 
 
@@ -176,6 +194,15 @@ def test_flag_seam():
         "BFTKV_TRACE",
         "BFTKV_SLOW_TRACE_SECONDS",
         "BFTKV_LOCKWATCH",
+        "BFTKV_SHARD",
+        "BFTKV_DISPATCH_RECAL_S",
+        "BFTKV_SIDECAR_SIGN",
+        "BFTKV_SIDECAR_SPOT_RATE",
+        "BFTKV_SIDECAR_BREAKER",
+        "BFTKV_SIDECAR_MAX_INFLIGHT",
+        "BFTKV_SIDECAR_MAX_QUEUE",
+        "BFTKV_SIDECAR_MAX_WAIT",
+        "BFTKV_SIDECAR_MAX_KEYS",
     }
     # Every declared flag is read somewhere in the port, and no BFTKV_*
     # name is read from the environment outside flags.py.
