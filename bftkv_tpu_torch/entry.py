@@ -92,7 +92,7 @@ def dryrun_multichip(n_devices: int, device=None, *, seed: int = 0) -> dict:
     base = devmod.resolve(device)
     if base.type == "cuda":
         count = torch.cuda.device_count()
-        devs = [torch.device("cuda", i % count) for i in range(n_devices)]
+        devs = [torch.device("cuda", (base.index + i) % count) for i in range(n_devices)]
     else:
         devs = [base] * n_devices
 

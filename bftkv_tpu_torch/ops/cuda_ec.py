@@ -25,7 +25,6 @@ import threading
 
 import torch
 
-from bftkv_tpu_torch import device as devmod
 from bftkv_tpu_torch.ops import _build
 
 __all__ = ["LAUNCHES", "kernel_attrs", "reset_launches", "scalar_mult_cuda"]
@@ -42,13 +41,13 @@ def reset_launches() -> None:
         LAUNCHES["ec_scalar_mult"] = 0
 
 
-def kernel_attrs(device=None) -> dict[str, dict[str, int]]:
+def kernel_attrs() -> dict[str, dict[str, int]]:
     """Registers and local-memory bytes per thread of K5 as built for
-    ``device`` (default ``cuda:0``), its points per block (one group of
-    8, the mma's N) and the blocks an SM holds at once."""
+    ``cuda:0``, its points per block (one group of 8, the mma's N) and the
+    blocks an SM holds at once."""
     lib = _build.library()
     regs, local, pts, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    with torch.cuda.device(devmod.resolve(device)):
+    with torch.cuda.device(0):
         rc = lib.ec_kernel_attrs(ctypes.byref(regs), ctypes.byref(local), ctypes.byref(pts),
                                  ctypes.byref(blocks))
     if rc != 0:

@@ -20,7 +20,6 @@ import threading
 
 import torch
 
-from bftkv_tpu_torch import device as devmod
 from bftkv_tpu_torch.ops import _build
 
 __all__ = ["LAUNCHES", "ROWS_PER_BLOCK", "THREADS_PER_ROW", "TILE", "kernel_attrs",
@@ -44,13 +43,12 @@ def reset_launches() -> None:
         LAUNCHES["mont_verify"] = 0
 
 
-def kernel_attrs(device=None) -> dict[str, dict[str, int]]:
+def kernel_attrs() -> dict[str, dict[str, int]]:
     """Registers and local-memory bytes per thread of K3 as built for
-    ``device`` (default ``cuda:0``), beside its threads per row and rows
-    per block."""
+    ``cuda:0``, beside its threads per row and rows per block."""
     lib = _build.library()
     regs, local = ctypes.c_int(), ctypes.c_int()
-    with torch.cuda.device(devmod.resolve(device)):
+    with torch.cuda.device(0):
         rc = lib.mont_kernel_attrs(ctypes.byref(regs), ctypes.byref(local))
     if rc != 0:
         raise RuntimeError(

@@ -29,7 +29,6 @@ import threading
 
 import torch
 
-from bftkv_tpu_torch import device as devmod
 from bftkv_tpu_torch.ops import _build
 from bftkv_tpu_torch.ops import rns
 
@@ -46,14 +45,14 @@ def reset_launches() -> None:
             LAUNCHES[name] = 0
 
 
-def kernel_attrs(device=None) -> dict[str, dict[str, int]]:
+def kernel_attrs() -> dict[str, dict[str, int]]:
     """Registers and local-memory bytes per thread of each kernel as built
-    for ``device`` (default ``cuda:0``), and its rows per block."""
+    for ``cuda:0``, and its rows per block."""
     lib = _build.library()
     out = {}
     for name, fn in (("verify", lib.rns_verify_attrs), ("pow", lib.rns_pow_attrs)):
         regs, local, rows = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-        with torch.cuda.device(devmod.resolve(device)):
+        with torch.cuda.device(0):
             rc = fn(ctypes.byref(regs), ctypes.byref(local), ctypes.byref(rows))
         if rc != 0:
             raise RuntimeError(

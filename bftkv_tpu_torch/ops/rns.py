@@ -38,8 +38,8 @@ Three parts:
 **The split over local cards** (the reference's ``_mesh``, ``_shardable``
 and its ``shard_map`` verify and pow jits).  Both entry points split a
 padded batch into contiguous row shards, one per device of
-:func:`shard_devices` — every local ``cuda:i``, or none under two cards
-or with ``BFTKV_SHARD=off`` — when the padded batch divides by the shard
+:func:`shard_devices` — every local ``cuda:i`` from the caller's card
+on, or none under two cards or with ``BFTKV_SHARD=off`` — when the padded batch divides by the shard
 count.  Each shard stages into its own card's ring, with the key rows
 and the constants copied to that card, and launches on its own stream
 (shard 0 on the caller's current stream, shard i > 0 on the thread's
@@ -709,16 +709,24 @@ def shard_over(devices):
 def shard_devices(device=None) -> list | None:
     """The devices a launch on ``device`` splits over: the :func:`shard_over`
     list, else every local card when ``device`` is a card and there are
-    two or more; ``None`` (no split) otherwise and under ``BFTKV_SHARD=off``."""
+    two or more; ``None`` (no split) otherwise and under ``BFTKV_SHARD=off``.
+    The list is rotated to start at ``device`` where it holds it, so shard
+    0 runs on the caller's card and stream."""
     if flags.raw("BFTKV_SHARD", "auto") == "off":
         return None
+    dev = devmod.resolve(device)
     with _shard_lock:
         over = _SHARD_OVER
     if over is not None:
-        return list(over)
-    if devmod.resolve(device).type != "cuda" or torch.cuda.device_count() < 2:
+        devs = list(over)
+    elif dev.type != "cuda" or torch.cuda.device_count() < 2:
         return None
-    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    else:
+        devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    if dev in devs:
+        first = devs.index(dev)
+        devs = devs[first:] + devs[:first]
+    return devs
 
 
 def _shardable(padded: int, shards) -> bool:

@@ -46,21 +46,24 @@ holds every hand-written kernel against its plain PyTorch version:
    EC verify flush split into encode, stage, H2D, K5, D2H, decode and
    finish, and K5 against its plain version on each recorded operand set;
 10. sidecar phase, the deployment of bftkv_tpu_torch/cmd/verify_sidecar.py:
-   the port's sidecar on a Unix socket on the card (max_batch=4096) and 8
-   tenant threads, each on its own SidecarChannel: (a) the 4096 RSA verify
-   items, 512 a tenant, each batch mixed with 32 of 256 EC items, which the
-   tenant verifies on its own VerifierDomain on the card (K5); (b) 256 sign
-   shares under 8 replica keys, REGISTER first; (c) 128 MODEXP items, 64 at
-   2048 bits and 64 at 1024 bits.  Every answer equals the host's, no tenant
-   falls back, is shed or sees ERR, the sidecar's flushes launch K1 and K2,
-   more than one tenant's 512 items ride each K1 launch; then 3 timed rounds
-   of verify and of sign (tenant round trips, the sidecar's flushes), the
-   STATS frame's rings, and every K1 and K2 launch of the sidecar held
+   the port's sidecar on a Unix socket on the card, started as its main()
+   starts it (max_batch=4096, the dispatchers' own window, the default
+   admission), and 8 tenant threads, each on its own SidecarChannel: (a)
+   the 4096 RSA verify items, 512 a tenant, each batch mixed with 32 of 256
+   EC items, which the tenant verifies on its own VerifierDomain on the
+   card (K5); (b) 256 sign shares under 8 replica keys, REGISTER first; (c)
+   128 MODEXP items, 64 at 2048 bits and 64 at 1024 bits.  Every answer
+   equals the host's, no tenant falls back, is shed or sees ERR, the
+   sidecar's flushes launch K1 and K2, more than one tenant's 512 items
+   ride each K1 launch; then 3 timed rounds of verify and of sign (tenant
+   round trips, the sidecar's flushes), the STATS frame's rings, and every
+   K1 and K2 launch of the sidecar and every K5 launch of the tenants held
    against its plain version;
 11. shard phase: torch.cuda.device_count(); entry.dryrun_multichip(2) (both
    shards on this card, on separate streams); the verify at T=4096 and the
    sign modexp at k=94 T=512 split over two shards of this card and, with
    two or more cards, over every card, bit-identical to the unsplit launch;
+   every K1 and K2 launch of the phase held against its plain version;
 12. each kernel against its plain version on the card, on the operands the
    main paths gave it: K1 verdicts (T=4096, T=1024 and every fault check's
    T=256), K2 sigma (k=94 at T=512 and T=64, k=188), K3's whole
@@ -157,11 +160,6 @@ SIDECAR_TENANTS = 8
 SIDECAR_EC_ITEMS = 256  # mixed into the tenants' verify batches, verified in the tenants
 SIDECAR_MODEXP = 128  # 64 at 2048 bits, 64 at 1024 bits
 SIDECAR_ROUNDS = 3  # timed rounds of verify and of sign
-# The sidecar's dispatcher window: wide enough that the tenants' frames,
-# released together but sent after their own EC items (tens to a couple of
-# hundred ms apart on a loaded host), coalesce into shared flushes; a flush
-# leaves early once all 4096 items are in.
-SIDECAR_MAX_WAIT = 0.2
 
 
 def fail(msg: str) -> None:
@@ -1061,21 +1059,23 @@ def _tenant_rounds(tenants, jobs, call):
 
 
 def sidecar_phase(dev, rsa_items, rsa_expect, ec_items, ec_expect, replicas, seed: int) -> dict:
-    """The port's crypto sidecar on a Unix socket on the card
-    (max_batch=4096), with SIDECAR_TENANTS tenant threads, each on its own
-    channel: (a) the 4096 RSA verify items, 512 a tenant, each tenant's
-    batch mixed with 32 of 256 EC items (which stay in the tenant: K5);
-    (b) 256 sign shares under 8 replica keys, each tenant registering its
-    key first; (c) 128 MODEXP items, 64 at 2048 bits and 64 at 1024 bits.
+    """The port's crypto sidecar on a Unix socket on the card, started as
+    its main() starts it (max_batch=4096), with SIDECAR_TENANTS tenant
+    threads, each on its own channel: (a) the 4096 RSA verify items, 512 a
+    tenant, each tenant's batch mixed with 32 of 256 EC items (which stay in
+    the tenant: K5); (b) 256 sign shares under 8 replica keys, each tenant
+    registering its key first; (c) 128 MODEXP items, 64 at 2048 bits and 64
+    at 1024 bits.
     Every answer must equal the host's, with no tenant fallback, shed or
     error, and the sidecar's flushes must launch K1 and K2.  Then timed
-    rounds, the STATS frame, and K1 and K2 against their plain versions on
-    the sidecar's own operands."""
+    rounds, the STATS frame, K1 and K2 against their plain versions on the
+    sidecar's own operands and K5 on the tenants'."""
     import tempfile
 
+    from bftkv_tpu_torch import flags
     from bftkv_tpu_torch.cmd import verify_sidecar as vs
     from bftkv_tpu_torch.metrics import registry as metrics
-    from bftkv_tpu_torch.ops import cuda_rns, rns
+    from bftkv_tpu_torch.ops import cuda_ec, cuda_rns, ec_rns, rns
 
     n_t = SIDECAR_TENANTS
     per = len(rsa_items) // n_t
@@ -1098,21 +1098,19 @@ def sidecar_phase(dev, rsa_items, rsa_expect, ec_items, ec_expect, replicas, see
 
     sock_dir = tempfile.mkdtemp(prefix="bftkv-sidecar-")
     addr = f"unix:{os.path.join(sock_dir, 'crypto.sock')}"
-    # Admission sized for the 8 tenants (one service slot each, where the
-    # default is 4), and the online recalibration loop off: it would
-    # re-price the crossover from the modexp round trips of the earlier
-    # phases mid-run.
-    env = {"BFTKV_SIDECAR_MAX_INFLIGHT": str(n_t), "BFTKV_DISPATCH_RECAL_S": "0"}
-    prev = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
+    # As main() starts it: the dispatchers' own window and the default
+    # admission.  Only the online recalibration loop is off: in this
+    # process the launch round trip it re-prices the crossover from is the
+    # earlier phases' (EC flushes of hundreds of ms), not the sidecar's own.
+    prev = flags.raw("BFTKV_DISPATCH_RECAL_S")
+    os.environ.update(BFTKV_DISPATCH_RECAL_S="0")
     try:
-        srv, _thread = vs.serve(addr, max_batch=VERIFY_FLUSH, max_wait=SIDECAR_MAX_WAIT, device=dev)
+        srv, _thread = vs.serve(addr, max_batch=VERIFY_FLUSH, device=dev)
     finally:
-        for k, v in prev.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+        if prev is None:
+            os.environ.pop("BFTKV_DISPATCH_RECAL_S")
+        else:
+            os.environ.update(BFTKV_DISPATCH_RECAL_S=prev)
     svc = srv.service
     tenants: list = []
     quiet = ("verify.remote_fallback", "sign.remote_fallback", "modexp.remote_fallback",
@@ -1130,8 +1128,9 @@ def sidecar_phase(dev, rsa_items, rsa_expect, ec_items, ec_expect, replicas, see
     modexp_call = lambda tn, job: tn.modexp.powmod_batch(job)
     try:
         tenants += [_Tenant(addr, dev) for _ in range(n_t)]
-        # (a) verify, counted
-        with Recorder(cuda_rns, ("verify_cuda", "pow_cuda")) as rec_v, Counted() as c_v:
+        # (a) verify, counted; the tenants' EC items launch K5 in the tenants
+        with Recorder(cuda_rns, ("verify_cuda", "pow_cuda")) as rec_v, \
+                Recorder(cuda_ec, ("scalar_mult_cuda",)) as rec_ec, Counted() as c_v:
             got, _ = _tenant_rounds(tenants, v_jobs, verify_call)
         check(got == v_want, "sidecar verify verdicts differ from the host on "
               f"{sum(g != w for gs, ws in zip(got, v_want) for g, w in zip(gs, ws))} items")
@@ -1146,15 +1145,19 @@ def sidecar_phase(dev, rsa_items, rsa_expect, ec_items, ec_expect, replicas, see
         check(c_v.snap.get("verify.ec", 0) == SIDECAR_EC_ITEMS, f"tenant verify.ec {c_v.snap.get('verify.ec')}")
         k1 = c_v.launches["verify"]
         check(k1 >= 1, "the sidecar's verify flushes launched no K1")
-        check(c_v.launches["ec_scalar_mult"] >= 1, "the tenants' EC items launched no K5")
+        k5_calls = rec_ec.calls["scalar_mult_cuda"]
+        check(len(k5_calls) == c_v.launches["ec_scalar_mult"] >= 1,
+              f"the tenants' EC items: K5 launches {c_v.launches} for {len(k5_calls)} recorded calls")
         items_per_k1 = c_v.snap["verify.device"] / k1
         check(items_per_k1 > per, f"items per K1 launch {items_per_k1} <= one tenant's {per}: "
               "no coalescing across tenants")
         print(f"sidecar verify: {n_t} tenants x ({per} RSA + {ec_per} EC) items, "
               f"verify.remote={c_v.snap.get('verify.remote')} verify.device={c_v.snap['verify.device']} "
               f"flushes={c_v.snap.get('dispatch.flushes')} K1 launches {k1} "
-              f"({items_per_k1:.1f} items a launch), tenant K5 launches "
-              f"{c_v.launches['ec_scalar_mult']}", flush=True)
+              f"({items_per_k1:.1f} items a launch, dispatcher window "
+              f"{svc.verify.max_wait * 1e3:g} ms), tenant K5 launches "
+              f"{c_v.launches['ec_scalar_mult']} at T={sorted({a[0].shape[-1] for a in k5_calls})}",
+              flush=True)
         # (b) sign, counted: each tenant registers its key, then signs
         with Recorder(cuda_rns, ("verify_cuda", "pow_cuda")) as rec_s, Counted() as c_s:
             jobs = s_jobs("counted")
@@ -1236,14 +1239,36 @@ def sidecar_phase(dev, rsa_items, rsa_expect, ec_items, ec_expect, replicas, see
         p = rns._pow_kernel(a[4], a[0], a[1], rns.gather_key(a[3], a[2]))
         check(torch.equal(g.long(), p.long()),
               f"K2 differs from its plain version on sidecar operands (k={a[4].k}, T={a[0].shape[0]})")
+    for a in k5_calls:
+        check(torch.equal(cuda_ec.scalar_mult_cuda(*a), ec_rns._scalar_mult(a[2], a[0], a[1])),
+              f"K5 differs from its plain version on the tenants' operands (T={a[0].shape[-1]})")
+    k5_rows = {}
+    for a in k5_calls:
+        k5_rows[a[0].shape[-1]] = k5_rows.get(a[0].shape[-1], 0) + 1
+    k5_t = max(k5_rows, key=k5_rows.get)
+    k5_rec = ec_record([a for a in k5_calls if a[0].shape[-1] == k5_t][0], len(k5_calls), 20,
+                       phase_launches={"sidecar_tenants": k5_rows},
+                       **cuda_ec.kernel_attrs()["ec_scalar_mult"])
+    k5_rec["name"] += f" (T={k5_t}, the sidecar tenants' own EC items)"
+    def by_rows(calls):
+        rows = {}
+        for a in calls:
+            rows[a[0].shape[0]] = rows.get(a[0].shape[0], 0) + 1
+        return rows
+
+    # The flushes' shapes follow how the tenants' frames arrive: each
+    # record is the first launch, beside the launches by rows.
+    v0, s0 = rec_v.calls["verify_cuda"][0], rec_s.calls["pow_cuda"][0]
     records = [
-        rns_record("K1 rns_verify_kernel (sidecar verify flush)", "verify",
-                   "bftkv_tpu/ops/pallas_rns.py:517", rec_v.calls["verify_cuda"][0], k1, 20, 3,
-                   phase_launches={"sidecar_verify": k1}, **cuda_rns.kernel_attrs()["verify"]),
-        rns_record("K2 rns_pow_kernel (sidecar sign flush)", "pow",
-                   "bftkv_tpu/ops/pallas_rns.py:403", rec_s.calls["pow_cuda"][0],
-                   c_s.launches["pow"], 10, 2, phase_launches={"sidecar_sign": c_s.launches["pow"]},
+        rns_record(f"K1 rns_verify_kernel (T={v0[0].shape[0]}, sidecar verify flush)", "verify",
+                   "bftkv_tpu/ops/pallas_rns.py:517", v0, k1, 20, 3,
+                   phase_launches={"sidecar_verify": by_rows(rec_v.calls["verify_cuda"])},
+                   **cuda_rns.kernel_attrs()["verify"]),
+        rns_record(f"K2 rns_pow_kernel (k=94, T={s0[0].shape[0]}, sidecar sign flush)", "pow",
+                   "bftkv_tpu/ops/pallas_rns.py:403", s0, c_s.launches["pow"], 10, 2,
+                   phase_launches={"sidecar_sign": by_rows(rec_s.calls["pow_cuda"])},
                    **cuda_rns.kernel_attrs()["pow"]),
+        k5_rec,
     ]
     med = statistics.median
     per_tenant_v = [med(r[t] for r in v_rtt) * 1e3 for t in range(n_t)]
@@ -1251,6 +1276,8 @@ def sidecar_phase(dev, rsa_items, rsa_expect, ec_items, ec_expect, replicas, see
     out = {
         "tenants": n_t,
         "verify_items_per_k1_launch": items_per_k1,
+        "dispatcher_window_ms": svc.verify.max_wait * 1e3,
+        "admission_max_inflight": svc.admission.max_inflight,
         "launches": {"verify": dict(c_v.launches), "sign": dict(c_s.launches),
                      "modexp": dict(c_m.launches)},
         "verify_rtt_ms_median_per_tenant": per_tenant_v,
@@ -1268,6 +1295,7 @@ def sidecar_phase(dev, rsa_items, rsa_expect, ec_items, ec_expect, replicas, see
         "stats_batch": stats["batch"],
         "k1_checked": [a[0].shape[0] for a in k1_calls],
         "k2_checked": [(a[4].k, a[0].shape[0]) for a in k2_calls],
+        "k5_checked": [a[0].shape[-1] for a in k5_calls],
         "records": records,
     }
     print("sidecar round trips (median of %d rounds, ms): verify per tenant %s; sign per tenant %s"
@@ -1295,18 +1323,22 @@ def shard_phase(dev, rsa_items, replicas) -> dict:
     """The split of the RNS launches (ops/rns.py): entry.dryrun_multichip(2);
     then the verify at T=4096 and the sign modexp at k=94 T=512, split over
     two shards of this card (separate streams) and, with two or more cards,
-    over every card, each bit for bit against the unsplit launch."""
+    over every card, each bit for bit against the unsplit launch, and every
+    K1 and K2 launch of the phase against its plain version."""
     from bftkv_tpu_torch import entry
     from bftkv_tpu_torch.crypto import rsa
-    from bftkv_tpu_torch.ops import rns
+    from bftkv_tpu_torch.ops import cuda_rns, rns
 
     count = torch.cuda.device_count()
     print(f"shard phase: torch.cuda.device_count() = {count}", flush=True)
     os.environ.update(BFTKV_SHARD="auto")
-    with Counted() as c_d:
+    recorded = {"verify_cuda": [], "pow_cuda": []}  # (run, args) of every launch
+    with Recorder(cuda_rns, ("verify_cuda", "pow_cuda")) as rec, Counted() as c_d:
         dry = entry.dryrun_multichip(2)
     check(c_d.launches["verify"] == 2 and c_d.launches["pow"] == dry["pow_shards"] == 2,
           f"dryrun_multichip(2) launched {c_d.launches}, pow shards {dry['pow_shards']}")
+    for fn, calls in rec.calls.items():
+        recorded[fn] += [("dryrun", a) for a in calls]
 
     ctx = rns.context()
     unique, urows, idx, sigs, ems = {}, [], [], [], []
@@ -1331,17 +1363,22 @@ def shard_phase(dev, rsa_items, replicas) -> dict:
             mods.append(pr)
     want_pow = [pow(b, e, m) for b, e, m in zip(bases, exps, mods)]
 
-    def run(shards):
+    def run(name, shards):
         scope = rns.shard_over(shards) if shards else contextlib.nullcontext()
-        with scope, Counted() as c:
+        rec = Recorder(cuda_rns, ("verify_cuda", "pow_cuda"))
+        with scope, rec, Counted() as c:
             t0 = time.perf_counter()
             v = rns.verify_e65537_rns_indexed(sigs, ems, idx, urows, device=dev)
             t1 = time.perf_counter()
             p = rns.power_mod_rns(bases, exps, mods, n_bits=1024, device=dev)
             t2 = time.perf_counter()
+        for fn, calls in rec.calls.items():
+            check(len(calls) == c.launches["verify" if fn == "verify_cuda" else "pow"],
+                  f"shard {name}: {len(calls)} recorded {fn} calls, launches {c.launches}")
+            recorded[fn] += [(name, a) for a in calls]
         return v, p, c.launches, (t1 - t0) * 1e3, (t2 - t1) * 1e3
 
-    v0, p0, l0, v0_ms, p0_ms = run([dev])  # one shard: the unsplit launch
+    v0, p0, l0, v0_ms, p0_ms = run("unsplit", [dev])  # one shard: the unsplit launch
     check(p0 == want_pow, "unsplit sign modexp differs from host pow")
     check(l0["verify"] == 1 and l0["pow"] == 1, f"unsplit launches {l0}")
     out = {"device_count": count, "dryrun": dry, "dryrun_launches": dict(c_d.launches),
@@ -1351,7 +1388,7 @@ def shard_phase(dev, rsa_items, replicas) -> dict:
     if count >= 2:
         runs.append(("every_card", None))  # the default split: every local card
     for name, shards in runs:
-        v, p, launches, v_ms, p_ms = run(shards)
+        v, p, launches, v_ms, p_ms = run(name, shards)
         n = len(shards) if shards else count
         check(v.shape == v0.shape and bool((v == v0).all()),
               f"split verify ({name}) differs from the unsplit launch")
@@ -1363,6 +1400,31 @@ def shard_phase(dev, rsa_items, replicas) -> dict:
           + ", ".join(f"{k} ({out[k]['shards']} shards, verify {out[k]['verify_ms']:.1f} ms, "
                       f"pow {out[k]['pow_ms']:.1f} ms)" for k, _s in runs)
           + f"; unsplit verify {v0_ms:.1f} ms, pow {p0_ms:.1f} ms (host clock)", flush=True)
+
+    # Every K1 and K2 launch of the phase against its plain version, on its
+    # own card; records at the two-shard shapes of one card.
+    for fn, plain in (("verify_cuda", rns._verify_kernel), ("pow_cuda", rns._pow_kernel)):
+        for name, a in recorded[fn]:
+            with torch.cuda.device(a[0].device):
+                g = getattr(cuda_rns, fn)(*a)
+                p = plain(a[4], a[0], a[1], rns.gather_key(a[3], a[2]))
+                check(torch.equal(g.long(), p.long()), f"shard {name}: {fn} differs from its plain "
+                      f"version (k={a[4].k}, T={a[0].shape[0]}, {a[0].device})")
+    out["checked"] = {fn: [(name, a[4].k, a[0].shape[0], str(a[0].device)) for name, a in calls]
+                      for fn, calls in recorded.items()}
+    two = [a for name, a in recorded["verify_cuda"] if name == "one_card_two_streams"]
+    two_pow = [a for name, a in recorded["pow_cuda"] if name == "one_card_two_streams"]
+    attrs = cuda_rns.kernel_attrs()
+    out["records"] = [
+        rns_record(f"K1 rns_verify_kernel (T={two[0][0].shape[0]}, one of two shards)", "verify",
+                   "bftkv_tpu/ops/pallas_rns.py:517", two[0], len(two), 20, 3,
+                   phase_launches={"shard_one_card_two_streams": len(two)}, **attrs["verify"]),
+        rns_record(f"K2 rns_pow_kernel (k=94, T={two_pow[0][0].shape[0]}, one of two shards)", "pow",
+                   "bftkv_tpu/ops/pallas_rns.py:403", two_pow[0], len(two_pow), 10, 2,
+                   phase_launches={"shard_one_card_two_streams": len(two_pow)}, **attrs["pow"]),
+    ]
+    print("shard phase: every K1 and K2 launch (%d and %d, dryrun included) equal to its plain version"
+          % (len(recorded["verify_cuda"]), len(recorded["pow_cuda"])), flush=True)
     return out
 
 
@@ -1816,6 +1878,7 @@ def main() -> int:
     k3.update(phase_launches={"verify_pallas": p_launch["mont_verify"]}, **attrs["mont_verify"])
     kernels += ec.pop("records")
     kernels += sidecar.pop("records")
+    kernels += shard.pop("records")
     print(f"K1 before its redesign, not measured in this run ({K1_EARLIER_OF}): "
           + ", ".join(f"T={t} {ms} ms" for t, ms in K1_EARLIER_MS.items())
           + "; this run: " + ", ".join(f"T={r['rows']} {r['ms']:.4f} ms" for r in kernels[0:3]),

@@ -78,6 +78,23 @@ def test_shard_devices_rules(monkeypatch):
             pass
 
 
+def test_shard_zero_is_the_callers_card(monkeypatch):
+    """Under ``auto`` and through the seam, the shard list starts at the
+    caller's card, so shard 0 runs there and on the caller's stream."""
+    monkeypatch.delenv("BFTKV_SHARD", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    cards = [torch.device("cuda", i) for i in range(4)]
+    assert rns.shard_devices("cuda:0") == cards
+    assert rns.shard_devices("cuda:2") == cards[2:] + cards[:2]
+    assert rns._row_shards(cards[3], 64) == [cards[3]] + cards[:3]
+    with rns.shard_over(["cuda:0", "cuda:1", "cuda:1"]):
+        assert rns.shard_devices("cuda:1") == [cards[1], cards[1], cards[0]]
+        assert rns.shard_devices("cuda:3") == [cards[0], cards[1], cards[1]]
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert rns.shard_devices("cuda:0") is None
+
+
 def test_split_verify_equals_unsplit_and_host(verify_case, launches):
     sigs, ems, idx, urows, want = verify_case
     unsplit = rns.verify_e65537_rns_indexed(sigs, ems, idx, urows, device="cpu")
