@@ -1,8 +1,7 @@
 """ECDSA P-256 identity keys: sign and verify, host and batched.
 
-Counterpart of ``bftkv_tpu/crypto/ecdsa.py`` (its sign/verify half; the
-ECIES key wrap waits for the port's ``crypto/aead.py``).  A cluster can
-run on ECDSA P-256 certificates; this module supplies the primitives:
+Counterpart of ``bftkv_tpu/crypto/ecdsa.py``.  A cluster can run on
+ECDSA P-256 certificates; this module supplies the primitives:
 
 - deterministic ECDSA (RFC 6979 nonces) over SHA-256, fixed 64-byte
   ``r‖s`` signatures — :func:`sign` is byte-identical to the reference's;
@@ -13,7 +12,11 @@ run on ECDSA P-256 certificates; this module supplies the primitives:
 - **batched verification** (:func:`verify_batch`): each item needs
   ``u1·G + u2·Q``; the 2·T scalar mults ride one launch, the T point
   adds stay on the host; malformed signatures and keys fail closed per
-  item.
+  item;
+- ECIES key wrap (:func:`ecies_wrap`, :func:`ecies_unwrap`: ephemeral
+  ECDH + HKDF-SHA256 + the AEAD of :mod:`bftkv_tpu_torch.crypto.aead`),
+  so the message layer bootstraps sessions to EC-keyed peers the way
+  RSA-OAEP serves RSA-keyed ones; host arithmetic, as in the reference.
 
 Both batches take ``device`` (default the card).  A device error
 propagates to the caller: the host path serves small batches (below the
@@ -40,6 +43,8 @@ __all__ = [
     "sign_batch",
     "verify_host",
     "verify_batch",
+    "ecies_wrap",
+    "ecies_unwrap",
 ]
 
 SIG_BYTES = 64  # r ‖ s, 32 bytes each
@@ -277,3 +282,51 @@ def verify_batch(items: list[tuple[bytes, bytes, ECPublicKey]], *, device=None) 
         R = ec.P256.add(muls[2 * j], muls[2 * j + 1])
         out.append(R is not None and R[0] % n == r)
     return out
+
+
+# ---------------------------------------------------------------------------
+# ECIES key wrap (message-layer bootstrap to EC-keyed peers)
+# ---------------------------------------------------------------------------
+
+
+def _kdf(shared: bytes, eph_pub: bytes, recip_pub: bytes) -> bytes:
+    import hashlib as _h
+
+    # HKDF-SHA256, one 32-byte block: salt-less extract + info binding
+    # the two public points (context separation).
+    prk = hmac.new(b"\x00" * 32, shared, _h.sha256).digest()
+    return hmac.new(
+        prk, b"bftkv-ecies" + eph_pub + recip_pub + b"\x01", _h.sha256
+    ).digest()
+
+
+def ecies_wrap(secret: bytes, recipient: ECPublicKey) -> bytes:
+    """eph_pub(65) ‖ gcm_nonce(12) ‖ GCM(kdf(ecdh), secret)."""
+    from bftkv_tpu_torch.crypto.aead import AESGCM
+
+    curve = recipient.curve
+    eph = generate(curve)
+    shared_pt = curve.scalar_mult(recipient.point, eph.d)
+    shared = shared_pt[0].to_bytes(32, "big")
+    eph_pub = eph.public.marshal()
+    key = _kdf(shared, eph_pub, recipient.marshal())
+    nonce = rng.generate_random(12)
+    return eph_pub + nonce + AESGCM(key).encrypt(nonce, secret, b"ecies")
+
+
+def ecies_unwrap(blob: bytes, key: ECPrivateKey) -> bytes:
+    """Inverse of :func:`ecies_wrap`; raises on any mismatch."""
+    from bftkv_tpu_torch.crypto.aead import AESGCM
+
+    curve = key.curve
+    plen = 1 + 2 * ((curve.bits + 7) // 8)
+    eph_pub, nonce, ct = blob[:plen], blob[plen : plen + 12], blob[plen + 12 :]
+    pt = ec.unmarshal(curve, eph_pub)
+    if pt is None:
+        raise ValueError("ecies: identity ephemeral")
+    shared_pt = curve.scalar_mult(pt, key.d)
+    if shared_pt is None:
+        raise ValueError("ecies: degenerate shared point")
+    shared = shared_pt[0].to_bytes(32, "big")
+    k = _kdf(shared, eph_pub, key.public.marshal())
+    return AESGCM(k).decrypt(nonce, ct, b"ecies")

@@ -107,6 +107,17 @@ _flag("BFTKV_SIDECAR_MAX_WAIT", "0.5", "float",
 _flag("BFTKV_SIDECAR_MAX_KEYS", "64", "int",
       "Sign-key handles one sidecar connection may register (bounds "
       "hostile registration floods).")
+_flag("BFTKV_VERIFY_CACHE", "1", "switch",
+      "Verified-signature memo (crypto/vcache.py); `0` disables every "
+      "lookup and seeding.")
+_flag("BFTKV_VERIFY_CACHE_MAX", "65536", "int",
+      "Entries of the verified-signature memo (LRU).")
+_flag("BFTKV_NATIVE_MODEXP", "auto", "str",
+      "`off` keeps host RSA signing and the host modexp tier on Python's "
+      "pow instead of native/montmodexp.c (built into _build/native/).")
+_flag("BFTKV_NATIVE_CODEC", "auto", "str",
+      "`off` keeps the packet codec pure Python instead of "
+      "native/packetcodec.c (built into _build/native/).")
 _flag("BFTKV_OS_RNG", "", "switch",
       "`1` makes crypto/rng.generate_random read os.urandom on every call "
       "instead of the per-thread hash-DRBG.")

@@ -849,7 +849,11 @@ class ModexpDispatcher(_BatchDispatcher):
         return complete
 
     def _host_fill(self, items: list, out: list) -> None:
-        """Host tier for every item the device did not answer."""
+        """Host tier for every item the device did not answer: the native
+        Montgomery modexp (``crypto/rsa.py``) where it loaded and the
+        modulus is odd, else ``pow``."""
+        from bftkv_tpu_torch.crypto import rsa as rsamod
+
         host = 0
         for i, (b, e, m) in enumerate(items):
             if out[i] is not None:
@@ -857,7 +861,10 @@ class ModexpDispatcher(_BatchDispatcher):
             host += 1
             if m <= 0:
                 raise ValueError("modexp: modulus must be positive")
-            out[i] = pow(b, e, m)
+            if rsamod._MM is not None and m % 2 == 1 and m > 2 and e >= 0 and b >= 0:
+                out[i] = rsamod._native_powmod(b % m, e, rsamod._mont_params(m))
+            else:
+                out[i] = pow(b, e, m)
         if host:
             metrics.incr("modexp.host", host)
 

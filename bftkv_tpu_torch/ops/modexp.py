@@ -37,7 +37,7 @@ __all__ = ["BatchModExp"]
 
 
 class BatchModExp:
-    _shared = None
+    _shared: dict = {}  # resolved device -> engine
     _DOM_CACHE_MAX = 64
 
     # Exponents can outgrow the modulus (threshold-RSA fragments double in
@@ -53,10 +53,14 @@ class BatchModExp:
         self._domains = bigint.DomainCache(self._DOM_CACHE_MAX)
 
     @classmethod
-    def shared(cls) -> "BatchModExp":
-        if cls._shared is None:
-            cls._shared = cls()
-        return cls._shared
+    def shared(cls, device=None) -> "BatchModExp":
+        """The process's engine for ``device`` (``None``: ``cuda:0``), one
+        per resolved device: threshold DSA/RSA and TPA share it."""
+        dev = devmod.resolve(device)
+        eng = cls._shared.get(dev)
+        if eng is None:
+            eng = cls._shared.setdefault(dev, cls(device=dev))
+        return eng
 
     def modexp(self, pairs: list[tuple[int, int]], n: int) -> list[int]:
         """[(base, exp)] → [base^exp mod n] — one device launch when the

@@ -64,11 +64,25 @@ holds every hand-written kernel against its plain PyTorch version:
    sign modexp at k=94 T=512 split over two shards of this card and, with
    two or more cards, over every card, bit-identical to the unsplit launch;
    every K1 and K2 launch of the phase held against its plain version;
-12. each kernel against its plain version on the card, on the operands the
+12. crypto-layer phase (the port of bftkv_tpu/crypto), on the same cluster:
+   (a) the 93 writes' collective shares (the writer and 43 replicas each)
+   through Signer.issue_many with the dispatchers installed (K2 k=94, K1
+   fault checks), combined, 1% of the entries forged, verify_many of the
+   93 jobs against suff with the verify memo reset (K1), then again with the
+   memo on; (b) a TPA round at n=64, k=43 (K2 k=188), and a wrong password
+   refused by every server; (c) threshold DSA at n=64, k=22 on a 2048-bit p
+   drawn from --seed (K2 k=188); (d) threshold ECDSA at n=64, k=22 (K5 at
+   T=8 a partial R, and the combine); (e) threshold RSA (3, 4) at 2048 bits,
+   whose fragments sign on the host: no launch; (f) a MessageSecurity
+   bootstrap and session round trip between an RSA and a P-256 replica
+   (ECIES), the native modexp and codec tiers.  Every verdict, signature
+   and secret equals the host's; every K1, K2 and K5 launch of the phase
+   is held against its plain version;
+13. each kernel against its plain version on the card, on the operands the
    main paths gave it: K1 verdicts (T=4096, T=1024 and every fault check's
    T=256), K2 sigma (k=94 at T=512 and T=64, k=188), K3's whole
    (4096, 128) diff and K5's Jacobian residues bit-identical;
-13. times: median of 5 timed flushes per verify/RNS-sign phase, 3 for the
+14. times: median of 5 timed flushes per verify/RNS-sign phase, 3 for the
    limb sign and the EC flushes, and kernel times by CUDA events, beside
    nvidia-smi's name and power limit.
 
@@ -85,6 +99,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import json
 import multiprocessing
 import os
@@ -160,6 +175,14 @@ SIDECAR_TENANTS = 8
 SIDECAR_EC_ITEMS = 256  # mixed into the tenants' verify batches, verified in the tenants
 SIDECAR_MODEXP = 128  # 64 at 2048 bits, 64 at 1024 bits
 SIDECAR_ROUNDS = 3  # timed rounds of verify and of sign
+# The crypto-layer phase, on the same 64-replica cluster (n=64, f=21):
+# collective signatures checked against suff, TPA at the auth threshold
+# 2f+1, threshold DSA/ECDSA at the cert threshold f+1, threshold RSA (3, 4).
+AUTH_K = 43  # 2f + 1
+CERT_K = 22  # f + 1
+TRSA_N, TRSA_K = 4, 3
+CRYPTO_WORKERS = 8  # threads serving the threshold servers' host work
+NATIVE_SIGNS = 256
 
 
 def fail(msg: str) -> None:
@@ -1428,6 +1451,443 @@ def shard_phase(dev, rsa_items, replicas) -> dict:
     return out
 
 
+# -- the crypto-layer phase ---------------------------------------------------------
+
+
+class _Suff:
+    """The quorum stub: sufficient at ``SUFF`` distinct valid signers."""
+
+    def is_sufficient(self, nodes):
+        return len({n.id for n in nodes}) >= SUFF
+
+
+def _load_dsa_group(seed: int, build_dir: str):
+    """The threshold-DSA key (2048-bit p, 256-bit q), drawn from ``seed``
+    and cached beside the smoke's keys."""
+    from bftkv_tpu_torch.crypto.threshold import dsa as tdsa
+
+    path = os.path.join(build_dir, f"smoke_dsa_seed{seed}.json")
+    if os.path.exists(path):
+        with open(path) as f:
+            c = json.load(f)
+        key = tdsa.DSAPrivateKey(**{k: int(v, 16) for k, v in c.items()})
+    else:
+        key = tdsa.generate(2048, seed=seed)
+        os.makedirs(build_dir, exist_ok=True)
+        with open(path, "w") as f:
+            json.dump({k: hex(getattr(key, k)) for k in ("p", "q", "g", "x", "y")}, f)
+    check(key.p.bit_length() == 2048 and key.q.bit_length() == 256 and (key.p - 1) % key.q == 0
+          and pow(key.g, key.q, key.p) == 1 and key.y == pow(key.g, key.x, key.p), "bad cached DSA group")
+    return key
+
+
+def _threshold_round(client_ctx, servers, shares, nodes, proc, pool):
+    """Drives one dealerless threshold signature (dsa_core's three phases):
+    each phase's first 2t targets answer in ``pool``'s threads, their
+    responses are fed to ``proc`` in order until it advances."""
+    from bftkv_tpu_torch import errors
+
+    for _ in range(4):
+        target, req = proc.make_request()
+        if not target:
+            break
+        target = target[: 2 * client_ctx.t]
+        futs = [pool.submit(servers[n.id].sign, shares[n.id], req, 0xC11E47, n.id) for n in target]
+        for node, fut in zip(target, futs):
+            res = fut.result()
+            if res is None:
+                continue
+            try:
+                out = proc.process_response(res, node)
+            except errors.ERR_CONTINUE:
+                break
+            if out is not None:
+                return out
+    return None
+
+
+def crypto_phase(dev, replicas, writers, ec_replicas, seed: int, build_dir: str) -> dict:
+    """The crypto layer on the card (the port of bftkv_tpu/crypto), each part
+    counted: (a) collective signatures: the 93 writes' shares issued through
+    Signer.issue_many with the dispatchers installed (K2 k=94 flushes, K1
+    fault checks), combined, 1% of the entries forged, then verify_many of
+    the 93 jobs against suff, with the verify memo reset (K1), and once
+    more with the memo on; (b) a TPA round at n=64, k=43 (K2 k=188), a wrong
+    password failing every server's MAC; (c) threshold DSA at n=64, k=22 on
+    a 2048-bit p (calculate_r: one K2 k=188 launch); (d) threshold ECDSA at
+    n=64, k=22 (each partial R one K5 launch at T=8, the combine one more);
+    (e) threshold RSA (3, 4) at 2048 bits, which launches nothing; (f) a
+    MessageSecurity bootstrap and session round trip between an RSA and a
+    P-256 replica, the native tiers, the codec.  Every K1, K2 and K5 launch
+    of the phase is held against its plain version, the rows of one kernel
+    and context in one plain run."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from bftkv_tpu_torch import packet
+    from bftkv_tpu_torch.crypto import auth, cert as certmod, ec, ecdsa, new_crypto, rsa
+    from bftkv_tpu_torch.crypto import signature, sss, vcache
+    from bftkv_tpu_torch.crypto.keyring import Keyring
+    from bftkv_tpu_torch.crypto.message import MessageSecurity
+    from bftkv_tpu_torch.crypto.threshold import ThresholdAlgo
+    from bftkv_tpu_torch.errors import ERR_AUTHENTICATION_FAILURE
+    from bftkv_tpu_torch.crypto.threshold import dsa as tdsa
+    from bftkv_tpu_torch.crypto.threshold import ecdsa as tecdsa
+    from bftkv_tpu_torch.crypto.threshold import rsa as trsa
+    from bftkv_tpu_torch.ops import cuda_ec, cuda_rns, dispatch, ec_rns, rns
+    from bftkv_tpu_torch.ops import rsa as rsa_ops
+
+    os.environ.update(BFTKV_SHARD="off")
+    t_phase = time.perf_counter()
+    rng = random.Random(seed + 11)
+    out = {}
+    k1_calls, k2_calls, k5_calls = [], [], []  # (part, args) of every launch
+    launch_names = ("verify_cuda", "pow_cuda")
+
+    def keep(part, rec_rns, rec_ec=None):
+        k1_calls.extend((part, a) for a in rec_rns.calls["verify_cuda"])
+        k2_calls.extend((part, a) for a in rec_rns.calls["pow_cuda"])
+        if rec_ec is not None:
+            k5_calls.extend((part, a) for a in rec_ec.calls["scalar_mult_cuda"])
+
+    keys = replicas + writers
+    certs = [certmod.Certificate(n=k.n, e=k.e, name=f"r{i}", uid=f"r{i}@smoke") for i, k in enumerate(keys)]
+    ring = Keyring()
+    ring.register(certs)
+
+    # (a) collective signatures
+    plan = {}  # signer index -> [tbs]
+    tbs_of = [b"collective-write-%d-seed-%d" % (w, seed) for w in range(N_WRITES)]
+    signers_of = []
+    for w in range(N_WRITES):
+        who = [N_REPLICAS + w % N_WRITERS] + [(7 * w + j) % N_REPLICAS for j in range(SUFF)]
+        signers_of.append(who)
+        for i in who:
+            plan.setdefault(i, []).append(tbs_of[w])
+    signers = {i: signature.Signer(keys[i], certs[i]) for i in plan}
+    order = sorted(plan)
+    issued = {}
+    vd = dispatch.install(dispatch.VerifyDispatcher(device=dev))
+    sd = dispatch.install_signer(dispatch.SignDispatcher(device=dev))
+    try:
+        with Recorder(cuda_rns, launch_names) as rec, Counted() as c_sign:
+            t0 = time.perf_counter()
+            run_threads(len(order), lambda t: issued.__setitem__(
+                order[t], signers[order[t]].issue_many(plan[order[t]], include_cert=False)))
+            sign_ms = (time.perf_counter() - t0) * 1e3
+        keep("collective_sign", rec)
+        n_shares = sum(len(v) for v in plan.values())
+        check(n_shares == N_WRITES * (SUFF + 1), f"{n_shares} shares planned")
+        check(c_sign.launches["pow"] >= 1 and c_sign.launches["verify"] >= 1,
+              f"Signer.issue_many launched {c_sign.launches}")
+        check(c_sign.snap.get("sign.device", 0) + c_sign.snap.get("sign.host", 0) == n_shares
+              and c_sign.snap.get("sign.fault", 0) == 0,
+              f"sign.device {c_sign.snap.get('sign.device')}, sign.host {c_sign.snap.get('sign.host')}, "
+              f"sign.fault {c_sign.snap.get('sign.fault')}")
+        cs = signature.CollectiveSignature(device=dev)
+        pos = {i: 0 for i in plan}
+        jobs = []
+        entries_of = []
+        for w in range(N_WRITES):
+            ss = None
+            for i in signers_of[w]:
+                share = issued[i][pos[i]]
+                pos[i] += 1
+                ss, _done = cs.combine(ss, share, _Suff(), ring)
+            entries_of.append(signature.parse_entries(ss.data))
+            jobs.append([tbs_of[w], ss])
+        flat = [(w, j) for w in range(N_WRITES) for j in range(len(entries_of[w]))]
+        forged = set(rng.sample(flat, len(flat) // 100))
+        for w in range(N_WRITES):
+            ents = [(sid, sig[:-1] + bytes([sig[-1] ^ 1]) if (w, j) in forged else sig)
+                    for j, (sid, sig) in enumerate(entries_of[w])]
+            jobs[w][1].data = signature.serialize_entries(ents)
+            entries_of[w] = ents
+        by_id = {c.id: keys[i] for i, c in enumerate(certs)}
+        expect = []
+        for w in range(N_WRITES):
+            good = sum(rsa.verify_host(tbs_of[w], sig, by_id[sid].public) for sid, sig in entries_of[w])
+            expect.append(good >= SUFF)
+        jobs = [tuple(j) for j in jobs]
+        vcache.reset()  # the shares' own signatures seeded the memo (Signer.issue_many)
+        with Recorder(cuda_rns, launch_names) as rec, Counted() as c_ver:
+            t0 = time.perf_counter()
+            errs = cs.verify_many(jobs, _Suff(), ring)
+            verify_ms = (time.perf_counter() - t0) * 1e3
+        keep("collective_verify", rec)
+        got = [e is None for e in errs]
+        check(got == expect, f"verify_many verdicts differ from host pow on "
+              f"{sum(g != e for g, e in zip(got, expect))} of {N_WRITES} jobs")
+        check(c_ver.launches["verify"] >= 1, f"verify_many launched {c_ver.launches}")
+        check(c_ver.snap.get("verify.cache.hits", 0) == 0, "the counted verify_many hit the memo")
+        with Recorder(cuda_rns, launch_names) as rec, Counted() as c_memo:
+            t0 = time.perf_counter()
+            errs2 = cs.verify_many(jobs, _Suff(), ring)
+            memo_ms = (time.perf_counter() - t0) * 1e3
+        keep("collective_verify_memo", rec)
+        check([e is None for e in errs2] == expect, "verify_many with the memo on changed a verdict")
+    finally:
+        dispatch.uninstall_all()
+    out["collective"] = {
+        "shares": n_shares, "forged_entries": len(forged), "jobs": N_WRITES,
+        "jobs_sufficient": sum(expect), "sign_ms": sign_ms, "verify_many_ms": verify_ms,
+        "verify_many_memo_ms": memo_ms, "sign_launches": dict(c_sign.launches),
+        "sign_flushes": c_sign.snap.get("signdispatch.flushes"),
+        "verify_launches": dict(c_ver.launches),
+        "memo": {"hits": c_memo.snap.get("verify.cache.hits", 0),
+                 "misses": c_memo.snap.get("verify.cache.misses", 0),
+                 "launches": dict(c_memo.launches)},
+    }
+    print(f"crypto (a) collective: {n_shares} shares through Signer.issue_many in {sign_ms:.1f} ms "
+          f"(K2 {c_sign.launches['pow']}, K1 fault checks {c_sign.launches['verify']}, "
+          f"{c_sign.snap.get('signdispatch.flushes')} flushes); {len(forged)} entries forged, "
+          f"{sum(expect)}/{N_WRITES} jobs sufficient; verify_many {verify_ms:.1f} ms (memo reset, K1 "
+          f"{c_ver.launches['verify']}); with the memo on {memo_ms:.1f} ms, hits "
+          f"{out['collective']['memo']['hits']}, K1 {c_memo.launches['verify']}", flush=True)
+
+    # (b) TPA at n=64, k=43: the params, then the three phases
+    pw = b"smoke password %d" % seed
+    with Recorder(cuda_rns, launch_names) as rec, Counted() as c_tpa:
+        t0 = time.perf_counter()
+        params = auth.generate_partial_auth_params(pw, N_REPLICAS, AUTH_K, device=dev)
+        servers = {i: auth.AuthServer(params[i], b"proof-%d" % i, sleep=lambda _t: None, device=dev)
+                   for i in range(N_REPLICAS)}
+        client = auth.AuthClient(pw, N_REPLICAS, AUTH_K, device=dev)
+        reqs = client.initiate(list(servers))
+        for phase in range(3):
+            nxt = None
+            for nid, req in reqs.items():
+                res, _done = servers[nid].make_response(phase, req)
+                nxt = client.process_response(phase, res, nid)
+                if nxt is not None:
+                    break
+            check(nxt is not None, f"TPA phase {phase} did not complete")
+            reqs = nxt
+        tpa_ms = (time.perf_counter() - t0) * 1e3
+    keep("tpa", rec)
+    check(all(v == b"proof-%d" % nid for nid, v in reqs.items()) and len(reqs) == AUTH_K,
+          "TPA: the proofs did not decrypt")
+    secret = sss.SSSProcess(N_REPLICAS, AUTH_K, auth.Q, [
+        sss.Coordinate(s.params.x, s.params.y) for s in list(servers.values())[:AUTH_K]]).secret
+    gs = pow(auth.pi_of(pw), secret, auth.P)
+    check(client.get_cipher_key() == auth._hash(gs.to_bytes((gs.bit_length() + 7) // 8, "big"), pw),
+          "TPA: the client's cipher key is not hash(g_pi^S, password)")
+    check(c_tpa.launches["pow"] >= 3, f"TPA launched {c_tpa.launches}")
+    with Recorder(cuda_rns, launch_names) as rec, Counted() as c_bad:
+        bad = auth.AuthClient(b"wrong " + pw, N_REPLICAS, AUTH_K, device=dev)
+        reqs = bad.initiate(list(servers))
+        for phase in range(2):
+            nxt = None
+            for nid, req in reqs.items():
+                nxt = bad.process_response(phase, servers[nid].make_response(phase, req)[0], nid)
+                if nxt is not None:
+                    break
+            check(nxt is not None, f"TPA (wrong password) phase {phase} did not complete")
+            reqs = nxt
+        refused = 0
+        for nid, ni in reqs.items():
+            try:
+                servers[nid].make_response(2, ni)
+            except ERR_AUTHENTICATION_FAILURE:
+                refused += 1
+    keep("tpa_wrong_password", rec)
+    check(refused == len(reqs) == AUTH_K, f"a wrong password passed {len(reqs) - refused} MAC checks")
+    out["tpa"] = {"n": N_REPLICAS, "k": AUTH_K, "round_ms": tpa_ms, "launches": dict(c_tpa.launches),
+                  "wrong_password_launches": dict(c_bad.launches), "wrong_password_refused": refused,
+                  "k2_rows": [a[0].shape[0] for p, a in k2_calls if p == "tpa"]}
+    print(f"crypto (b) TPA n={N_REPLICAS} k={AUTH_K}: round {tpa_ms:.1f} ms, K2 launches "
+          f"{c_tpa.launches['pow']} at T={out['tpa']['k2_rows']}; secret recovered; a wrong password "
+          f"refused by all {refused} servers (K2 {c_bad.launches['pow']})", flush=True)
+
+    # (c), (d): threshold DSA and ECDSA at n=64, k=22 over the replicas'
+    # message layers
+    crypts = [new_crypto(k, c, device=dev) for k, c in zip(replicas, certs)]
+    for cr in crypts:
+        cr.keyring.register(certs[:N_REPLICAS])
+    nodes = certs[:N_REPLICAS]
+    dsa_key = _load_dsa_group(seed, build_dir)
+    ec_key = tecdsa.generate(ec.P256, seed=seed + 12)
+    results = {}
+    with ThreadPoolExecutor(CRYPTO_WORKERS) as pool:
+        for name, scheme, key in (("dsa", tdsa, dsa_key), ("ecdsa", tecdsa, ec_key)):
+            servers = {c.id: scheme.new(cr, device=dev) for c, cr in zip(nodes, crypts)}
+            client = scheme.new(crypts[0], device=dev)
+            with Recorder(cuda_rns, launch_names) as rec, Recorder(cuda_ec, ("scalar_mult_cuda",)) as rec_e, \
+                    Counted() as c_t:
+                t0 = time.perf_counter()
+                dealt, algo = client.distribute(key, nodes, CERT_K)
+                shares = {n.id: s for n, s in zip(nodes, dealt)}
+                tbs = b"threshold-%s-seed-%d" % (name.encode(), seed)
+                proc = client.new_process(tbs, algo, "sha256")
+                sig = _threshold_round(client, servers, shares, nodes, proc, pool)
+                ms = (time.perf_counter() - t0) * 1e3
+            keep(f"threshold_{name}", rec, rec_e)
+            check(sig is not None, f"threshold {name}: no signature")
+            results[name] = (sig, tbs, ms, dict(c_t.launches))
+    sig, tbs, dsa_ms, dsa_launch = results["dsa"]
+    size = 32
+    r, s_ = int.from_bytes(sig[:size], "big"), int.from_bytes(sig[size:], "big")
+    q = dsa_key.q
+    m = int.from_bytes(hashlib.sha256(tbs).digest()[:size], "big")
+    w_ = pow(s_, -1, q)
+    check(0 < r < q and pow(dsa_key.g, m * w_ % q, dsa_key.p) * pow(dsa_key.y, r * w_ % q, dsa_key.p)
+          % dsa_key.p % q == r, "threshold DSA: the signature fails the host DSA verify")
+    check(dsa_launch["pow"] == 1, f"threshold DSA launched {dsa_launch}")
+    sig, tbs, ecdsa_ms, ecdsa_launch = results["ecdsa"]
+    x, y = ec.P256.scalar_base_mult(ec_key.d)
+    check(ecdsa.verify_host(tbs, sig, ecdsa.ECPublicKey(x=x, y=y)),
+          "threshold ECDSA: the signature fails ecdsa.verify_host")
+    check(ecdsa_launch["ec_scalar_mult"] == 2 * CERT_K + 1, f"threshold ECDSA launched {ecdsa_launch}")
+    k5_rows = sorted({a[0].shape[-1] for _p, a in k5_calls})
+    out["threshold_dsa"] = {"n": N_REPLICAS, "k": CERT_K, "sign_ms": dsa_ms, "launches": dsa_launch}
+    out["threshold_ecdsa"] = {"n": N_REPLICAS, "k": CERT_K, "sign_ms": ecdsa_ms, "launches": ecdsa_launch,
+                              "k5_rows": k5_rows}
+    print(f"crypto (c) threshold DSA n={N_REPLICAS} k={CERT_K} (2048-bit p): {dsa_ms:.1f} ms, launches "
+          f"{dsa_launch}; (d) threshold ECDSA: {ecdsa_ms:.1f} ms, K5 launches "
+          f"{ecdsa_launch['ec_scalar_mult']} at T={k5_rows}; both pass host verify", flush=True)
+
+    # (e) threshold RSA (3, 4) at 2048 bits: fragments of 4092-8185 bits sign
+    # on the host
+    tkey = replicas[1]
+    ctx = trsa.RSAThreshold(rng=random.Random(seed + 13).randrange, device=dev)
+    tnodes = certs[:TRSA_N]
+    limb_calls = []
+    real_pb = rsa_ops.power_batch
+    rsa_ops.power_batch = lambda *a, **kw: limb_calls.append(1) or real_pb(*a, **kw)
+    try:
+        with Counted() as c_r:
+            t0 = time.perf_counter()
+            tshares, _algo = ctx.distribute(tkey, tnodes, TRSA_K)
+            tbs = b"threshold-rsa-seed-%d" % seed
+            proc = ctx.new_process(tbs, ThresholdAlgo.RSA, "sha256")
+            tsig = None
+            for _ in range(10):
+                target, req = proc.make_request()
+                if req is None or tsig is not None:
+                    break
+                for i, node in enumerate(target[: TRSA_N - 1]):  # one server is down
+                    res = ctx.sign(tshares[i], req, 0xC11E47, i)
+                    if res is not None and proc.process_response(res, node) is not None:
+                        tsig = proc.sig
+                        break
+            trsa_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        rsa_ops.power_batch = real_pb
+    widths = [abs(f).bit_length() for sh in tshares for f in trsa._parse_partial_param(sh)[0].values()]
+    check(tsig == rsa.sign(tbs, tkey) and rsa.verify_host(tbs, tsig, tkey.public),
+          "threshold RSA: the combined signature fails host verify")
+    check(c_r.launches["pow"] == 0 and not limb_calls,
+          f"threshold RSA reached the device: {c_r.launches}, {len(limb_calls)} limb batches")
+    out["threshold_rsa"] = {"n": TRSA_N, "k": TRSA_K, "key_bits": 2048, "sign_ms": trsa_ms,
+                            "k2_launches": c_r.launches["pow"], "limb_batches": len(limb_calls),
+                            "fragment_bits": [min(widths), max(widths)], "fragments": len(widths)}
+    print(f"crypto (e) threshold RSA ({TRSA_K}, {TRSA_N}) 2048-bit: {trsa_ms:.1f} ms on the host, "
+          f"{len(widths)} fragments of {min(widths)}-{max(widths)} bits; K2 launches 0, limb batches 0",
+          flush=True)
+
+    # (f) envelopes between an RSA and a P-256 replica, the native tiers,
+    # the codec
+    ek = ec_replicas[0]
+    ec_cert = certmod.make_ec_certificate(ek.public, name="e0", uid="e0@smoke")
+    certmod.sign_certificate(ec_cert, ek)
+    m_rsa, m_ec = MessageSecurity(replicas[0], certs[0]), MessageSecurity(ek, ec_cert)
+    tags = []
+    for i in range(2):
+        blob = m_rsa.encrypt([ec_cert], b"r2e-%d" % i, b"n%d" % i)
+        pt, sender, nonce = m_ec.decrypt(blob)
+        check((pt, nonce, sender.id) == (b"r2e-%d" % i, b"n%d" % i, certs[0].id), "RSA -> P-256 envelope")
+        reply = m_ec.encrypt([certs[0]], b"e2r-%d" % i, b"m%d" % i)
+        pt, sender, _ = m_rsa.decrypt(reply)
+        check((pt, sender.id) == (b"e2r-%d" % i, ec_cert.id), "P-256 -> RSA envelope")
+        tags.append((blob[0], reply[0]))
+    # The bootstrap grants the pair's session: every later envelope, the
+    # reply included, takes the session path.
+    check(tags == [(1, 2), (2, 2)], f"envelope tags {tags}: expected one bootstrap, then sessions")
+    nkey = replicas[2]
+    msgs = [b"native-%d" % i for i in range(NATIVE_SIGNS)]
+    t0 = time.perf_counter()
+    native = [rsa.sign(m_, nkey) for m_ in msgs]
+    native_ms = (time.perf_counter() - t0) * 1e3
+    mm, rsa._MM = rsa._MM, None
+    try:
+        t0 = time.perf_counter()
+        plain = [rsa.sign(m_, nkey) for m_ in msgs]
+        pow_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        rsa._MM = mm
+    check(native == plain, "crt_pow_d on the native tier differs from pow")
+    pk = packet.Packet(variable=b"var", value=b"value" * 20, t=7,
+                       sig=packet.SignaturePacket(data=b"s" * 64, cert=b"c" * 40),
+                       ss=packet.SignaturePacket(completed=False, data=b"x" * 300), auth=b"auth")
+    wire = pk.serialize()
+    pure = packet._py_serialize(pk.variable, pk.value, pk.t, pk.sig, pk.ss, pk.auth)
+    check(wire == pure and packet.parse(wire) == packet._py_parse(pure) == pk,
+          "the native and pure codecs differ on one packet")
+    out["envelopes"] = {"tags": tags, "native_modexp": mm is not None, "native_codec": packet._C is not None,
+                        "rsa_sign_native_ms": native_ms / NATIVE_SIGNS, "rsa_sign_pow_ms": pow_ms / NATIVE_SIGNS}
+    print(f"crypto (f) envelopes RSA <-> P-256 (ECIES): bootstrap then session both ways; native modexp "
+          f"{'loaded' if mm is not None else 'NOT loaded'}, native codec "
+          f"{'loaded' if packet._C is not None else 'NOT loaded'}; {NATIVE_SIGNS} rsa.sign "
+          f"{native_ms / NATIVE_SIGNS:.3f} ms each through crt_pow_d, {pow_ms / NATIVE_SIGNS:.3f} ms with pow; "
+          f"one packet equal through both codecs", flush=True)
+
+    # Every launch against its plain version: the rows of one kernel and
+    # context concatenated into one plain run.
+    for which, calls, plain in (("verify", k1_calls, rns._verify_kernel), ("pow", k2_calls, rns._pow_kernel)):
+        by_k = {}
+        for part, a in calls:
+            by_k.setdefault(a[4].k, []).append((part, a))
+        for k, group in by_k.items():
+            kern = [(getattr(cuda_rns, f"{which}_cuda")(*a)) for _p, a in group]
+            cn = group[0][1][4]
+            keys_ = [rns.gather_key(a[3], a[2]) for _p, a in group]
+            key = tuple(torch.cat([kk[i] for kk in keys_]) for i in range(len(keys_[0])))
+            first = torch.cat([a[0] for _p, a in group])
+            second = torch.cat([a[1] for _p, a in group], dim=0 if which == "verify" else 1)
+            p_all = plain(cn, first, second, key)
+            check(torch.equal(torch.cat([g.long() for g in kern]), p_all.long()),
+                  f"{'K1' if which == 'verify' else 'K2'} (k={k}) differs from its plain version on the "
+                  f"crypto phase's operands")
+    if k5_calls:
+        eng = k5_calls[0][1][2]
+        kern = torch.cat([cuda_ec.scalar_mult_cuda(*a) for _p, a in k5_calls], dim=-1)
+        plain = ec_rns._scalar_mult(eng, torch.cat([a[0] for _p, a in k5_calls], dim=-1).contiguous(),
+                                    torch.cat([a[1] for _p, a in k5_calls], dim=1).contiguous())
+        check(torch.equal(kern, plain), "K5 differs from its plain version on the crypto phase's operands")
+    torch.cuda.synchronize()
+    held = {"K1": len(k1_calls), "K2": len(k2_calls), "K5": len(k5_calls)}
+    print(f"crypto: every launch of the phase equal to its plain version ({held}); phase "
+          f"{time.perf_counter() - t_phase:.1f} s on {nvidia_smi('name,power.limit')}", flush=True)
+
+    # A record for each (kernel, context, rows) shape of the phase
+    def shapes(calls, rows_of):
+        by = {}
+        for part, a in calls:
+            key = rows_of(a)
+            by.setdefault(key, {"args": a, "parts": {}})
+            by[key]["parts"][part] = by[key]["parts"].get(part, 0) + 1
+        return by
+
+    attrs = cuda_rns.kernel_attrs()
+    records = []
+    for (k, t), v in sorted(shapes(k1_calls, lambda a: (a[4].k, a[0].shape[0])).items()):
+        records.append(rns_record(f"K1 rns_verify_kernel (T={t}, crypto layer)", "verify",
+                                  "bftkv_tpu/ops/pallas_rns.py:517", v["args"], sum(v["parts"].values()),
+                                  20, 2, phase_launches=v["parts"], **attrs["verify"]))
+    for (k, t), v in sorted(shapes(k2_calls, lambda a: (a[4].k, a[0].shape[0])).items()):
+        records.append(rns_record(f"K2 rns_pow_kernel (k={k}, T={t}, crypto layer)", "pow",
+                                  "bftkv_tpu/ops/pallas_rns.py:403", v["args"], sum(v["parts"].values()),
+                                  5, 1, phase_launches=v["parts"], **attrs["pow"]))
+    for (t,), v in sorted(shapes(k5_calls, lambda a: (a[0].shape[-1],)).items()):
+        rec = ec_record(v["args"], sum(v["parts"].values()), 20, phase_launches=v["parts"],
+                        **cuda_ec.kernel_attrs()["ec_scalar_mult"])
+        rec["name"] += f" (T={t}, crypto layer)"
+        records.append(rec)
+    out["records"] = records
+    out["held_against_plain"] = held
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def cuda_ms(fn, reps: int) -> float:
     fn()
     torch.cuda.synchronize()
@@ -1786,6 +2246,10 @@ def main() -> int:
     # 11. shard phase: the RNS launches split over shards
     shard = shard_phase(dev, items, replicas)
 
+    # 12. crypto-layer phase: collective signatures, TPA, threshold
+    # DSA/ECDSA/RSA, envelopes
+    crypto = crypto_phase(dev, replicas, writers, ec_replicas, args.seed, build_dir)
+
     v_med, s_med = statistics.median(v_times), statistics.median(s_times)
     p_med, l_med = statistics.median(p_times), statistics.median(l_times)
     print(f"verify flush (rns): median {v_med * 1e3:.3f} ms of {TIMED_REPS} "
@@ -1811,7 +2275,7 @@ def main() -> int:
           f"({SIGN_SHARES // SIDECAR_TENANTS} shares) beside the in-process rns sign flush "
           f"{s_med * 1e3:.3f} ms", flush=True)
 
-    # 12. each kernel against its plain version, on the main paths' operands
+    # 13. each kernel against its plain version, on the main paths' operands
     v_args = [a for a in rec_v.calls["verify_cuda"] if a[0].shape[0] == VERIFY_FLUSH]
     check(len(v_args) == 1, f"expected one {VERIFY_FLUSH}-row verify launch")
     p_args = rec_s.calls["pow_cuda"]
@@ -1879,6 +2343,7 @@ def main() -> int:
     kernels += ec.pop("records")
     kernels += sidecar.pop("records")
     kernels += shard.pop("records")
+    kernels += crypto.pop("records")
     print(f"K1 before its redesign, not measured in this run ({K1_EARLIER_OF}): "
           + ", ".join(f"T={t} {ms} ms" for t, ms in K1_EARLIER_MS.items())
           + "; this run: " + ", ".join(f"T={r['rows']} {r['ms']:.4f} ms" for r in kernels[0:3]),
@@ -1913,9 +2378,10 @@ def main() -> int:
         "ec": ec,
         "sidecar": sidecar,
         "shard": shard,
+        "crypto": crypto,
     }), flush=True)
 
-    # 13. the card, as nvidia-smi reports it
+    # 14. the card, as nvidia-smi reports it
     print(nvidia_smi("name,power.limit") or "nvidia-smi: no output", flush=True)
     print(json.dumps({
         "ok": True,

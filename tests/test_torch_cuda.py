@@ -742,3 +742,90 @@ def test_tallies_on_card_equal_the_cpu(dev):
     signer_sets = rng.random((5, 300)) < 0.3
     assert torch.equal(tally.equivocation_pairs(signer_sets, device=dev).cpu(),
                        tally.equivocation_pairs(signer_sets, device="cpu"))
+
+
+# -- the crypto layer (M12a) ----------------------------------------------------------
+
+
+def _recording(monkeypatch, module, name):
+    """Keeps a copy of the operands of every call of ``module.name``."""
+    calls = []
+    real = getattr(module, name)
+
+    def rec(*args):
+        calls.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
+        return real(*args)
+
+    monkeypatch.setattr(module, name, rec)
+    return calls
+
+
+def test_tpa_round_on_card_holds_each_k2_launch_against_plain(dev, monkeypatch):
+    """A TPA round (n=8, k=5) on the card: the params and the client's two
+    batched exponentiations are K2 launches at k=188, each equal to its
+    plain version; the proofs decrypt and the cipher key is hash(g_pi^S,
+    password) for the S the servers share."""
+    from bftkv_tpu_torch.crypto import auth, sss
+
+    monkeypatch.setattr(modexp.BatchModExp, "_shared", {})
+    calls = _recording(monkeypatch, cuda_rns, "pow_cuda")
+    cuda_rns.reset_launches()
+    pw, n, k = b"card pw", 8, 5
+    params = auth.generate_partial_auth_params(pw, n, k, device=dev)
+    servers = {i: auth.AuthServer(params[i], b"proof-%d" % i, sleep=lambda _t: None, device=dev)
+               for i in range(n)}
+    client = auth.AuthClient(pw, n, k, device=dev)
+    reqs = client.initiate(list(servers))
+    for phase in range(3):
+        nxt = None
+        for nid, req in reqs.items():
+            nxt = client.process_response(phase, servers[nid].make_response(phase, req)[0], nid)
+            if nxt is not None:
+                break
+        reqs = nxt
+    assert reqs == {nid: b"proof-%d" % nid for nid in reqs} and len(reqs) == k
+    secret = sss.SSSProcess(n, k, auth.Q, [sss.Coordinate(s.params.x, s.params.y)
+                                           for s in list(servers.values())[:k]]).secret
+    gs = pow(auth.pi_of(pw), secret, auth.P)
+    assert client.get_cipher_key() == auth._hash(gs.to_bytes((gs.bit_length() + 7) // 8, "big"), pw)
+    assert cuda_rns.LAUNCHES["pow"] == len(calls) == 3
+    for a in list(calls):
+        assert a[4].k == 188
+        plain = rns._pow_kernel(a[4], a[0], a[1], rns.gather_key(a[3], a[2]))
+        assert torch.equal(cuda_rns.pow_cuda(*a).long(), plain.long())
+
+
+def test_threshold_ecdsa_combine_on_card_holds_each_k5_launch_against_plain(dev, monkeypatch):
+    """Threshold ECDSA's group operations on the card: each partial R
+    (a_i·G, one K5 launch at T=8) and the combine (Σ(v⁻¹λ_i)·R_i, one
+    launch) equal the host curve, and every launch equals its plain
+    version."""
+    from bftkv_tpu_torch.crypto import ec, sss
+    from bftkv_tpu_torch.crypto.threshold import ecdsa as tecdsa
+    from bftkv_tpu_torch.crypto.threshold.dsa_core import PartialR
+    from bftkv_tpu_torch.ops import cuda_ec, ec_rns
+
+    calls = _recording(monkeypatch, cuda_ec, "scalar_mult_cuda")
+    cuda_ec.reset_launches()
+    ops = tecdsa._ECDSAGroupOps(ec.P256, dev)
+    rng = random.Random(61)
+    n_order = ec.P256.n
+    rs, a_s = [], []
+    for x in (1, 2, 4, 5, 7, 9):
+        a = rng.randrange(1, n_order)
+        a_s.append(a)
+        ri = ops.calculate_partial_r(a)
+        assert ec.unmarshal(ec.P256, ri) == ec.P256.scalar_base_mult(a)
+        rs.append(PartialR(x, ri, rng.randrange(1, n_order)))
+    r = ops.calculate_r(rs)
+    xs = [pr.x for pr in rs]
+    lams = [sss.lagrange(x, xs, n_order) for x in xs]
+    v_inv = pow(sum(pr.vi * lam for pr, lam in zip(rs, lams)) % n_order, -1, n_order)
+    acc = None
+    for a, lam in zip(a_s, lams):
+        acc = ec.P256.add(acc, ec.P256.scalar_base_mult(a * lam * v_inv % n_order))
+    assert r == acc[0] % n_order
+    assert cuda_ec.LAUNCHES["ec_scalar_mult"] == len(calls) == len(rs) + 1
+    assert [a[0].shape[-1] for a in calls] == [8] * len(rs) + [8]
+    for res, nib, eng in list(calls):
+        assert torch.equal(cuda_ec.scalar_mult_cuda(res, nib, eng), ec_rns._scalar_mult(eng, res, nib))

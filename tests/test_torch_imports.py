@@ -64,6 +64,13 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import bftkv_tpu_torch.ops.tally, bftkv_tpu_torch.entry, bftkv_tpu_torch.admission\n"
         "import bftkv_tpu_torch.packet, bftkv_tpu_torch.crypto.aead, bftkv_tpu_torch.crypto.cert\n"
         "import bftkv_tpu_torch.cmd.verify_sidecar, bftkv_tpu_torch.crypto.remote_verify\n"
+        "import bftkv_tpu_torch.crypto, bftkv_tpu_torch.crypto.vcache, bftkv_tpu_torch.crypto.sss\n"
+        "import bftkv_tpu_torch.crypto.dataenc, bftkv_tpu_torch.crypto.keyring\n"
+        "import bftkv_tpu_torch.crypto.signature, bftkv_tpu_torch.crypto.message\n"
+        "import bftkv_tpu_torch.crypto.auth, bftkv_tpu_torch.crypto.threshold\n"
+        "import bftkv_tpu_torch.crypto.threshold.dsa_core, bftkv_tpu_torch.crypto.threshold.rsa\n"
+        "import bftkv_tpu_torch.crypto.threshold.dsa, bftkv_tpu_torch.crypto.threshold.ecdsa\n"
+        "import bftkv_tpu_torch.native\n"
         "from bftkv_tpu_torch.ops import _build\n"
         "new = set(sys.modules) - before\n"
         "tops = {m.split('.')[0] for m in new}\n"
@@ -79,8 +86,41 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
     assert out.stdout.strip() == "[] False True", out.stdout + out.stderr
 
 
+def test_importing_the_crypto_layer_builds_only_under_build(tmp_path):
+    """The native codec and modexp build from ``native/``'s sources into the
+    port's ``_build/native/``: nothing is written under ``native/`` (on a
+    copy of the package and the sources, so no other process's build is
+    seen)."""
+    import shutil
+
+    shutil.copytree(PKG, tmp_path / "bftkv_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    shutil.copytree(ROOT / "native", tmp_path / "native",
+                    ignore=shutil.ignore_patterns("*.so", ".*.lock", "__pycache__"))
+    before = sorted(p.name for p in (tmp_path / "native").iterdir())
+    code = (
+        "import bftkv_tpu_torch.packet as p, bftkv_tpu_torch.crypto.rsa as r\n"
+        "import bftkv_tpu_torch.crypto, bftkv_tpu_torch.crypto.auth\n"
+        "import bftkv_tpu_torch.crypto.threshold.rsa, bftkv_tpu_torch.crypto.message\n"
+        "print(p._C is not None, r._MM is not None)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=str(tmp_path)), cwd=str(tmp_path), timeout=300, check=True,
+    )
+    assert out.stdout.split() == ["True", "True"], out.stdout + out.stderr
+    assert sorted(p.name for p in (tmp_path / "native").iterdir()) == before
+    built = sorted(p.name.split(".")[0] for p in (tmp_path / "bftkv_tpu_torch" / "_build" / "native").glob("*.so"))
+    assert built == ["_montmodexp", "_packetcodec"]
+
+
 def _entry_points():
+    from bftkv_tpu_torch.crypto import auth, new_crypto, signature
     from bftkv_tpu_torch.crypto import ecdsa, rsa
+    from bftkv_tpu_torch.crypto.threshold import ThresholdInstance
+    from bftkv_tpu_torch.crypto.threshold import dsa as tdsa
+    from bftkv_tpu_torch.crypto.threshold import ecdsa as tecdsa
+    from bftkv_tpu_torch.crypto.threshold import rsa as trsa
     from bftkv_tpu_torch.crypto.ec import P256
     from bftkv_tpu_torch import entry
     from bftkv_tpu_torch.cmd import verify_sidecar
@@ -134,17 +174,32 @@ def _entry_points():
         "shard_over": lambda: rns.shard_over(["cuda:0"]).__enter__(),
         "SidecarService": lambda: verify_sidecar.SidecarService(device="cuda"),
         "serve": lambda: verify_sidecar.serve("127.0.0.1:0", device="cuda"),
+        "BatchModExp_shared": lambda: modexp.BatchModExp.shared("cuda"),
+        "AuthClient": lambda: auth.AuthClient(b"pw", 3, 2, device="cuda"),
+        "AuthServer": lambda: auth.AuthServer(auth.AuthParams(1, 2, 3, b"s").serialize(), b"p",
+                                              device="cuda"),
+        "generate_partial_auth_params": lambda: auth.generate_partial_auth_params(
+            b"pw", 4, 3, device="cuda"),
+        "CollectiveSignature": lambda: signature.CollectiveSignature(device="cuda"),
+        "new_crypto": lambda: new_crypto(device="cuda"),
+        "ThresholdInstance": lambda: ThresholdInstance(None, device="cuda"),
+        "RSAThreshold": lambda: trsa.RSAThreshold(device="cuda"),
+        "threshold_dsa_new": lambda: tdsa.new(None, device="cuda"),
+        "threshold_ecdsa_new": lambda: tecdsa.new(None, device="cuda"),
     }
 
 
 ENTRY_POINTS = [
-    "BatchModExp", "ModexpDispatcher", "SidecarService", "SignDispatcher", "SignerDomain",
-    "SignerDomain_limb", "VerifierDomain", "VerifierDomain_limb", "VerifierDomain_pallas",
-    "VerifyDispatcher", "calibration", "consts_from_numpy", "dryrun_multichip", "ec_rns_engine",
-    "ec_rns_scalar_mult_hosts", "ec_scalar_mult_hosts", "ecdsa_sign_batch",
-    "ecdsa_verify_batch", "entry", "flat_verify", "key_rows_from_numpy",
-    "limbs_from_numpy", "power_batch", "power_mod_rns", "serve", "shard_over", "tally_counts",
-    "verify_batch_e65537", "verify_e65537_rns_indexed",
+    "AuthClient", "AuthServer", "BatchModExp", "BatchModExp_shared", "CollectiveSignature",
+    "ModexpDispatcher", "RSAThreshold", "SidecarService", "SignDispatcher", "SignerDomain",
+    "SignerDomain_limb", "ThresholdInstance", "VerifierDomain", "VerifierDomain_limb",
+    "VerifierDomain_pallas", "VerifyDispatcher", "calibration", "consts_from_numpy",
+    "dryrun_multichip", "ec_rns_engine", "ec_rns_scalar_mult_hosts", "ec_scalar_mult_hosts",
+    "ecdsa_sign_batch", "ecdsa_verify_batch", "entry", "flat_verify",
+    "generate_partial_auth_params", "key_rows_from_numpy", "limbs_from_numpy", "new_crypto",
+    "power_batch", "power_mod_rns", "serve", "shard_over", "tally_counts",
+    "threshold_dsa_new", "threshold_ecdsa_new", "verify_batch_e65537",
+    "verify_e65537_rns_indexed",
 ]
 
 
@@ -203,6 +258,10 @@ def test_flag_seam():
         "BFTKV_SIDECAR_MAX_QUEUE",
         "BFTKV_SIDECAR_MAX_WAIT",
         "BFTKV_SIDECAR_MAX_KEYS",
+        "BFTKV_VERIFY_CACHE",
+        "BFTKV_VERIFY_CACHE_MAX",
+        "BFTKV_NATIVE_MODEXP",
+        "BFTKV_NATIVE_CODEC",
     }
     # Every declared flag is read somewhere in the port, and no BFTKV_*
     # name is read from the environment outside flags.py.
