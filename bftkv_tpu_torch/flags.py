@@ -129,6 +129,40 @@ _flag("BFTKV_SLOW_TRACE_SECONDS", "1.0", "float",
 _flag("BFTKV_LOCKWATCH", "", "switch",
       "Opt-in runtime lock sanitizer (devtools/lockwatch.py): lock-order "
       "cycles and blocking calls under watched locks.")
+_flag("BFTKV_REGION", None, "str",
+      "This process's own region label, overriding the installed "
+      "region map (a gateway box pinned to its serving region; "
+      "unset: the identity's label from the universe's regions "
+      "file).")
+_flag("BFTKV_WAN_JITTER", "0", "float",
+      "Fractional jitter on WAN link delays: each one-way delay "
+      "stretches uniformly (seeded per-rule draw) up to "
+      "delay x (1 + jitter).")
+_flag("BFTKV_PLAIN_FSYNC", None, "switch",
+      "Per-write fsync pair (file + directory) in PlainStorage; "
+      "unset: library off / daemon on (durability is a deployment "
+      "policy).")
+_flag("BFTKV_PLAIN_CACHE", "1024", "int",
+      "PlainStorage write-through record cache (entries; 0 disables).")
+_flag("BFTKV_STORAGE", None, "str",
+      "Default `--storage` engine for the daemon/cluster CLIs "
+      "(plain|log|native|mem; unset: plain for the daemon, log for "
+      "run_cluster).")
+_flag("BFTKV_LOG_SEGMENT_MB", "64", "int",
+      "LogStorage segment size: the active segment seals past this "
+      "and becomes a shippable snapshot unit (DESIGN.md §19).")
+_flag("BFTKV_LOG_GROUP_COMMIT_MS", "2", "float",
+      "LogStorage group-commit linger: how long the fsync leader "
+      "waits for concurrent writers to join its barrier (0 = fsync "
+      "immediately, still shared by the losers of the leader race).")
+_flag("BFTKV_LOG_COMPACT_TRIGGER", "0.5", "float",
+      "LogStorage background compaction trigger: sealed dead-byte "
+      "ratio past which a compaction pass starts (0 disables).")
+_flag("BFTKV_LOG_COMPACT_MBPS", None, "float",
+      "Compaction IO governor: sustained copy-rate cap in MB/s "
+      "(token-bucket sleep between record copies; unset/0 = "
+      "ungoverned).  Throttle time surfaces as compact_io saturation "
+      "in the capacity plane.")
 
 
 def _check(name: str) -> Flag:

@@ -3,9 +3,9 @@
 Drives the port's main paths at the size of the 64-replica cluster and
 holds every hand-written kernel against its plain PyTorch version:
 
-1. keys: 64 replica RSA-2048 keys and 4 writer keys, drawn from --seed
-   (cached under bftkv_tpu_torch/_build/), and as many P-256 keys, with the
-   signed verify items of both, outside every timed phase;
+1. keys: 64 replica RSA-2048 keys, 4 writer and 8 storage-node keys, drawn
+   from --seed (cached under bftkv_tpu_torch/_build/), and 64 + 4 P-256
+   keys, with the signed verify items of both, outside every timed phase;
 2. build: the kernels from bftkv_tpu_torch/ops/csrc/ for sm_90a;
 3. RNS verify phase: 64 threads, one per replica, submit their share of
    one 4096-item flush to VerifyDispatcher(max_batch=4096): about 93
@@ -64,25 +64,45 @@ holds every hand-written kernel against its plain PyTorch version:
    sign modexp at k=94 T=512 split over two shards of this card and, with
    two or more cards, over every card, bit-identical to the unsplit launch;
    every K1 and K2 launch of the phase held against its plain version;
-12. crypto-layer phase (the port of bftkv_tpu/crypto), on the same cluster:
-   (a) the 93 writes' collective shares (the writer and 43 replicas each)
-   through Signer.issue_many with the dispatchers installed (K2 k=94, K1
-   fault checks), combined, 1% of the entries forged, verify_many of the
-   93 jobs against suff with the verify memo reset (K1), then again with the
-   memo on; (b) a TPA round at n=64, k=43 (K2 k=188), and a wrong password
-   refused by every server; (c) threshold DSA at n=64, k=22 on a 2048-bit p
-   drawn from --seed (K2 k=188); (d) threshold ECDSA at n=64, k=22 (K5 at
-   T=8 a partial R, and the combine); (e) threshold RSA (3, 4) at 2048 bits,
-   whose fragments sign on the host: no launch; (f) a MessageSecurity
-   bootstrap and session round trip between an RSA and a P-256 replica
-   (ECIES), the native modexp and codec tiers.  Every verdict, signature
-   and secret equals the host's; every K1, K2 and K5 launch of the phase
+12. quorum phase (the port of bftkv_tpu/graph.py, quorum/, regions/,
+   storage/ and topology.py): (a) the universe of the 64-replica cluster
+   (64 servers cross-signed into one clique, 8 storage-only rw nodes, the
+   4 writers; 8 more seeded keys) built with topology.build_universe and a
+   node made by make_node for each of the 76 principals, every server's
+   AUTH and every writer's AUTH|PEER quorum the 64-clique at f=21, min=64,
+   threshold=43, suff=43, WRITE adding the rw nodes; (b) the 93 writes
+   certified as the protocol's client certifies them (43 servers' shares
+   through Signer.issue_many, K2 k=94 and K1 fault checks; combined against
+   each writer's quorum; verify_many per writer, K1); (c) 4096 candidate
+   sets tallied on the card against the host predicates, and the
+   equivocation tally at universe 256 with 85 colluders; (d) 72 durable
+   LogStorages take the 93 packets, are reopened and read back, one
+   replica re-verifies its stored signatures (K1), one store is compacted,
+   a NativeStorage does the same; (e) the fill sweep (log and native to 1M
+   keys, plain to 10k, a listed cut).  Every K1 and K2 launch of the phase
    is held against its plain version;
-13. each kernel against its plain version on the card, on the operands the
+13. crypto-layer phase (the port of bftkv_tpu/crypto), on the same
+   cluster: (a) the 93 writes' collective shares (the writer and 43
+   replicas each) through Signer.issue_many with the dispatchers
+   installed (K2 k=94, K1 fault checks), combined against each writer's
+   quorum from the quorum phase, 1% of the entries forged, verify_many
+   of each writer's jobs with the verify memo reset (K1), then again
+   with the memo on, the verdicts held to a host recount (at least 43
+   valid signers in the clique); (b) a TPA round at n=64, k=43 (K2
+   k=188), and a wrong password refused by every server; (c) threshold
+   DSA at n=64, k=22 on a 2048-bit p drawn from --seed (K2 k=188); (d)
+   threshold ECDSA at n=64, k=22 (K5 at T=8 a partial R, and the
+   combine); (e) threshold RSA (3, 4) at 2048 bits, whose fragments
+   sign on the host: no launch; (f) a MessageSecurity bootstrap and
+   session round trip between an RSA and a P-256 replica (ECIES), the
+   native modexp and codec tiers.  Every verdict, signature and secret
+   equals the host's; every K1, K2 and K5 launch of the phase is held
+   against its plain version;
+14. each kernel against its plain version on the card, on the operands the
    main paths gave it: K1 verdicts (T=4096, T=1024 and every fault check's
    T=256), K2 sigma (k=94 at T=512 and T=64, k=188), K3's whole
    (4096, 128) diff and K5's Jacobian residues bit-identical;
-14. times: median of 5 timed flushes per verify/RNS-sign phase, 3 for the
+15. times: median of 5 timed flushes per verify/RNS-sign phase, 3 for the
    limb sign and the EC flushes, and kernel times by CUDA events, beside
    nvidia-smi's name and power limit.
 
@@ -183,6 +203,18 @@ CERT_K = 22  # f + 1
 TRSA_N, TRSA_K = 4, 3
 CRYPTO_WORKERS = 8  # threads serving the threshold servers' host work
 NATIVE_SIGNS = 256
+# The quorum phase: the headline cluster's universe (64 servers cross-signed
+# into one clique, 8 storage-only rw nodes, the 4 writers as users), its
+# web-of-trust quorums, the tallies and the replicas' stores.
+N_STORAGE = 8
+TALLY_SETS = 4096  # candidate sets tallied on the card against the host predicates
+TALLY_SIZES = (20, 64)  # sizes of the seeded random ack sets, around the thresholds
+TALLY_REPS = 20
+EQUIV_UNIVERSE, EQUIV_BYZ, EQUIV_PAIRS = 256, 85, 4096  # BASELINE config 5 (bench.py bench_tally)
+FILL_POINTS = (10_000, 100_000, 1_000_000)  # resident keys (bench.py _fill_sweep)
+FILL_PROBES = 2000  # timed probe writes at each point
+FILL_READBACK = 10_000  # seeded keys read back at the last point
+PLAIN_FILL_CAP = 10_000  # PlainStorage writes one file per version: filled to its first point only
 
 
 def fail(msg: str) -> None:
@@ -217,7 +249,7 @@ def load_keys(pool, seed: int, build_dir: str):
     from bftkv_tpu_torch.crypto import rsa
 
     path = os.path.join(build_dir, f"smoke_keys_seed{seed}.json")
-    seeds = [seed * 1000 + i for i in range(N_REPLICAS + N_WRITERS)]
+    seeds = [seed * 1000 + i for i in range(N_REPLICAS + N_WRITERS + N_STORAGE)]
     tuples = None
     if os.path.exists(path):
         with open(path) as f:
@@ -232,7 +264,8 @@ def load_keys(pool, seed: int, build_dir: str):
     keys = [rsa.PrivateKey(n=n, e=e, d=d, p=p, q=q) for n, e, d, p, q in tuples]
     for k in keys:
         check(k.n == k.p * k.q and k.n.bit_length() == 2048, "bad cached key")
-    return keys[:N_REPLICAS], keys[N_REPLICAS:]
+    return (keys[:N_REPLICAS], keys[N_REPLICAS:N_REPLICAS + N_WRITERS],
+            keys[N_REPLICAS + N_WRITERS:])
 
 
 def verify_items(pool, replicas, writers, seed: int):
@@ -1451,14 +1484,451 @@ def shard_phase(dev, rsa_items, replicas) -> dict:
     return out
 
 
+# -- the quorum phase ------------------------------------------------------------
+
+
+def hold_rns_calls(k1_calls, k2_calls, what: str) -> None:
+    """Every recorded K1 and K2 launch against its plain version: the rows of
+    one kernel and context concatenated into one plain run."""
+    from bftkv_tpu_torch.ops import cuda_rns, rns
+
+    for which, calls, plain in (("verify", k1_calls, rns._verify_kernel), ("pow", k2_calls, rns._pow_kernel)):
+        by_k = {}
+        for part, a in calls:
+            by_k.setdefault(a[4].k, []).append((part, a))
+        for k, group in by_k.items():
+            kern = [(getattr(cuda_rns, f"{which}_cuda")(*a)) for _p, a in group]
+            cn = group[0][1][4]
+            keys_ = [rns.gather_key(a[3], a[2]) for _p, a in group]
+            key = tuple(torch.cat([kk[i] for kk in keys_]) for i in range(len(keys_[0])))
+            first = torch.cat([a[0] for _p, a in group])
+            second = torch.cat([a[1] for _p, a in group], dim=0 if which == "verify" else 1)
+            p_all = plain(cn, first, second, key)
+            check(torch.equal(torch.cat([g.long() for g in kern]), p_all.long()),
+                  f"{'K1' if which == 'verify' else 'K2'} (k={k}) differs from its plain version on the "
+                  f"{what}'s operands")
+
+
+def _shapes(calls, rows_of):
+    by = {}
+    for part, a in calls:
+        key = rows_of(a)
+        by.setdefault(key, {"args": a, "parts": {}})
+        by[key]["parts"][part] = by[key]["parts"].get(part, 0) + 1
+    return by
+
+
+def rns_shape_records(k1_calls, k2_calls, label: str) -> list:
+    """A kernel record for each (kernel, context, rows) shape of a phase."""
+    from bftkv_tpu_torch.ops import cuda_rns
+
+    attrs = cuda_rns.kernel_attrs()
+    records = []
+    for (k, t), v in sorted(_shapes(k1_calls, lambda a: (a[4].k, a[0].shape[0])).items()):
+        records.append(rns_record(f"K1 rns_verify_kernel (T={t}, {label})", "verify",
+                                  "bftkv_tpu/ops/pallas_rns.py:517", v["args"], sum(v["parts"].values()),
+                                  20, 2, phase_launches=v["parts"], **attrs["verify"]))
+    for (k, t), v in sorted(_shapes(k2_calls, lambda a: (a[4].k, a[0].shape[0])).items()):
+        records.append(rns_record(f"K2 rns_pow_kernel (k={k}, T={t}, {label})", "pow",
+                                  "bftkv_tpu/ops/pallas_rns.py:403", v["args"], sum(v["parts"].values()),
+                                  5, 1, phase_launches=v["parts"], **attrs["pow"]))
+    return records
+
+
+def _fill_sweep(root: str, engine: str, cap: int, seed: int) -> dict:
+    """``bench.py``'s raw-engine fill sweep on one engine (fsync off, 64-byte
+    payloads): p50 of FILL_PROBES timed writes at each resident-key point up
+    to ``cap``, then a seeded sample of the filled keys read back."""
+    from bftkv_tpu_torch.storage.logkv import LogStorage
+    from bftkv_tpu_torch.storage.native import NativeStorage
+    from bftkv_tpu_torch.storage.plain import PlainStorage
+
+    path = os.path.join(root, f"fill-{engine}")
+    s = {"log": lambda: LogStorage(path, fsync=False), "native": lambda: NativeStorage(path + ".kv"),
+         "plain": lambda: PlainStorage(path, fsync=False)}[engine]()
+    payload = b"p" * 64
+    row = {}
+    filled = 0
+    t0 = time.perf_counter()
+    for n in [p for p in FILL_POINTS if p <= cap]:
+        while filled < n:
+            s.write(b"fill-%09d" % filled, 1, payload)
+            filled += 1
+        lat = []
+        for i in range(FILL_PROBES):
+            t1 = time.perf_counter()
+            s.write(b"probe-%d-%09d" % (n, i), 1, payload)
+            lat.append(time.perf_counter() - t1)
+        row["p50_us_at_%d" % n] = statistics.median(lat) * 1e6
+    row["fill_s"] = time.perf_counter() - t0
+    sample = random.Random(seed).sample(range(filled), min(FILL_READBACK, filled))
+    t0 = time.perf_counter()
+    bad = sum(s.read(b"fill-%09d" % i) != payload for i in sample)
+    row["readback_keys"] = len(sample)
+    row["readback_ms"] = (time.perf_counter() - t0) * 1e3
+    check(bad == 0, f"{engine}: {bad} of {len(sample)} filled keys read back wrong at {filled} keys")
+    if hasattr(s, "close"):
+        s.close()
+    return row
+
+
+def quorum_phase(dev, replicas, writers, storage_keys, seed: int) -> tuple[dict, dict]:
+    """The trust graph, the web-of-trust quorums, the tallies and the stores
+    (the port of bftkv_tpu/graph.py, quorum/, regions/, storage/ and
+    topology.py) at the headline cluster's width: (a) the universe built
+    with topology.build_universe (64 servers cross-signed, 8 rw nodes, the
+    4 writers) and make_node for all 76 principals; every server's AUTH
+    quorum and every writer's keyed AUTH|PEER quorum is the 64-clique at
+    f=21, min=64, threshold=43, suff=43, and WRITE adds the rw nodes; (b)
+    the 93 writes certified as the protocol's client certifies them: the
+    writer's signature, then the shares of 43 servers issued through
+    Signer.issue_many with the dispatchers installed (K2 k=94, K1 fault
+    checks), combined against the writer's quorum (complete exactly at the
+    43rd), and verify_many per writer (K1); (c) 4096 candidate sets tallied
+    on the card (ops/tally.py) against the host predicates, and the
+    equivocation tally at universe 256 with 85 colluders; (d) every
+    storage-holding principal's LogStorage (durable default) takes the 93
+    packets in one write_batch, is closed, reopened and read back, one
+    replica re-verifies its 93 collective signatures (K1), one store is
+    compacted and read back, and a NativeStorage does the same; (e) the
+    fill sweep.  Every K1 and K2 launch of the phase is held against its
+    plain version.  Returns the phase's record and the writers' nodes and
+    quorums, which the crypto-layer phase takes."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from bftkv_tpu_torch import packet, topology
+    from bftkv_tpu_torch import quorum as q
+    from bftkv_tpu_torch.crypto import signature, vcache
+    from bftkv_tpu_torch.ops import cuda_rns, dispatch, tally
+    from bftkv_tpu_torch.quorum.wotqs import bmasking_params
+    from bftkv_tpu_torch.storage import open_engine
+    from bftkv_tpu_torch.storage.compact import compact_store
+    from bftkv_tpu_torch.storage.native import NativeStorage
+
+    os.environ.update(BFTKV_SHARD="off")
+    t_phase = time.perf_counter()
+    out = {}
+    k1_calls, k2_calls = [], []
+    launch_names = ("verify_cuda", "pow_cuda")
+
+    def keep(part, rec):
+        k1_calls.extend((part, a) for a in rec.calls["verify_cuda"])
+        k2_calls.extend((part, a) for a in rec.calls["pow_cuda"])
+
+    # (a) the universe and the 76 nodes
+    t0 = time.perf_counter()
+    uni = topology.build_universe(N_REPLICAS, N_WRITERS, N_STORAGE, bits=2048,
+                                  keys=replicas + storage_keys + writers)
+    views = {i.name: uni.view_of(i) for i in uni.all}
+    build_ms = (time.perf_counter() - t0) * 1e3
+    cross = sum(len(s.cert.signers()) - 1 for s in uni.servers)
+    check(cross == N_REPLICAS * (N_REPLICAS - 1), f"{cross} cross-signatures on the server certificates")
+    t0 = time.perf_counter()
+    nodes = {i.name: topology.make_node(i, views[i.name], uni.local_trust_of(i), device=dev) for i in uni.all}
+    make_ms = (time.perf_counter() - t0) * 1e3
+    server_ids = {s.id for s in uni.servers}
+    rw_ids = {s.id for s in uni.storage_nodes}
+    want = bmasking_params(N_REPLICAS)
+    check(want == (CERT_K - 1, N_REPLICAS, AUTH_K, SUFF), f"bmasking_params({N_REPLICAS}) = {want}")
+
+    def bounds_of(qr):
+        b = qr.bounds()
+        return [tuple(int(b[k][i]) for k in ("f", "min", "threshold", "suff")) for i in range(len(qr.qcs))]
+
+    t0 = time.perf_counter()
+    for s in uni.servers:
+        qa = nodes[s.name][2].choose_quorum(q.AUTH)
+        check(set(qa.membership_matrix()[1]) == server_ids and bounds_of(qa) == [want],
+              f"{s.name}'s AUTH quorum is not the {N_REPLICAS}-clique at {want}: {bounds_of(qa)}")
+    writer_nodes, writer_quorums = [], []
+    for u in uni.users:
+        g, crypt, qs = nodes[u.name]
+        qa = qs.choose_quorum_for(b"x", q.AUTH | q.PEER)
+        check(set(qa.membership_matrix()[1]) == server_ids and bounds_of(qa) == [want],
+              f"{u.name}'s AUTH|PEER quorum is not the {N_REPLICAS}-clique at {want}: {bounds_of(qa)}")
+        qw = qs.choose_quorum(q.WRITE | q.AUTH)
+        check({n.id for n in qw.nodes()} == server_ids | rw_ids,
+              f"{u.name}'s WRITE|AUTH quorum holds {len(qw.nodes())} addressed nodes, not the clique and the rw nodes")
+        check({n.id for n in qs.choose_quorum(q.WRITE).nodes()} == rw_ids,
+              f"{u.name}'s WRITE quorum is not the {N_STORAGE} rw nodes")
+        writer_nodes.append((g, crypt, qs))
+        writer_quorums.append(qa)
+    quorum_ms = (time.perf_counter() - t0) * 1e3
+    out["universe"] = {"servers": N_REPLICAS, "storage": N_STORAGE, "writers": N_WRITERS,
+                       "cross_signatures": cross, "build_ms": build_ms, "make_node_ms": make_ms,
+                       "nodes": len(nodes), "quorum_checks_ms": quorum_ms,
+                       "f_min_threshold_suff": list(want)}
+    print(f"quorum (a) universe: {N_REPLICAS} servers ({cross} cross-signatures), {N_STORAGE} rw, "
+          f"{N_WRITERS} writers built with their {len(views)} views in {build_ms:.1f} ms; "
+          f"{len(nodes)} make_node calls in {make_ms:.1f} ms; every server's AUTH and every writer's "
+          f"AUTH|PEER quorum is the {N_REPLICAS}-clique at f, min, threshold, suff = {want}; "
+          f"WRITE adds the {N_STORAGE} rw nodes", flush=True)
+
+    # (b) the 93 writes, certified as the protocol's client certifies them
+    recs = []  # (writer index, x, v, t, sig, tbss)
+    for w in range(N_WRITES):
+        wi = w % N_WRITERS
+        x, v, t = b"smoke/%d" % w, b"value-%d-seed-%d" % (w, seed), 1
+        sig = writer_nodes[wi][1].signer.issue(packet.serialize(x, v, t, nfields=3))
+        recs.append((wi, x, v, t, sig, packet.serialize(x, v, t, sig, nfields=4)))
+    plan = {}
+    for w in range(N_WRITES):
+        for j in range(SUFF):
+            plan.setdefault((7 * w + j) % N_REPLICAS, []).append(w)
+    order = sorted(plan)
+    issued = {}
+    vd = dispatch.install(dispatch.VerifyDispatcher(device=dev))
+    dispatch.install_signer(dispatch.SignDispatcher(device=dev))
+    try:
+        with Recorder(cuda_rns, launch_names) as rec, Counted() as c_sign:
+            t0 = time.perf_counter()
+            run_threads(len(order), lambda i: issued.__setitem__(order[i], nodes[uni.servers[order[i]].name][1]
+                                                                 .signer.issue_many([recs[w][5] for w in plan[order[i]]])))
+            sign_ms = (time.perf_counter() - t0) * 1e3
+        keep("certify_sign", rec)
+        check(c_sign.launches["pow"] >= 1 and c_sign.launches["verify"] >= 1,
+              f"the shares' Signer.issue_many launched {c_sign.launches}")
+        pos = {i: 0 for i in plan}
+        shares_of = [[] for _ in range(N_WRITES)]
+        for i in order:
+            for w in plan[i]:
+                shares_of[w].append(issued[i][pos[i]])
+                pos[i] += 1
+        t0 = time.perf_counter()
+        ss_of = []
+        for w, (wi, *_r) in enumerate(recs):
+            crypt, qa = writer_nodes[wi][1], writer_quorums[wi]
+            ss, done_at = None, []
+            for share in shares_of[w]:
+                ss, done = crypt.collective.combine(ss, share, qa, crypt.keyring)
+                done_at.append(done)
+            check(done_at == [False] * (SUFF - 1) + [True],
+                  f"write {w}: the combine was sufficient after {done_at.index(True) + 1 if True in done_at else None} "
+                  f"shares, not {SUFF}")
+            ss_of.append(ss)
+        combine_ms = (time.perf_counter() - t0) * 1e3
+        vcache.reset()  # the shares' own signatures seeded the memo
+        errs = [None] * N_WRITES
+        with Recorder(cuda_rns, launch_names) as rec, Counted() as c_ver:
+            t0 = time.perf_counter()
+            for wi in range(N_WRITERS):
+                ws = [w for w in range(N_WRITES) if recs[w][0] == wi]
+                crypt = writer_nodes[wi][1]
+                res = crypt.collective.verify_many([(recs[w][5], ss_of[w]) for w in ws],
+                                                   writer_quorums[wi], crypt.keyring)
+                for w, e in zip(ws, res):
+                    errs[w] = e
+            verify_ms = (time.perf_counter() - t0) * 1e3
+        keep("certify_verify", rec)
+        check(errs == [None] * N_WRITES, f"{sum(e is not None for e in errs)} certified writes fail verify_many")
+        check(c_ver.launches["verify"] >= 1 and c_ver.snap.get("verify.cache.hits", 0) == 0,
+              f"verify_many launched {c_ver.launches}, memo hits {c_ver.snap.get('verify.cache.hits', 0)}")
+    finally:
+        dispatch.uninstall_all()
+    packets = [(x, t, packet.serialize(x, v, t, sig, ss_of[w])) for w, (_wi, x, v, t, sig, _tb) in enumerate(recs)]
+    out["certify"] = {"writes": N_WRITES, "shares": sum(len(v) for v in plan.values()), "sign_ms": sign_ms,
+                      "combine_ms": combine_ms, "verify_many_ms": verify_ms,
+                      "sign_launches": dict(c_sign.launches), "verify_launches": dict(c_ver.launches),
+                      "k1_rows": [a[0].shape[0] for p, a in k1_calls if p == "certify_verify"]}
+    print(f"quorum (b) certify: {out['certify']['shares']} shares of {N_WRITES} writes through "
+          f"Signer.issue_many in {sign_ms:.1f} ms (K2 {c_sign.launches['pow']}, K1 fault checks "
+          f"{c_sign.launches['verify']}); combined against each writer's quorum, complete at share {SUFF}, "
+          f"in {combine_ms:.1f} ms; verify_many per writer {verify_ms:.1f} ms (K1 {c_ver.launches['verify']} "
+          f"at T={out['certify']['k1_rows']}); all {N_WRITES} sufficient", flush=True)
+
+    # (c) the tallies on the card against the host predicates
+    qa = writer_quorums[0]
+    membership, index = qa.membership_matrix()
+    bounds = qa.bounds()
+    ids = list(index)
+    by_id = {n.id: n for qc in qa.qcs for n in qc.nodes}
+    trng = np.random.default_rng(seed)
+    sets = [[sid for sid, _s in signature.parse_entries(ss.data)] for ss in ss_of]
+    while len(sets) < TALLY_SETS:
+        k = int(trng.integers(TALLY_SIZES[0], TALLY_SIZES[1] + 1))
+        sets.append([ids[j] for j in trng.choice(len(ids), size=min(k, len(ids)), replace=False)])
+    cand = np.stack([qa.mask_of([by_id[i] for i in s if i in by_id]) for s in sets])
+    t0 = time.perf_counter()
+    host = {
+        "threshold": [qa.is_threshold([by_id[i] for i in s]) for s in sets],
+        "quorum": [qa.is_quorum([by_id[i] for i in s]) for s in sets],
+        "sufficient": [qa.is_sufficient([by_id[i] for i in s]) for s in sets],
+        "reject": [qa.reject([by_id[i] for i in s]) for s in sets],
+    }
+    host_ms = (time.perf_counter() - t0) * 1e3
+    m_dev = torch.as_tensor(membership, device=dev)
+    c_dev = torch.as_tensor(cand, device=dev)
+
+    def card():
+        return {
+            "threshold": tally.is_threshold_batch(m_dev, c_dev, bounds["threshold"]),
+            "quorum": tally.is_quorum_batch(m_dev, c_dev, bounds["f"], bounds["min"]),
+            "sufficient": tally.is_sufficient_batch(m_dev, c_dev, bounds["suff"]),
+            "reject": tally.reject_batch(m_dev, c_dev, bounds["f"]),
+        }
+
+    got = card()
+    for k in host:
+        rows = got[k].cpu().tolist()
+        check(got[k].device.type == "cuda", f"the {k} tally ran on {got[k].device}")
+        check(rows == host[k], f"the card's {k} tally differs from the host predicate on "
+              f"{sum(a != b for a, b in zip(rows, host[k]))} of {len(sets)} sets")
+    check(all(host["sufficient"][:N_WRITES]), "a certified write's signer set is not sufficient on the host")
+    tally_ms = cuda_ms(card, TALLY_REPS)
+    byz = np.zeros(EQUIV_UNIVERSE, dtype=bool)
+    byz[EQUIV_UNIVERSE - EQUIV_BYZ:] = True
+    honest = np.zeros((2, EQUIV_UNIVERSE), dtype=bool)
+    honest[0, : EQUIV_UNIVERSE // 2] = True
+    honest[1, EQUIV_UNIVERSE // 2: EQUIV_UNIVERSE - EQUIV_BYZ] = True
+    signer_sets = honest | byz  # the colluders sign both values
+    one = tally.equivocation_pairs(torch.as_tensor(signer_sets, device=dev))
+    check(one.cpu().numpy().tolist() == byz.tolist(), f"equivocation_pairs flagged {int(one.sum())}, "
+          f"not the {EQUIV_BYZ} colluders")
+    # EQUIV_PAIRS independent (2, U) tallies in one call: the pairs side by side.
+    pairs = torch.as_tensor(np.broadcast_to(signer_sets, (EQUIV_PAIRS,) + signer_sets.shape).copy(), device=dev)
+    flat = pairs.permute(1, 0, 2).reshape(2, EQUIV_PAIRS * EQUIV_UNIVERSE)
+    mask = tally.equivocation_pairs(flat).reshape(EQUIV_PAIRS, EQUIV_UNIVERSE)
+    check(bool((mask == torch.as_tensor(byz, device=dev)).all()) and int(mask.sum()) == EQUIV_PAIRS * EQUIV_BYZ,
+          f"the batched equivocation tally flagged {int(mask.sum())}, not {EQUIV_PAIRS} x {EQUIV_BYZ}")
+    equiv_ms = cuda_ms(lambda: tally.equivocation_pairs(flat), TALLY_REPS)
+    out["tallies"] = {"sets": len(sets), "written_sets": N_WRITES, "sizes": list(TALLY_SIZES),
+                      "predicates_ms": tally_ms, "sets_per_s": 4 * len(sets) / (tally_ms / 1e3),
+                      "host_predicates_ms": host_ms,
+                      "sufficient": sum(host["sufficient"]), "threshold": sum(host["threshold"]),
+                      "quorum": sum(host["quorum"]), "reject": sum(host["reject"]),
+                      "equivocation": {"universe": EQUIV_UNIVERSE, "byzantine": EQUIV_BYZ,
+                                       "pairs": EQUIV_PAIRS, "detected": int(one.sum()), "ms": equiv_ms,
+                                       "tallies_per_s": EQUIV_PAIRS / (equiv_ms / 1e3)}}
+    print(f"quorum (c) tallies: {len(sets)} sets x 4 predicates on the card in {tally_ms:.4f} ms "
+          f"({out['tallies']['sets_per_s']:.0f} set tallies/s), equal to the host predicates row by row "
+          f"({host_ms:.1f} ms on the host; sufficient {sum(host['sufficient'])}, reject "
+          f"{sum(host['reject'])}); equivocation at universe {EQUIV_UNIVERSE}: exactly the {EQUIV_BYZ} "
+          f"colluders, {EQUIV_PAIRS} pairs in {equiv_ms:.4f} ms "
+          f"({out['tallies']['equivocation']['tallies_per_s']:.0f} tallies/s)", flush=True)
+
+    # (d) the replicas' stores: an acknowledged write reads back
+    holders = uni.servers + uni.storage_nodes
+    tmp = tempfile.mkdtemp(prefix="smoke-stores-")
+    try:
+        def read_back(s, what):
+            for x, t, raw in packets:
+                got_raw = s.read(x, t)
+                check(got_raw == raw and s.read(x) == raw and s.versions(x) == [t],
+                      f"{what}: {x!r} does not read back")
+                p = packet.parse(got_raw)
+                check((p.variable, p.t) == (x, t) and p.ss.data == packet.parse(raw).ss.data,
+                      f"{what}: {x!r} does not parse back")
+
+        t0 = time.perf_counter()
+        stores = {h.name: open_engine("log", os.path.join(tmp, h.name)) for h in holders}
+        check(all(s.fsync for s in stores.values()), "a replica's LogStorage is not durable")
+        pending = [(x, t, packet.serialize(x, v, t, sig, signature.SignaturePacket(
+            completed=False, data=signature.serialize_entries(signature.parse_entries(ss_of[w].data)[:1]))))
+            for w, (_wi, x, v, t, sig, _tb) in enumerate(recs)]
+        compacted = holders[0].name
+        # The compacted store first holds each write's pending record, which
+        # the certified back-fill then supersedes (dead bytes to reclaim).
+        stores[compacted].write_batch(pending)
+        run_threads(len(holders), lambda i: stores[holders[i].name].write_batch(packets))
+        write_ms = (time.perf_counter() - t0) * 1e3
+        for s in stores.values():
+            s.close()
+        t0 = time.perf_counter()
+        stores = {h.name: open_engine("log", os.path.join(tmp, h.name)) for h in holders}
+        reopen_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        for name, s in stores.items():
+            read_back(s, f"{name}'s LogStorage after reopen")
+        read_ms = (time.perf_counter() - t0) * 1e3
+        # One replica re-verifies its stored collective signatures (K1).
+        g, crypt, qs = nodes[holders[1].name]
+        stored = [packet.parse(stores[holders[1].name].read(x, t)) for x, t, _raw in packets]
+        vcache.reset()
+        with Recorder(cuda_rns, launch_names) as rec, Counted() as c_re:
+            t0 = time.perf_counter()
+            res = crypt.collective.verify_many(
+                [(packet.serialize(p.variable, p.value, p.t, p.sig, nfields=4), p.ss) for p in stored],
+                qs.choose_quorum(q.AUTH), crypt.keyring)
+            reverify_ms = (time.perf_counter() - t0) * 1e3
+        keep("store_reverify", rec)
+        check(res == [None] * N_WRITES, f"{sum(e is not None for e in res)} stored writes fail the re-verify")
+        check(c_re.launches["verify"] >= 1, f"the stores' re-verify launched {c_re.launches}")
+        s = stores[compacted]
+        s.seal_active()
+        dead = s.dead_ratio()
+        t0 = time.perf_counter()
+        cstats = compact_store(s)
+        compact_ms = (time.perf_counter() - t0) * 1e3
+        # The superseded pending copies are dead bytes; no certified record
+        # is dropped.
+        check(cstats["kept"] == N_WRITES and cstats["dropped"] == 0 and cstats["reclaimed_bytes"] > 0,
+              f"compaction kept {cstats['kept']}, dropped {cstats['dropped']}, reclaimed "
+              f"{cstats['reclaimed_bytes']} bytes")
+        read_back(s, "the compacted LogStorage")
+        s.reopen()
+        read_back(s, "the compacted LogStorage after reopen")
+        for s in stores.values():
+            s.close()
+        nat_path = os.path.join(tmp, "native.kv")
+        t0 = time.perf_counter()
+        nat = NativeStorage(nat_path)
+        for x, t, raw in packets:
+            nat.write(x, t, raw)
+        nat.close()
+        nat = NativeStorage(nat_path)
+        read_back(nat, "NativeStorage after reopen")
+        nat.close()
+        native_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["stores"] = {"engine": "log", "stores": len(holders), "writes_each": N_WRITES,
+                     "write_batch_ms": write_ms, "reopen_ms": reopen_ms, "read_back_ms": read_ms,
+                     "reverify_ms": reverify_ms, "reverify_launches": dict(c_re.launches),
+                     "reverify_k1_rows": [a[0].shape[0] for p, a in k1_calls if p == "store_reverify"],
+                     "compaction": {**cstats, "dead_ratio_before": dead, "ms": compact_ms},
+                     "native_ms": native_ms}
+    print(f"quorum (d) stores: {len(holders)} durable LogStorages took the {N_WRITES} certified packets "
+          f"in one write_batch each ({write_ms:.1f} ms), reopened in {reopen_ms:.1f} ms, every write read "
+          f"back and parsed ({read_ms:.1f} ms); {holders[1].name} re-verified its {N_WRITES} collective "
+          f"signatures in {reverify_ms:.1f} ms (K1 {c_re.launches['verify']}); compaction of {compacted} "
+          f"(dead ratio {dead:.3f}) kept {cstats['kept']}, reclaimed {cstats['reclaimed_bytes']} bytes, read back; "
+          f"NativeStorage wrote, reopened and read back all {N_WRITES} in {native_ms:.1f} ms", flush=True)
+
+    # (e) the fill sweep at the reference's own points
+    tmp = tempfile.mkdtemp(prefix="smoke-fill-")
+    try:
+        fill = {engine: _fill_sweep(tmp, engine, cap, seed) for engine, cap in
+                (("log", FILL_POINTS[-1]), ("native", FILL_POINTS[-1]), ("plain", PLAIN_FILL_CAP))}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    first, last = FILL_POINTS[0], FILL_POINTS[-1]
+    fill["log_p50_ratio_%dx" % (last // first)] = (fill["log"]["p50_us_at_%d" % last]
+                                                    / fill["log"]["p50_us_at_%d" % first])
+    fill["cuts"] = [f"PlainStorage filled to {PLAIN_FILL_CAP} keys only (one file per version)"]
+    out["fill"] = fill
+    for engine in ("log", "native", "plain"):
+        r = fill[engine]
+        print(f"quorum (e) fill {engine}: write p50 " + ", ".join(
+            f"{p // 1000}k {r['p50_us_at_%d' % p]:.3f} us" for p in FILL_POINTS if "p50_us_at_%d" % p in r)
+            + f"; {r['readback_keys']} keys read back; fill {r['fill_s']:.1f} s", flush=True)
+    print(f"quorum (e) fill: log p50 ratio {last // first}x keys "
+          f"{fill['log_p50_ratio_%dx' % (last // first)]:.3f}; cut: {fill['cuts'][0]}", flush=True)
+
+    hold_rns_calls(k1_calls, k2_calls, "quorum phase")
+    torch.cuda.synchronize()
+    held = {"K1": len(k1_calls), "K2": len(k2_calls)}
+    print(f"quorum: every launch of the phase equal to its plain version ({held}); phase "
+          f"{time.perf_counter() - t_phase:.1f} s on {nvidia_smi('name,power.limit')}", flush=True)
+    out["records"] = rns_shape_records(k1_calls, k2_calls, "quorum phase")
+    out["held_against_plain"] = held
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, {"universe": uni, "writer_nodes": writer_nodes, "writer_quorums": writer_quorums}
+
+
 # -- the crypto-layer phase ---------------------------------------------------------
-
-
-class _Suff:
-    """The quorum stub: sufficient at ``SUFF`` distinct valid signers."""
-
-    def is_sufficient(self, nodes):
-        return len({n.id for n in nodes}) >= SUFF
 
 
 def _load_dsa_group(seed: int, build_dir: str):
@@ -1506,13 +1976,15 @@ def _threshold_round(client_ctx, servers, shares, nodes, proc, pool):
     return None
 
 
-def crypto_phase(dev, replicas, writers, ec_replicas, seed: int, build_dir: str) -> dict:
+def crypto_phase(dev, replicas, writers, ec_replicas, seed: int, build_dir: str, qctx: dict) -> dict:
     """The crypto layer on the card (the port of bftkv_tpu/crypto), each part
     counted: (a) collective signatures: the 93 writes' shares issued through
     Signer.issue_many with the dispatchers installed (K2 k=94 flushes, K1
-    fault checks), combined, 1% of the entries forged, then verify_many of
-    the 93 jobs against suff, with the verify memo reset (K1), and once
-    more with the memo on; (b) a TPA round at n=64, k=43 (K2 k=188), a wrong
+    fault checks), combined against each writer's AUTH|PEER quorum from the
+    quorum phase with the writer's own keyring, 1% of the entries forged,
+    then verify_many of each writer's jobs against its quorum, with the
+    verify memo reset (K1), and once more with the memo on; the verdicts
+    are held to a host recount (at least suff valid signers in the clique); (b) a TPA round at n=64, k=43 (K2 k=188), a wrong
     password failing every server's MAC; (c) threshold DSA at n=64, k=22 on
     a 2048-bit p (calculate_r: one K2 k=188 launch); (d) threshold ECDSA at
     n=64, k=22 (each partial R one K5 launch at T=8, the combine one more);
@@ -1526,14 +1998,13 @@ def crypto_phase(dev, replicas, writers, ec_replicas, seed: int, build_dir: str)
     from bftkv_tpu_torch import packet
     from bftkv_tpu_torch.crypto import auth, cert as certmod, ec, ecdsa, new_crypto, rsa
     from bftkv_tpu_torch.crypto import signature, sss, vcache
-    from bftkv_tpu_torch.crypto.keyring import Keyring
     from bftkv_tpu_torch.crypto.message import MessageSecurity
     from bftkv_tpu_torch.crypto.threshold import ThresholdAlgo
     from bftkv_tpu_torch.errors import ERR_AUTHENTICATION_FAILURE
     from bftkv_tpu_torch.crypto.threshold import dsa as tdsa
     from bftkv_tpu_torch.crypto.threshold import ecdsa as tecdsa
     from bftkv_tpu_torch.crypto.threshold import rsa as trsa
-    from bftkv_tpu_torch.ops import cuda_ec, cuda_rns, dispatch, ec_rns, rns
+    from bftkv_tpu_torch.ops import cuda_ec, cuda_rns, dispatch, ec_rns
     from bftkv_tpu_torch.ops import rsa as rsa_ops
 
     os.environ.update(BFTKV_SHARD="off")
@@ -1550,9 +2021,12 @@ def crypto_phase(dev, replicas, writers, ec_replicas, seed: int, build_dir: str)
             k5_calls.extend((part, a) for a in rec_ec.calls["scalar_mult_cuda"])
 
     keys = replicas + writers
-    certs = [certmod.Certificate(n=k.n, e=k.e, name=f"r{i}", uid=f"r{i}@smoke") for i, k in enumerate(keys)]
-    ring = Keyring()
-    ring.register(certs)
+    uni = qctx["universe"]
+    certs = [i.cert for i in uni.servers + uni.users]
+    check([c.id for c in certs] == [certmod.private_key_id(k) for k in keys],
+          "the universe's certificates are not the replica and writer keys in order")
+    writer_nodes, writer_quorums = qctx["writer_nodes"], qctx["writer_quorums"]
+    clique = set(writer_quorums[0].membership_matrix()[1])
 
     # (a) collective signatures
     plan = {}  # signer index -> [tbs]
@@ -1583,16 +2057,16 @@ def crypto_phase(dev, replicas, writers, ec_replicas, seed: int, build_dir: str)
               and c_sign.snap.get("sign.fault", 0) == 0,
               f"sign.device {c_sign.snap.get('sign.device')}, sign.host {c_sign.snap.get('sign.host')}, "
               f"sign.fault {c_sign.snap.get('sign.fault')}")
-        cs = signature.CollectiveSignature(device=dev)
         pos = {i: 0 for i in plan}
         jobs = []
         entries_of = []
         for w in range(N_WRITES):
+            crypt, qa = writer_nodes[w % N_WRITERS][1], writer_quorums[w % N_WRITERS]
             ss = None
             for i in signers_of[w]:
                 share = issued[i][pos[i]]
                 pos[i] += 1
-                ss, _done = cs.combine(ss, share, _Suff(), ring)
+                ss, _done = crypt.collective.combine(ss, share, qa, crypt.keyring)
             entries_of.append(signature.parse_entries(ss.data))
             jobs.append([tbs_of[w], ss])
         flat = [(w, j) for w in range(N_WRITES) for j in range(len(entries_of[w]))]
@@ -1603,25 +2077,40 @@ def crypto_phase(dev, replicas, writers, ec_replicas, seed: int, build_dir: str)
             jobs[w][1].data = signature.serialize_entries(ents)
             entries_of[w] = ents
         by_id = {c.id: keys[i] for i, c in enumerate(certs)}
-        expect = []
+        expect, stub = [], []
         for w in range(N_WRITES):
-            good = sum(rsa.verify_host(tbs_of[w], sig, by_id[sid].public) for sid, sig in entries_of[w])
-            expect.append(good >= SUFF)
+            valid = {sid for sid, sig in entries_of[w] if rsa.verify_host(tbs_of[w], sig, by_id[sid].public)}
+            # The host recount: the write completes with at least suff valid
+            # signers in the clique.  The earlier stub counted any suff valid
+            # ids, the writer's own entry among them.
+            expect.append(len(valid & clique) >= SUFF)
+            stub.append(len(valid) >= SUFF)
         jobs = [tuple(j) for j in jobs]
+
+        def verify_per_writer():
+            errs = [None] * N_WRITES
+            for wi in range(N_WRITERS):
+                ws = [w for w in range(N_WRITES) if w % N_WRITERS == wi]
+                crypt = writer_nodes[wi][1]
+                for w, e in zip(ws, crypt.collective.verify_many([jobs[w] for w in ws], writer_quorums[wi],
+                                                                 crypt.keyring)):
+                    errs[w] = e
+            return errs
+
         vcache.reset()  # the shares' own signatures seeded the memo (Signer.issue_many)
         with Recorder(cuda_rns, launch_names) as rec, Counted() as c_ver:
             t0 = time.perf_counter()
-            errs = cs.verify_many(jobs, _Suff(), ring)
+            errs = verify_per_writer()
             verify_ms = (time.perf_counter() - t0) * 1e3
         keep("collective_verify", rec)
         got = [e is None for e in errs]
-        check(got == expect, f"verify_many verdicts differ from host pow on "
+        check(got == expect, f"verify_many verdicts differ from the host recount on "
               f"{sum(g != e for g, e in zip(got, expect))} of {N_WRITES} jobs")
         check(c_ver.launches["verify"] >= 1, f"verify_many launched {c_ver.launches}")
         check(c_ver.snap.get("verify.cache.hits", 0) == 0, "the counted verify_many hit the memo")
         with Recorder(cuda_rns, launch_names) as rec, Counted() as c_memo:
             t0 = time.perf_counter()
-            errs2 = cs.verify_many(jobs, _Suff(), ring)
+            errs2 = verify_per_writer()
             memo_ms = (time.perf_counter() - t0) * 1e3
         keep("collective_verify_memo", rec)
         check([e is None for e in errs2] == expect, "verify_many with the memo on changed a verdict")
@@ -1629,7 +2118,9 @@ def crypto_phase(dev, replicas, writers, ec_replicas, seed: int, build_dir: str)
         dispatch.uninstall_all()
     out["collective"] = {
         "shares": n_shares, "forged_entries": len(forged), "jobs": N_WRITES,
-        "jobs_sufficient": sum(expect), "sign_ms": sign_ms, "verify_many_ms": verify_ms,
+        "jobs_sufficient": sum(expect), "jobs_sufficient_under_the_stub": sum(stub),
+        "verdicts_changed_against_the_stub": sum(e != s_ for e, s_ in zip(expect, stub)),
+        "sign_ms": sign_ms, "verify_many_ms": verify_ms,
         "verify_many_memo_ms": memo_ms, "sign_launches": dict(c_sign.launches),
         "sign_flushes": c_sign.snap.get("signdispatch.flushes"),
         "verify_launches": dict(c_ver.launches),
@@ -1640,7 +2131,9 @@ def crypto_phase(dev, replicas, writers, ec_replicas, seed: int, build_dir: str)
     print(f"crypto (a) collective: {n_shares} shares through Signer.issue_many in {sign_ms:.1f} ms "
           f"(K2 {c_sign.launches['pow']}, K1 fault checks {c_sign.launches['verify']}, "
           f"{c_sign.snap.get('signdispatch.flushes')} flushes); {len(forged)} entries forged, "
-          f"{sum(expect)}/{N_WRITES} jobs sufficient; verify_many {verify_ms:.1f} ms (memo reset, K1 "
+          f"{sum(expect)}/{N_WRITES} jobs sufficient against the writers' quorums ({sum(stub)} under the "
+          f"earlier stub: {out['collective']['verdicts_changed_against_the_stub']} verdicts changed); "
+          f"verify_many per writer {verify_ms:.1f} ms (memo reset, K1 "
           f"{c_ver.launches['verify']}); with the memo on {memo_ms:.1f} ms, hits "
           f"{out['collective']['memo']['hits']}, K1 {c_memo.launches['verify']}", flush=True)
 
@@ -1830,23 +2323,8 @@ def crypto_phase(dev, replicas, writers, ec_replicas, seed: int, build_dir: str)
           f"{native_ms / NATIVE_SIGNS:.3f} ms each through crt_pow_d, {pow_ms / NATIVE_SIGNS:.3f} ms with pow; "
           f"one packet equal through both codecs", flush=True)
 
-    # Every launch against its plain version: the rows of one kernel and
-    # context concatenated into one plain run.
-    for which, calls, plain in (("verify", k1_calls, rns._verify_kernel), ("pow", k2_calls, rns._pow_kernel)):
-        by_k = {}
-        for part, a in calls:
-            by_k.setdefault(a[4].k, []).append((part, a))
-        for k, group in by_k.items():
-            kern = [(getattr(cuda_rns, f"{which}_cuda")(*a)) for _p, a in group]
-            cn = group[0][1][4]
-            keys_ = [rns.gather_key(a[3], a[2]) for _p, a in group]
-            key = tuple(torch.cat([kk[i] for kk in keys_]) for i in range(len(keys_[0])))
-            first = torch.cat([a[0] for _p, a in group])
-            second = torch.cat([a[1] for _p, a in group], dim=0 if which == "verify" else 1)
-            p_all = plain(cn, first, second, key)
-            check(torch.equal(torch.cat([g.long() for g in kern]), p_all.long()),
-                  f"{'K1' if which == 'verify' else 'K2'} (k={k}) differs from its plain version on the "
-                  f"crypto phase's operands")
+    # Every launch against its plain version.
+    hold_rns_calls(k1_calls, k2_calls, "crypto phase")
     if k5_calls:
         eng = k5_calls[0][1][2]
         kern = torch.cat([cuda_ec.scalar_mult_cuda(*a) for _p, a in k5_calls], dim=-1)
@@ -1859,25 +2337,8 @@ def crypto_phase(dev, replicas, writers, ec_replicas, seed: int, build_dir: str)
           f"{time.perf_counter() - t_phase:.1f} s on {nvidia_smi('name,power.limit')}", flush=True)
 
     # A record for each (kernel, context, rows) shape of the phase
-    def shapes(calls, rows_of):
-        by = {}
-        for part, a in calls:
-            key = rows_of(a)
-            by.setdefault(key, {"args": a, "parts": {}})
-            by[key]["parts"][part] = by[key]["parts"].get(part, 0) + 1
-        return by
-
-    attrs = cuda_rns.kernel_attrs()
-    records = []
-    for (k, t), v in sorted(shapes(k1_calls, lambda a: (a[4].k, a[0].shape[0])).items()):
-        records.append(rns_record(f"K1 rns_verify_kernel (T={t}, crypto layer)", "verify",
-                                  "bftkv_tpu/ops/pallas_rns.py:517", v["args"], sum(v["parts"].values()),
-                                  20, 2, phase_launches=v["parts"], **attrs["verify"]))
-    for (k, t), v in sorted(shapes(k2_calls, lambda a: (a[4].k, a[0].shape[0])).items()):
-        records.append(rns_record(f"K2 rns_pow_kernel (k={k}, T={t}, crypto layer)", "pow",
-                                  "bftkv_tpu/ops/pallas_rns.py:403", v["args"], sum(v["parts"].values()),
-                                  5, 1, phase_launches=v["parts"], **attrs["pow"]))
-    for (t,), v in sorted(shapes(k5_calls, lambda a: (a[0].shape[-1],)).items()):
+    records = rns_shape_records(k1_calls, k2_calls, "crypto layer")
+    for (t,), v in sorted(_shapes(k5_calls, lambda a: (a[0].shape[-1],)).items()):
         rec = ec_record(v["args"], sum(v["parts"].values()), 20, phase_launches=v["parts"],
                         **cuda_ec.kernel_attrs()["ec_scalar_mult"])
         rec["name"] += f" (T={t}, crypto layer)"
@@ -2033,7 +2494,7 @@ def main() -> int:
     t0 = time.perf_counter()
     ctx = multiprocessing.get_context("spawn")
     with ctx.Pool(min(8, os.cpu_count() or 1)) as pool:
-        replicas, writers = load_keys(pool, args.seed, build_dir)
+        replicas, writers, storage_keys = load_keys(pool, args.seed, build_dir)
         items, expect, rns_capable, n_forged, n_hostile, n_big = verify_items(
             pool, replicas, writers, args.seed
         )
@@ -2041,7 +2502,7 @@ def main() -> int:
         ec_items, ec_expect, ec_forged, ec_bad = ec_verify_items(
             pool, ec_replicas, ec_writers, args.seed
         )
-    print(f"setup: {len(replicas)} replica + {len(writers)} writer RSA-2048 keys, "
+    print(f"setup: {len(replicas)} replica + {len(writers)} writer + {len(storage_keys)} storage RSA-2048 keys, "
           f"{len(items)} verify items ({n_forged} forged, {n_hostile} hostile moduli, "
           f"{n_big} with s >= n); {len(ec_replicas)} + {len(ec_writers)} P-256 keys, "
           f"{len(ec_items)} EC verify items ({ec_forged} forged, {ec_bad} malformed) "
@@ -2246,9 +2707,13 @@ def main() -> int:
     # 11. shard phase: the RNS launches split over shards
     shard = shard_phase(dev, items, replicas)
 
-    # 12. crypto-layer phase: collective signatures, TPA, threshold
-    # DSA/ECDSA/RSA, envelopes
-    crypto = crypto_phase(dev, replicas, writers, ec_replicas, args.seed, build_dir)
+    # 12. quorum phase: the universe, the web-of-trust quorums, the tallies
+    # and the replicas' stores
+    quorum, qctx = quorum_phase(dev, replicas, writers, storage_keys, args.seed)
+
+    # 13. crypto-layer phase: collective signatures against the writers'
+    # quorums, TPA, threshold DSA/ECDSA/RSA, envelopes
+    crypto = crypto_phase(dev, replicas, writers, ec_replicas, args.seed, build_dir, qctx)
 
     v_med, s_med = statistics.median(v_times), statistics.median(s_times)
     p_med, l_med = statistics.median(p_times), statistics.median(l_times)
@@ -2343,6 +2808,7 @@ def main() -> int:
     kernels += ec.pop("records")
     kernels += sidecar.pop("records")
     kernels += shard.pop("records")
+    kernels += quorum.pop("records")
     kernels += crypto.pop("records")
     print(f"K1 before its redesign, not measured in this run ({K1_EARLIER_OF}): "
           + ", ".join(f"T={t} {ms} ms" for t, ms in K1_EARLIER_MS.items())
@@ -2378,6 +2844,7 @@ def main() -> int:
         "ec": ec,
         "sidecar": sidecar,
         "shard": shard,
+        "quorum": quorum,
         "crypto": crypto,
     }), flush=True)
 

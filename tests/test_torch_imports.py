@@ -70,7 +70,12 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import bftkv_tpu_torch.crypto.auth, bftkv_tpu_torch.crypto.threshold\n"
         "import bftkv_tpu_torch.crypto.threshold.dsa_core, bftkv_tpu_torch.crypto.threshold.rsa\n"
         "import bftkv_tpu_torch.crypto.threshold.dsa, bftkv_tpu_torch.crypto.threshold.ecdsa\n"
-        "import bftkv_tpu_torch.native\n"
+        "import bftkv_tpu_torch.native, bftkv_tpu_torch.graph, bftkv_tpu_torch.quorum.wotqs\n"
+        "import bftkv_tpu_torch.regions, bftkv_tpu_torch.regions.topology\n"
+        "import bftkv_tpu_torch.storage, bftkv_tpu_torch.storage.memkv\n"
+        "import bftkv_tpu_torch.storage.segment, bftkv_tpu_torch.storage.plain\n"
+        "import bftkv_tpu_torch.storage.logkv, bftkv_tpu_torch.storage.compact\n"
+        "import bftkv_tpu_torch.storage.native, bftkv_tpu_torch.topology\n"
         "from bftkv_tpu_torch.ops import _build\n"
         "new = set(sys.modules) - before\n"
         "tops = {m.split('.')[0] for m in new}\n"
@@ -114,6 +119,42 @@ def test_importing_the_crypto_layer_builds_only_under_build(tmp_path):
     assert built == ["_montmodexp", "_packetcodec"]
 
 
+def test_native_storage_builds_kvstore_only_under_build(tmp_path):
+    """``NativeStorage`` builds ``native/kvstore.cpp`` into the port's
+    ``_build/native/libbftkvstore.so`` (never under ``native/``), and a
+    failed build raises instead of falling back to another engine."""
+    import shutil
+
+    shutil.copytree(PKG, tmp_path / "bftkv_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    shutil.copytree(ROOT / "native", tmp_path / "native",
+                    ignore=shutil.ignore_patterns("*.so", ".*.lock", "__pycache__"))
+    before = sorted(p.name for p in (tmp_path / "native").iterdir())
+    code = (
+        "import os, sys\n"
+        "from bftkv_tpu_torch.storage.native import NativeStorage\n"
+        "s = NativeStorage(os.path.join(sys.argv[1], 'kv'))\n"
+        "s.write(b'x', 7, b'v'); print(s.read(b'x').decode(), s.versions(b'x'))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(tmp_path))
+    out = subprocess.run(
+        [sys.executable, "-c", code, str(tmp_path)], capture_output=True, text=True,
+        env=env, cwd=str(tmp_path), timeout=300, check=True,
+    )
+    assert out.stdout.split() == ["v", "[7]"], out.stdout + out.stderr
+    assert sorted(p.name for p in (tmp_path / "native").iterdir()) == before
+    built = tmp_path / "bftkv_tpu_torch" / "_build" / "native"
+    assert [p.name for p in built.glob("lib*.so")] == ["libbftkvstore.so"]
+    # A compiler that fails: the build raises, nothing loads in its place.
+    (built / "libbftkvstore.so").unlink()
+    out = subprocess.run(
+        [sys.executable, "-c", code, str(tmp_path)], capture_output=True, text=True,
+        env=dict(env, CXX="false"), cwd=str(tmp_path), timeout=300,
+    )
+    assert out.returncode != 0 and "CalledProcessError" in out.stderr, out.stdout + out.stderr
+    assert not (built / "libbftkvstore.so").exists()
+
+
 def _entry_points():
     from bftkv_tpu_torch.crypto import auth, new_crypto, signature
     from bftkv_tpu_torch.crypto import ecdsa, rsa
@@ -122,7 +163,7 @@ def _entry_points():
     from bftkv_tpu_torch.crypto.threshold import ecdsa as tecdsa
     from bftkv_tpu_torch.crypto.threshold import rsa as trsa
     from bftkv_tpu_torch.crypto.ec import P256
-    from bftkv_tpu_torch import entry
+    from bftkv_tpu_torch import entry, topology
     from bftkv_tpu_torch.cmd import verify_sidecar
     from bftkv_tpu_torch.ops import bigint, dispatch, ec, ec_rns, modexp, rns, tally
     from bftkv_tpu_torch.ops import rsa as rsa_ops
@@ -134,6 +175,14 @@ def _entry_points():
     # Both batches at their crossover, so they reach the device.
     verify_items = [(b"m", ecdsa.sign(b"m", key), key.public)] * ecdsa.VERIFY_HOST_CROSSOVER
     sign_msgs = [b"m"] * ecdsa.SIGN_HOST_CROSSOVER
+    ident = topology.new_identity("a01", address="loop://a01", key=rsa.generate(512, seed=1))
+
+    def load_home():
+        import tempfile
+
+        home = tempfile.mkdtemp()
+        topology.save_home(home, ident, [ident.cert])
+        return topology.load_home(home, device="cuda")
     return {
         "ec_scalar_mult_hosts": lambda: ec.scalar_mult_hosts([g], [3], device="cuda"),
         "ec_rns_scalar_mult_hosts": lambda: ec_rns.scalar_mult_hosts([g], [3], device="cuda"),
@@ -186,6 +235,8 @@ def _entry_points():
         "RSAThreshold": lambda: trsa.RSAThreshold(device="cuda"),
         "threshold_dsa_new": lambda: tdsa.new(None, device="cuda"),
         "threshold_ecdsa_new": lambda: tecdsa.new(None, device="cuda"),
+        "make_node": lambda: topology.make_node(ident, [ident.cert], device="cuda"),
+        "load_home": load_home,
     }
 
 
@@ -196,8 +247,8 @@ ENTRY_POINTS = [
     "VerifierDomain_pallas", "VerifyDispatcher", "calibration", "consts_from_numpy",
     "dryrun_multichip", "ec_rns_engine", "ec_rns_scalar_mult_hosts", "ec_scalar_mult_hosts",
     "ecdsa_sign_batch", "ecdsa_verify_batch", "entry", "flat_verify",
-    "generate_partial_auth_params", "key_rows_from_numpy", "limbs_from_numpy", "new_crypto",
-    "power_batch", "power_mod_rns", "serve", "shard_over", "tally_counts",
+    "generate_partial_auth_params", "key_rows_from_numpy", "limbs_from_numpy", "load_home",
+    "make_node", "new_crypto", "power_batch", "power_mod_rns", "serve", "shard_over", "tally_counts",
     "threshold_dsa_new", "threshold_ecdsa_new", "verify_batch_e65537",
     "verify_e65537_rns_indexed",
 ]
@@ -262,6 +313,15 @@ def test_flag_seam():
         "BFTKV_VERIFY_CACHE_MAX",
         "BFTKV_NATIVE_MODEXP",
         "BFTKV_NATIVE_CODEC",
+        "BFTKV_REGION",
+        "BFTKV_WAN_JITTER",
+        "BFTKV_PLAIN_FSYNC",
+        "BFTKV_PLAIN_CACHE",
+        "BFTKV_STORAGE",
+        "BFTKV_LOG_SEGMENT_MB",
+        "BFTKV_LOG_GROUP_COMMIT_MS",
+        "BFTKV_LOG_COMPACT_TRIGGER",
+        "BFTKV_LOG_COMPACT_MBPS",
     }
     # Every declared flag is read somewhere in the port, and no BFTKV_*
     # name is read from the environment outside flags.py.
