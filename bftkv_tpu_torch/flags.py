@@ -164,6 +164,74 @@ _flag("BFTKV_LOG_COMPACT_MBPS", None, "float",
       "ungoverned).  Throttle time surfaces as compact_io saturation "
       "in the capacity plane.")
 
+# Transport, protocol and sync (the reference's defaults).
+_flag("BFTKV_ADAPTIVE_FLOOR", '1.0', "float",
+      "Lower bound in seconds on an adaptive per-peer deadline.")
+_flag("BFTKV_ADAPTIVE_TIMEOUT", 'on', "switch",
+      "Per-peer EWMA/p99 RPC deadlines in place of the fixed "
+      "BFTKV_RPC_TIMEOUT (which stays the ceiling).")
+_flag("BFTKV_FANOUT_WORKERS", '256', "int",
+      "Bound on the shared multicast fan-out worker pool.")
+_flag("BFTKV_HEDGE", 'on', "switch",
+      "Hedged staged fan-outs: a stalled wave launches the next wave "
+      "early after a p99-derived delay.")
+_flag("BFTKV_HEDGE_CAP", '0.5', "float",
+      "Upper clamp in seconds on the hedge delay.")
+_flag("BFTKV_HEDGE_MIN", '0.02', "float",
+      "Lower clamp in seconds on the hedge delay.")
+_flag("BFTKV_HTTP_POOL", '4', "int",
+      "Idle keep-alive connections kept per (host, port).")
+_flag("BFTKV_HTTP_TIMEOUT", None, "float",
+      "Legacy alias for BFTKV_RPC_TIMEOUT, read only when that is "
+      "unset.")
+_flag("BFTKV_INLINE_FANOUT", 'auto', "str",
+      "`auto` runs loopback multicast inline when calibration says "
+      "all-host; `off`/`on` force the threaded/inline path.")
+_flag("BFTKV_PEER_CB", '', "switch",
+      "Per-peer circuit breaker in multicast (`1` enables; default "
+      "off).")
+_flag("BFTKV_PEER_CB_OPEN_SECS", '5', "float",
+      "Seconds an open breaker skips a peer before the half-open "
+      "probe.")
+_flag("BFTKV_PEER_CB_THRESHOLD", '3', "int",
+      "Consecutive failures before a peer's breaker opens.")
+_flag("BFTKV_PIGGYBACK", 'on', "switch",
+      "Round-collapsed writes: one WRITE_SIGN fan-out with signature "
+      "shares riding the acks; `off` restores classic time/sign/write "
+      "rounds (DESIGN.md §12).")
+_flag("BFTKV_PRESESSION", 'on', "switch",
+      "Background session pump + per-client timestamp leases (skips "
+      "the TIME round on steady-state writes).")
+_flag("BFTKV_REGION_RANK", 'on', "switch",
+      "Locality-aware quorum staging: staged waves order candidates "
+      "same-region-first (then by RTT matrix distance) so the minimal "
+      "sufficient prefix is the near one and cross-region members are "
+      "hedges, not the first ask.  Never changes which sets satisfy "
+      "is_threshold/is_sufficient (DESIGN.md §21).")
+_flag("BFTKV_REPAIR", 'on', "switch",
+      "Pending-residue repair plane: each replica certifies-or- "
+      "demotes its own commit-pending residue (DESIGN.md §13).")
+_flag("BFTKV_REPAIR_AFTER", '5', "float",
+      "Grace window in seconds before a pending record becomes "
+      "repair-eligible.")
+_flag("BFTKV_RPC_BACKOFF", '0.05', "float",
+      "Base backoff in seconds between transport retries.")
+_flag("BFTKV_RPC_RETRIES", '0', "int",
+      "Bounded jittered-backoff retries on transient transport errors "
+      "(0 disables).")
+_flag("BFTKV_RPC_TIMEOUT", None, "float",
+      "Fixed per-RPC response deadline ceiling in seconds (unset: "
+      "falls back to BFTKV_HTTP_TIMEOUT, then 10).")
+_flag("BFTKV_SIGN_FANOUT", 'staged', "str",
+      "`staged` asks a minimal sufficient prefix first and expands on "
+      "shortfall; `full` restores the ask-everyone fan-out.")
+_flag("BFTKV_WRITE_CHUNK", '256', "int",
+      "write_many chunk floor — batches at or below this stay "
+      "monolithic so device launches amortize.")
+_flag("BFTKV_WRITE_PIPELINE", '2', "int",
+      "write_many: chunk write-rounds in flight behind the caller's "
+      "time+sign rounds (1 disables pipelining).")
+
 
 def _check(name: str) -> Flag:
     f = FLAGS.get(name)

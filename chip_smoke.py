@@ -1,4 +1,5 @@
-"""Smoke run of the PyTorch/CUDA port on one GPU: the replica's crypto plane.
+"""Smoke run of the PyTorch/CUDA port on one GPU: the replica's crypto plane
+and the protocol above it.
 
 Drives the port's main paths at the size of the 64-replica cluster and
 holds every hand-written kernel against its plain PyTorch version:
@@ -98,11 +99,32 @@ holds every hand-written kernel against its plain PyTorch version:
    native modexp and codec tiers.  Every verdict, signature and secret
    equals the host's; every K1, K2 and K5 launch of the phase is held
    against its plain version;
-14. each kernel against its plain version on the card, on the operands the
+14. protocol phase (the port of bftkv_tpu/transport/, protocol/, sync/,
+   crypto/presession.py and api.py), bench.py's bench_cluster_batch(64, 8,
+   4, 1024, 2): (a) the quorum phase's universe as 64 port Servers and 8
+   storage nodes on MemStorage over one LoopbackNet and 4 port Clients,
+   every node on the card, VerifyDispatcher and SignDispatcher
+   (max_batch=4096) installed; the fan-out must be threaded; a warm
+   write_many of 64; (b) one storage node misses single writes' back-fill
+   and a batched round (transport.send drop failpoint), runs its
+   SyncDaemon's repair_once() and a pull round, and must then match the
+   other storage nodes' digest root and serve every write; (c) the 4
+   writers released together, write_many of 1024 items of 1 KiB then a
+   read_many of every key, for 2 rounds (rounds, then the batch, are cut
+   to a 240 s budget and the cut printed); every acknowledged write reads
+   back; signed writes/s, reads/s, the write_many phase timers, the
+   server handlers, K1/K2 launches and rows, the memo's hits; (d)
+   revoke-on-read on a response map of 512 signers with 170 colluders:
+   one equivocation_pairs launch whose mask equals the host scan, exactly
+   the colluders revoked; (e) 4 + 4 servers on TrHTTP at probed localhost
+   ports and api.open_client(device=) on a port home: a write, read,
+   write_many and read_many read back.  Every K1 and K2 launch of (c) is
+   held against its plain version;
+15. each kernel against its plain version on the card, on the operands the
    main paths gave it: K1 verdicts (T=4096, T=1024 and every fault check's
    T=256), K2 sigma (k=94 at T=512 and T=64, k=188), K3's whole
    (4096, 128) diff and K5's Jacobian residues bit-identical;
-15. times: median of 5 timed flushes per verify/RNS-sign phase, 3 for the
+16. times: median of 5 timed flushes per verify/RNS-sign phase, 3 for the
    limb sign and the EC flushes, and kernel times by CUDA events, beside
    nvidia-smi's name and power limit.
 
@@ -215,6 +237,26 @@ FILL_POINTS = (10_000, 100_000, 1_000_000)  # resident keys (bench.py _fill_swee
 FILL_PROBES = 2000  # timed probe writes at each point
 FILL_READBACK = 10_000  # seeded keys read back at the last point
 PLAIN_FILL_CAP = 10_000  # PlainStorage writes one file per version: filled to its first point only
+# Rows of one plain run when launches are held against their plain versions
+# (the protocol phase's rounds make over a million K1 rows).
+HOLD_ROWS = 65536
+# The protocol phase: the headline's deployment, bench.py:1661
+# bench_cluster_batch(64, 8, 4, 1024, 2) (bench.py:3106), the 64 servers, 8
+# storage nodes and 4 writers of the quorum phase's universe as port servers
+# and clients on one loopback net.
+PROTO_BATCH = 1024  # items per write_many round
+PROTO_ROUNDS = 2
+PROTO_VALUE_BYTES = 1024
+PROTO_WARM = 64
+PROTO_DISPATCH_BATCH = 4096  # bench.py:1689-1692
+PROTO_BUDGET_S = 240.0  # the counted rounds: rounds are cut first, then the batch
+PROTO_MISSED = 64  # anti-entropy: a batched round one storage node misses
+PROTO_MISSED_SINGLE = 3  # and single writes whose back-fill it misses
+# Revoke-on-read: BASELINE config 5's shape (256 replicas, 85 colluders) puts
+# 341 signer entries in the read's rows, under the client's
+# BATCH_REVOKE_THRESHOLD of 512, so the case doubles it.
+REVOKE_UNIVERSE, REVOKE_BYZ = 512, 170
+HTTP_SERVERS, HTTP_STORAGE, HTTP_ITEMS = 4, 4, 16  # bench.py's cluster_4_http shape
 
 
 def fail(msg: str) -> None:
@@ -1489,14 +1531,25 @@ def shard_phase(dev, rsa_items, replicas) -> dict:
 
 def hold_rns_calls(k1_calls, k2_calls, what: str) -> None:
     """Every recorded K1 and K2 launch against its plain version: the rows of
-    one kernel and context concatenated into one plain run."""
+    one kernel and context concatenated into plain runs of whole launches,
+    at most HOLD_ROWS rows a run where the launches allow."""
     from bftkv_tpu_torch.ops import cuda_rns, rns
 
     for which, calls, plain in (("verify", k1_calls, rns._verify_kernel), ("pow", k2_calls, rns._pow_kernel)):
         by_k = {}
         for part, a in calls:
             by_k.setdefault(a[4].k, []).append((part, a))
+        runs = []
         for k, group in by_k.items():
+            run, rows = [], 0
+            for part, a in group:
+                if run and rows + a[0].shape[0] > HOLD_ROWS:
+                    runs.append((k, run))
+                    run, rows = [], 0
+                run.append((part, a))
+                rows += a[0].shape[0]
+            runs.append((k, run))
+        for k, group in runs:
             kern = [(getattr(cuda_rns, f"{which}_cuda")(*a)) for _p, a in group]
             cn = group[0][1][4]
             keys_ = [rns.gather_key(a[3], a[2]) for _p, a in group]
@@ -2349,6 +2402,452 @@ def crypto_phase(dev, replicas, writers, ec_replicas, seed: int, build_dir: str,
     return out
 
 
+# -- the protocol phase --------------------------------------------------------------
+
+
+def _free_port_block(n: int) -> int:
+    """The first of ``n`` consecutive localhost ports this process can bind,
+    probed from a random start in [20000, 32000): below the OS's ephemeral
+    range."""
+    import socket
+
+    rng = random.Random()
+    for _ in range(200):
+        base = rng.randrange(20000, 32000 - n)
+        held = []
+        try:
+            for port in range(base, base + n):
+                sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+                held.append(sock)
+                sock.bind(("127.0.0.1", port))
+        except OSError:
+            continue
+        finally:
+            for sock in held:
+                sock.close()
+        return base
+    fail(f"no {n} consecutive free localhost ports")
+
+
+class _RecordingTransport:
+    """A client transport that only records what the client multicasts."""
+
+    def __init__(self):
+        self.sent = []
+
+    def multicast(self, cmd, peers, data, cb):
+        self.sent.append((cmd, len(peers)))
+
+
+def rns_main_shape_records(k1_calls, k2_calls, label: str) -> list:
+    """A kernel record for each (kernel, context) of a phase, timed on the
+    operands of the row count that carries most of its rows; every shape's
+    launches beside."""
+    from bftkv_tpu_torch.ops import cuda_rns
+
+    attrs = cuda_rns.kernel_attrs()
+    records = []
+    for which, calls, name, src in (("verify", k1_calls, "K1 rns_verify_kernel", "bftkv_tpu/ops/pallas_rns.py:517"),
+                                    ("pow", k2_calls, "K2 rns_pow_kernel", "bftkv_tpu/ops/pallas_rns.py:403")):
+        by_k = {}
+        for _part, a in calls:
+            by_k.setdefault(a[4].k, []).append(a)
+        for k, group in sorted(by_k.items()):
+            by_rows = {}
+            for a in group:
+                by_rows.setdefault(a[0].shape[0], []).append(a)
+            t, args = max(by_rows.items(), key=lambda kv: (len(kv[1]) * kv[0], kv[0]))
+            records.append(rns_record(
+                f"{name} (k={k}, T={t}, {label})", which, src, args[0], len(args),
+                10 if which == "pow" else 20, 1 if which == "pow" else 2,
+                launches_all_shapes=len(group),
+                launches_by_rows={str(r): len(v) for r, v in sorted(by_rows.items())},
+                **attrs[which]))
+    return records
+
+
+def protocol_phase(dev, uni, replicas, writers, storage_keys, seed: int) -> dict:
+    """The transport, protocol and sync layers (the port of
+    bftkv_tpu/transport/, protocol/, sync/, crypto/presession.py and
+    api.py) at the headline's deployment, bench.py's
+    bench_cluster_batch(64, 8, 4, 1024, 2): (a) the quorum phase's universe
+    as 64 port Servers and 8 storage nodes on MemStorage over one
+    LoopbackNet, every node on the card, and its 4 writers as port
+    Clients, with VerifyDispatcher(max_batch=4096) and
+    SignDispatcher(max_batch=4096) installed on the card; the fan-out
+    _inline_fanout_ok picks must be threaded; a warm write_many of 64
+    items; (b) anti-entropy: one storage node misses single writes'
+    back-fill and a batched round (the transport.send drop failpoint),
+    then its SyncDaemon's repair_once() and a pull round; its digest root
+    must equal the other storage nodes' and it must serve every write;
+    (c) the counted rounds: the 4 writers released together, each
+    write_many of 1024 items of 1 KiB from --seed, then a read_many of
+    every key the round wrote; every acknowledged write must read back
+    with its value; (d) revoke-on-read on the card: a read's response map
+    with 170 colluders among 512 signers, whose batched tally is one
+    tally.equivocation_pairs launch whose mask must equal the host scan,
+    and exactly the colluders revoked; (e) bench.py's cluster_4_http
+    shape: 4 servers and 4 storage nodes on TrHTTP at probed localhost
+    ports, a home written by the port's topology opened by
+    api.open_client(device=); a write, read, write_many and read_many read
+    back.  Every K1 and K2 launch of the counted rounds is held against
+    its plain version."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from bftkv_tpu_torch import api, packet, topology
+    from bftkv_tpu_torch import transport as tp
+    from bftkv_tpu_torch.crypto import new_crypto
+    from bftkv_tpu_torch.crypto import signature as sigmod
+    from bftkv_tpu_torch.faults import failpoint as fp
+    from bftkv_tpu_torch.graph import Graph
+    from bftkv_tpu_torch.ops import cuda_rns, dispatch, tally
+    from bftkv_tpu_torch.protocol.client import Client, _SignedValue
+    from bftkv_tpu_torch.protocol.server import Server
+    from bftkv_tpu_torch.quorum.wotqs import WotQS
+    from bftkv_tpu_torch.storage.memkv import MemStorage
+    from bftkv_tpu_torch.sync import SyncDaemon
+    from bftkv_tpu_torch.transport.http import TrHTTP
+    from bftkv_tpu_torch.transport.loopback import LoopbackNet, TrLoopback
+
+    os.environ.update(BFTKV_SHARD="off")
+    t_phase = time.perf_counter()
+    out = {"cuts": []}
+    vrng = random.Random(seed ^ 0x51C0)
+
+    def value():
+        return vrng.randbytes(PROTO_VALUE_BYTES)
+
+    # (a) the cluster
+    t0 = time.perf_counter()
+    net = LoopbackNet()
+    servers = {}
+    for ident in uni.servers + uni.storage_nodes:
+        g, crypt, qs = topology.make_node(ident, uni.view_of(ident), device=dev)
+        srv = Server(g, qs, TrLoopback(crypt, net), crypt, MemStorage(), device=dev)
+        srv.start()
+        servers[ident.name] = srv
+    clients = []
+    for ident in uni.users:
+        g, crypt, qs = topology.make_node(ident, uni.view_of(ident), device=dev)
+        tr = TrLoopback(crypt, net)
+        tr.link_id = ident.name
+        clients.append(Client(g, qs, tr, crypt, device=dev))
+    setup_ms = (time.perf_counter() - t0) * 1e3
+    check(all(s.device == dev for s in servers.values()) and all(c.device == dev for c in clients),
+          "a node of the protocol cluster is not on the card")
+    storage = [servers[i.name] for i in uni.storage_nodes]
+    dispatch.install(dispatch.VerifyDispatcher(max_batch=PROTO_DISPATCH_BATCH, device=dev))
+    dispatch.install_signer(dispatch.SignDispatcher(max_batch=PROTO_DISPATCH_BATCH, device=dev))
+    try:
+        fanout = "inline" if tp._inline_fanout_ok() else "threaded"
+        check(dev.type != "cuda" or fanout == "threaded",
+              f"the fan-out is {fanout} with the card's dispatchers installed")
+        warm_s = []
+        for w in range(2):  # cold (sessions, calibration), then warm
+            items = [(b"bench/warm/%d/%d" % (w, i), value()) for i in range(PROTO_WARM)]
+            t0 = time.perf_counter()
+            errs = clients[0].write_many(items)
+            warm_s.append(time.perf_counter() - t0)
+            check(errs == [None] * len(items), f"warm write_many: {[e for e in errs if e][:1]}")
+            check(clients[0].read_many([x for x, _ in items]) == [v for _, v in items],
+                  "a warm write does not read back")
+        for c in clients:
+            c.drain_tails()
+        out["cluster"] = {"servers": len(uni.servers), "storage": len(uni.storage_nodes),
+                          "writers": len(clients), "setup_ms": setup_ms, "fanout": fanout,
+                          "warm_write_many_ms": [t * 1e3 for t in warm_s]}
+        print(f"protocol (a) cluster: {len(uni.servers)} servers + {len(uni.storage_nodes)} storage nodes "
+              f"on MemStorage over one LoopbackNet and {len(clients)} clients, every node on {dev}, in "
+              f"{setup_ms:.1f} ms; fan-out {fanout}; warm write_many of {PROTO_WARM} "
+              f"{warm_s[0] * 1e3:.1f} ms cold, {warm_s[1] * 1e3:.1f} ms warm", flush=True)
+
+        # (b) anti-entropy: a storage node misses writes, then repairs and pulls
+        victim = storage[-1]
+        peers = storage[:-1]
+        singles = [(b"ae/single/%d" % i, value()) for i in range(PROTO_MISSED_SINGLE)]
+        batch = [(b"ae/batch/%d" % i, value()) for i in range(PROTO_MISSED)]
+        fp.arm(seed)
+        fp.registry.add("transport.send", "drop", rule_id="missed",
+                        match={"cmd": lambda c: c in ("write", "batch_write"),
+                               "dst": fp.link_of(victim.self_node.address)})
+        try:
+            for x, v in singles:
+                clients[1].write(x, v)
+            errs = clients[1].write_many(batch)
+            clients[1].drain_tails()
+        finally:
+            fp.disarm()
+        check(errs == [None] * len(batch), f"the missed round failed: {[e for e in errs if e][:1]}")
+        root = lambda s: s._sync_tree().root()
+        check(root(victim) != root(peers[0]), "the storage node did not miss the writes")
+        daemon = SyncDaemon(victim, interval=999, rng=random.Random(seed))
+        t0 = time.perf_counter()
+        repaired = daemon.repair_once()
+        repair_ms = (time.perf_counter() - t0) * 1e3
+        pulls = []
+        t0 = time.perf_counter()
+        for _ in range(3):
+            pulls.append(daemon.run_round())
+            if root(victim) == root(peers[0]):
+                break
+        pull_ms = (time.perf_counter() - t0) * 1e3
+        roots = {s.self_node.name: root(s).hex() for s in storage}
+        check(len(set(roots.values())) == 1, f"digest roots differ after repair and pull: {roots}")
+        for x, v in singles + batch:
+            p = packet.parse(victim.storage.read(x))
+            check(p.value == v and p.ss is not None and p.ss.completed,
+                  f"{victim.self_node.name} does not serve the certified {x!r}")
+        out["anti_entropy"] = {"node": victim.self_node.name, "missed_single": len(singles),
+                               "missed_batch": len(batch), "repair_once": repaired, "repair_ms": repair_ms,
+                               "pull_rounds": pulls, "pull_ms": pull_ms, "root": roots[victim.self_node.name]}
+        print(f"protocol (b) anti-entropy: {victim.self_node.name} missed {len(singles)} single writes' "
+              f"back-fill and a {len(batch)}-item round; repair_once {repaired} in {repair_ms:.1f} ms, then "
+              f"{len(pulls)} pull round(s) {pulls} in {pull_ms:.1f} ms; its digest root equals the other "
+              f"{len(peers)} storage nodes' and it serves every write certified", flush=True)
+
+        # (c) the counted rounds
+        # Rounds are cut first (after each round, below); the batch only where
+        # the warm write projects a single round past the whole budget.
+        n_batch, n_rounds = PROTO_BATCH, PROTO_ROUNDS
+        per_item = max(warm_s) / PROTO_WARM * len(clients)  # all writers share one host
+        while n_batch > PROTO_WARM and per_item * n_batch > PROTO_BUDGET_S:
+            n_batch //= 2
+        if n_batch != PROTO_BATCH:
+            out["cuts"].append(f"batch {PROTO_BATCH} -> {n_batch}: the warm write projected "
+                               f"{per_item * PROTO_BATCH:.0f} s a round against a {PROTO_BUDGET_S:.0f} s budget")
+        values = {(ci, r): [value() for _ in range(n_batch)] for ci in range(len(clients)) for r in range(n_rounds)}
+        keys = lambda ci, r: [b"bench/%d/%d/%d" % (ci, r, i) for i in range(n_batch)]
+        errors = []
+
+        def together(fn):
+            """``fn(ci)`` on every writer's thread, released together; wall s."""
+            start = threading.Barrier(len(clients) + 1)
+
+            def body(ci):
+                start.wait()
+                try:
+                    fn(ci)
+                except Exception as e:  # surfaced below: the phase fails
+                    errors.append(e)
+
+            ths = [threading.Thread(target=body, args=(ci,)) for ci in range(len(clients))]
+            for th in ths:
+                th.start()
+            start.wait()
+            t0 = time.perf_counter()
+            for th in ths:
+                th.join()
+            return time.perf_counter() - t0
+
+        def write_round(r):
+            def fn(ci):
+                errs = clients[ci].write_many(list(zip(keys(ci, r), values[(ci, r)])))
+                bad = [e for e in errs if e is not None]
+                if bad:
+                    raise RuntimeError(f"writer {ci} round {r}: {len(bad)} writes failed, first {bad[0]!r}")
+            return fn
+
+        def read_round(r):
+            def fn(ci):
+                got = clients[ci].read_many(keys(ci, r))
+                bad = [i for i, (g, v) in enumerate(zip(got, values[(ci, r)])) if g != v]
+                if bad:
+                    raise RuntimeError(f"writer {ci} round {r}: {len(bad)} acknowledged writes do not read "
+                                       f"back, first {keys(ci, r)[bad[0]]!r} -> {got[bad[0]]!r:.80}")
+            return fn
+
+        launch_names = ("verify_cuda", "pow_cuda")
+        write_s, read_s = [], []
+        with Recorder(cuda_rns, launch_names) as rec, Counted() as c_run:
+            for r in range(n_rounds):
+                write_s.append(together(write_round(r)))
+                check(not errors, f"round {r}: {errors[:1]}")
+                read_s.append(together(read_round(r)))
+                check(not errors, f"round {r} read-back: {errors[:1]}")
+                spent = sum(write_s) + sum(read_s)
+                if r + 1 < n_rounds and spent / (r + 1) * (r + 2) > PROTO_BUDGET_S:
+                    out["cuts"].append(f"rounds {n_rounds} -> {r + 1}: {spent:.1f} s for {r + 1} round(s) "
+                                       f"against a {PROTO_BUDGET_S:.0f} s budget")
+                    n_rounds = r + 1
+                    break
+            for c in clients:
+                c.drain_tails()
+        snap, launches = c_run.snap, c_run.launches
+        k1_calls = [("rounds", a) for a in rec.calls["verify_cuda"]]
+        k2_calls = [("rounds", a) for a in rec.calls["pow_cuda"]]
+        check(dev.type != "cuda" or (launches["verify"] >= 1 and launches["pow"] >= 1),
+              f"the counted rounds launched {launches}")
+        check(len(k1_calls) == launches["verify"] and len(k2_calls) == launches["pow"],
+              f"recorded launches {len(k1_calls)}, {len(k2_calls)} differ from the counts {launches}")
+        n_writes = len(clients) * n_rounds * n_batch
+        rows = lambda calls: sum(a[0].shape[0] for _p, a in calls)
+        timer = lambda name: {k: snap.get(f"{name}.{k}") for k in ("count", "sum", "p50", "p99")}
+        out["rounds"] = {
+            "writers": len(clients), "batch": n_batch, "rounds": n_rounds, "value_bytes": PROTO_VALUE_BYTES,
+            "writes": n_writes, "reads": n_writes,
+            "signed_writes_per_sec_64replica_batched": n_writes / sum(write_s),
+            "reads_per_sec": n_writes / sum(read_s),
+            "write_round_ms": [t * 1e3 for t in write_s], "read_round_ms": [t * 1e3 for t in read_s],
+            "client.write_many.phase_time": timer("client.write_many.phase_time"),
+            "client.write_many.phase_self_sign": timer("client.write_many.phase_self_sign"),
+            "client.write_many.phase_sign": timer("client.write_many.phase_sign"),
+            "client.write_many.phase_verify": timer("client.write_many.phase_verify"),
+            "client.write_many.phase_write": timer("client.write_many.phase_write"),
+            "server.batch_sign.handler": timer("server.batch_sign.handler"),
+            "server.batch_write.handler": timer("server.batch_write.handler"),
+            "k1_launches": launches["verify"], "k1_rows": rows(k1_calls),
+            "k2_launches": launches["pow"], "k2_rows": rows(k2_calls),
+            "verify_device": snap.get("verify.device", 0), "verify_host": snap.get("verify.host", 0),
+            "sign_device": snap.get("sign.device", 0), "sign_host": snap.get("sign.host", 0),
+            "dispatch_flushes": snap.get("dispatch.flushes", 0), "dispatch_verifies": snap.get("dispatch.verifies", 0),
+            "signdispatch_flushes": snap.get("signdispatch.flushes", 0),
+            "verify_cache_hits": snap.get("verify.cache.hits", 0),
+            "verify_cache_misses": snap.get("verify.cache.misses", 0),
+        }
+        ro = out["rounds"]
+        per = lambda n, d: n / d if d else 0.0
+        ms = lambda t: "n/a" if t["sum"] is None else f"{t['sum'] * 1e3:.1f} ms over {t['count']}"
+        print(f"protocol (c) rounds: {len(clients)} writers x {n_rounds} rounds x {n_batch} items of "
+              f"{PROTO_VALUE_BYTES} B: signed_writes_per_sec_64replica_batched "
+              f"{ro['signed_writes_per_sec_64replica_batched']:.2f}, reads/s {ro['reads_per_sec']:.2f}; "
+              f"write rounds {[round(t, 1) for t in ro['write_round_ms']]} ms, read rounds "
+              f"{[round(t, 1) for t in ro['read_round_ms']]} ms; every acknowledged write read back", flush=True)
+        print(f"protocol (c) write_many phases (sum over chunks): time {ms(ro['client.write_many.phase_time'])}, "
+              f"self-sign {ms(ro['client.write_many.phase_self_sign'])}, sign {ms(ro['client.write_many.phase_sign'])}, "
+              f"verify {ms(ro['client.write_many.phase_verify'])}, write {ms(ro['client.write_many.phase_write'])}; "
+              f"server.batch_sign.handler {ms(ro['server.batch_sign.handler'])}, "
+              f"server.batch_write.handler {ms(ro['server.batch_write.handler'])}", flush=True)
+        print(f"protocol (c) launches: K1 {ro['k1_launches']} ({per(ro['k1_rows'], ro['k1_launches']):.1f} rows a "
+              f"launch), K2 {ro['k2_launches']} ({per(ro['k2_rows'], ro['k2_launches']):.1f} rows a launch); "
+              f"verify.device {ro['verify_device']} host {ro['verify_host']}, sign.device {ro['sign_device']} "
+              f"host {ro['sign_host']}; flushes verify {ro['dispatch_flushes']} sign {ro['signdispatch_flushes']}; "
+              f"verify.cache hits {ro['verify_cache_hits']} misses {ro['verify_cache_misses']}", flush=True)
+
+        # (d) revoke-on-read on the card
+        honest_a = list(range(REVOKE_UNIVERSE // 2))
+        honest_b = list(range(REVOKE_UNIVERSE // 2, REVOKE_UNIVERSE - REVOKE_BYZ))
+        colluders = list(range(REVOKE_UNIVERSE - REVOKE_BYZ, REVOKE_UNIVERSE))
+        base_id = 1 << 40
+
+        class _Ref:
+            def __init__(self, i):
+                self.id, self.name, self.address, self.active = base_id + i, f"r{i:03d}", "", True
+
+        def ss_for(signers):
+            return packet.SignaturePacket(
+                type=packet.SIGNATURE_TYPE_NATIVE, version=1, completed=True,
+                data=sigmod.serialize_entries([(base_id + i, b"sig") for i in signers]))
+
+        reps = [_Ref(i) for i in range(REVOKE_UNIVERSE)]
+        ss_a, ss_b = ss_for(honest_a + colluders), ss_for(honest_b + colluders)
+        m = {7: {b"value-A": [_SignedValue(reps[i], None, ss_a, b"pA") for i in honest_a + colluders],
+                 b"value-B": [_SignedValue(reps[i], None, ss_b, b"pB") for i in honest_b + colluders]}}
+        user = uni.users[0]
+        g = Graph()
+        g.set_self_nodes([user.cert])
+        reader = Client(g, WotQS(g), _RecordingTransport(), new_crypto(user.key, user.cert, device=dev),
+                        device=dev)
+        entries = len(honest_a) + len(honest_b) + 2 * len(colluders)
+        check(entries >= reader.BATCH_REVOKE_THRESHOLD,
+              f"{entries} signer entries do not reach BATCH_REVOKE_THRESHOLD {reader.BATCH_REVOKE_THRESHOLD}")
+        tallied = []
+        real_pairs = tally.equivocation_pairs
+
+        def counted_pairs(sets, **kw):
+            mask = real_pairs(sets, **kw)
+            tallied.append((np.asarray(sets), mask))
+            return mask
+
+        tally.equivocation_pairs = counted_pairs
+        try:
+            t0 = time.perf_counter()
+            reader._revoke_on_read(m)
+            revoke_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            tally.equivocation_pairs = real_pairs
+        check(len(tallied) == 1, f"revoke-on-read made {len(tallied)} tally launches, not one")
+        sets, mask = tallied[0]
+        check(mask.device.type == dev.type, f"the equivocation tally ran on {mask.device}")
+        # The host scan of the reference client (client.py:2085-2093).
+        seen, scan = {}, set()
+        rows_ = [{sid for sv in svl for sid in sigmod.signers(sv.ss)} for svl in m[7].values()]
+        for round_no, row in enumerate(rows_):
+            for sid in row:
+                prev = seen.get(sid)
+                if prev is None:
+                    seen[sid] = round_no
+                elif prev != round_no:
+                    scan.add(sid)
+        ids = sorted(set().union(*rows_))
+        on_card = {ids[i] for i in np.nonzero(mask.cpu().numpy())[0]}
+        check(on_card == scan, f"the card's equivocation mask names {len(on_card)} signers, the host scan {len(scan)}")
+        check(set(g.revoked) == {base_id + i for i in colluders},
+              f"revoke-on-read revoked {len(g.revoked)}, not exactly the {REVOKE_BYZ} colluders")
+        out["revoke_on_read"] = {"universe": REVOKE_UNIVERSE, "colluders": REVOKE_BYZ, "signer_entries": entries,
+                                 "tally_launches": len(tallied), "mask_shape": list(sets.shape),
+                                 "revoked": len(g.revoked), "ms": revoke_ms}
+        print(f"protocol (d) revoke-on-read: {entries} signer entries (universe {REVOKE_UNIVERSE}, "
+              f"{REVOKE_BYZ} colluders) -> one equivocation_pairs launch on {mask.device} at {list(sets.shape)}, "
+              f"mask equal to the host scan; exactly the {REVOKE_BYZ} colluders revoked in {revoke_ms:.1f} ms",
+              flush=True)
+
+        # (e) HTTP and api.py: bench.py's cluster_4_http shape
+        tmp = tempfile.mkdtemp(prefix="smoke-http-")
+        http_servers = []
+        try:
+            base = _free_port_block(HTTP_SERVERS + HTTP_STORAGE)
+            huni = topology.build_universe(
+                HTTP_SERVERS, 1, HTTP_STORAGE, scheme="http", base_port=base,
+                rw_base_port=base + HTTP_SERVERS, bits=2048,
+                keys=replicas[:HTTP_SERVERS] + storage_keys[:HTTP_STORAGE] + writers[:1])
+            t0 = time.perf_counter()
+            for ident in huni.servers + huni.storage_nodes:
+                g2, crypt, qs = topology.make_node(ident, huni.view_of(ident), device=dev)
+                srv = Server(g2, qs, TrHTTP(crypt), crypt, MemStorage(), device=dev)
+                srv.start()
+                http_servers.append(srv)
+            home = os.path.join(tmp, huni.users[0].name)
+            topology.save_home(home, huni.users[0], huni.view_of(huni.users[0]))
+            cli = api.open_client(home, device=dev)
+            check(cli.client.device == dev and isinstance(cli.client.tr, TrHTTP),
+                  "open_client did not build an HTTP client on the card")
+            x, v = b"http/one", value()
+            cli.write(x, v)
+            check(cli.read(x) == v, "the HTTP write does not read back")
+            hitems = [(b"http/many/%d" % i, value()) for i in range(HTTP_ITEMS)]
+            check(cli.write_many(hitems) == [None] * HTTP_ITEMS, "the HTTP write_many failed")
+            check(cli.read_many([k for k, _ in hitems]) == [v for _, v in hitems],
+                  "the HTTP write_many does not read back")
+            cli.client.drain_tails()
+            http_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            for srv in http_servers:
+                srv.tr.stop()
+            shutil.rmtree(tmp, ignore_errors=True)
+        out["http_api"] = {"servers": HTTP_SERVERS, "storage": HTTP_STORAGE, "first_port": base,
+                           "items": HTTP_ITEMS, "ms": http_ms}
+        print(f"protocol (e) HTTP: {HTTP_SERVERS} + {HTTP_STORAGE} servers on TrHTTP at 127.0.0.1:{base}-"
+              f"{base + HTTP_SERVERS + HTTP_STORAGE - 1}; api.open_client(device={dev}) on a port home: a "
+              f"write, read, write_many and read_many of {HTTP_ITEMS} read back in {http_ms:.1f} ms", flush=True)
+    finally:
+        dispatch.uninstall_all()
+        for srv in servers.values():
+            srv.tr.stop()
+
+    hold_rns_calls(k1_calls, k2_calls, "protocol phase's counted rounds")
+    torch.cuda.synchronize()
+    held = {"K1": len(k1_calls), "K2": len(k2_calls)}
+    out["records"] = rns_main_shape_records(k1_calls, k2_calls, "protocol rounds")
+    out["held_against_plain"] = held
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"protocol: every launch of the counted rounds equal to its plain version ({held}); cuts "
+          f"{out['cuts'] or 'none'}; phase {out['phase_s']:.1f} s on {nvidia_smi('name,power.limit')}", flush=True)
+    return out
+
+
 def cuda_ms(fn, reps: int) -> float:
     fn()
     torch.cuda.synchronize()
@@ -2715,6 +3214,10 @@ def main() -> int:
     # quorums, TPA, threshold DSA/ECDSA/RSA, envelopes
     crypto = crypto_phase(dev, replicas, writers, ec_replicas, args.seed, build_dir, qctx)
 
+    # 14. protocol phase: the headline's deployment through the port's own
+    # servers, clients and transport
+    protocol = protocol_phase(dev, qctx["universe"], replicas, writers, storage_keys, args.seed)
+
     v_med, s_med = statistics.median(v_times), statistics.median(s_times)
     p_med, l_med = statistics.median(p_times), statistics.median(l_times)
     print(f"verify flush (rns): median {v_med * 1e3:.3f} ms of {TIMED_REPS} "
@@ -2740,7 +3243,7 @@ def main() -> int:
           f"({SIGN_SHARES // SIDECAR_TENANTS} shares) beside the in-process rns sign flush "
           f"{s_med * 1e3:.3f} ms", flush=True)
 
-    # 13. each kernel against its plain version, on the main paths' operands
+    # 15. each kernel against its plain version, on the main paths' operands
     v_args = [a for a in rec_v.calls["verify_cuda"] if a[0].shape[0] == VERIFY_FLUSH]
     check(len(v_args) == 1, f"expected one {VERIFY_FLUSH}-row verify launch")
     p_args = rec_s.calls["pow_cuda"]
@@ -2810,6 +3313,7 @@ def main() -> int:
     kernels += shard.pop("records")
     kernels += quorum.pop("records")
     kernels += crypto.pop("records")
+    kernels += protocol.pop("records")
     print(f"K1 before its redesign, not measured in this run ({K1_EARLIER_OF}): "
           + ", ".join(f"T={t} {ms} ms" for t, ms in K1_EARLIER_MS.items())
           + "; this run: " + ", ".join(f"T={r['rows']} {r['ms']:.4f} ms" for r in kernels[0:3]),
@@ -2846,9 +3350,10 @@ def main() -> int:
         "shard": shard,
         "quorum": quorum,
         "crypto": crypto,
+        "protocol": protocol,
     }), flush=True)
 
-    # 14. the card, as nvidia-smi reports it
+    # 16. the card, as nvidia-smi reports it
     print(nvidia_smi("name,power.limit") or "nvidia-smi: no output", flush=True)
     print(json.dumps({
         "ok": True,

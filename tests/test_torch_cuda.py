@@ -829,3 +829,33 @@ def test_threshold_ecdsa_combine_on_card_holds_each_k5_launch_against_plain(dev,
     assert [a[0].shape[-1] for a in calls] == [8] * len(rs) + [8]
     for res, nib, eng in list(calls):
         assert torch.equal(cuda_ec.scalar_mult_cuda(res, nib, eng), ec_rns._scalar_mult(eng, res, nib))
+
+
+def test_port_cluster_on_card_writes_and_reads_through_the_dispatchers(dev):
+    """A 4+4 loopback cluster of port servers and a port client, every node
+    on the card, writes 64 items with ``write_many`` and reads them back
+    through the installed dispatchers: the servers' writer-signature
+    batches and the client's ``verify_many`` launch K1, the servers'
+    shares K2 (and K1's fault checks); the fan-out is threaded."""
+    from bftkv_tpu_torch import transport
+    from bftkv_tpu_torch.ops import dispatch
+    from test_torch_utils import start_cluster
+
+    dispatch.install(dispatch.VerifyDispatcher(rsa.VerifierDomain(device=dev, host_threshold=0),
+                                               max_batch=4096, calibrate=False))
+    dispatch.install_signer(dispatch.SignDispatcher(rsa.SignerDomain(device=dev, host_threshold=0),
+                                                    max_batch=4096, calibrate=False))
+    c = start_cluster(4, 1, 4, bits=2048, device=dev, key_base=7000)
+    try:
+        cl = c.clients[0]
+        assert cl.device == dev and all(s.device == dev for s in c.all_servers)
+        assert not transport._inline_fanout_ok()
+        items = [(b"card/%d" % i, b"value-%d" % i) for i in range(64)]
+        cuda_rns.reset_launches()
+        assert cl.write_many(items) == [None] * 64
+        cl.drain_tails()
+        assert cl.read_many([v for v, _ in items]) == [v for _, v in items]
+        assert cuda_rns.LAUNCHES["verify"] >= 1 and cuda_rns.LAUNCHES["pow"] >= 1, cuda_rns.LAUNCHES
+    finally:
+        dispatch.uninstall_all()
+        c.stop()

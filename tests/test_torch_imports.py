@@ -76,6 +76,12 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import bftkv_tpu_torch.storage.segment, bftkv_tpu_torch.storage.plain\n"
         "import bftkv_tpu_torch.storage.logkv, bftkv_tpu_torch.storage.compact\n"
         "import bftkv_tpu_torch.storage.native, bftkv_tpu_torch.topology\n"
+        "import bftkv_tpu_torch.transport, bftkv_tpu_torch.transport.latency\n"
+        "import bftkv_tpu_torch.transport.loopback, bftkv_tpu_torch.transport.http\n"
+        "import bftkv_tpu_torch.crypto.presession, bftkv_tpu_torch.protocol\n"
+        "import bftkv_tpu_torch.protocol.server, bftkv_tpu_torch.protocol.client\n"
+        "import bftkv_tpu_torch.sync, bftkv_tpu_torch.sync.digest, bftkv_tpu_torch.sync.daemon\n"
+        "import bftkv_tpu_torch.api\n"
         "from bftkv_tpu_torch.ops import _build\n"
         "new = set(sys.modules) - before\n"
         "tops = {m.split('.')[0] for m in new}\n"
@@ -163,7 +169,10 @@ def _entry_points():
     from bftkv_tpu_torch.crypto.threshold import ecdsa as tecdsa
     from bftkv_tpu_torch.crypto.threshold import rsa as trsa
     from bftkv_tpu_torch.crypto.ec import P256
-    from bftkv_tpu_torch import entry, topology
+    from bftkv_tpu_torch import api, entry, topology
+    from bftkv_tpu_torch.protocol.client import Client
+    from bftkv_tpu_torch.protocol.server import Server
+    from bftkv_tpu_torch.storage.memkv import MemStorage
     from bftkv_tpu_torch.cmd import verify_sidecar
     from bftkv_tpu_torch.ops import bigint, dispatch, ec, ec_rns, modexp, rns, tally
     from bftkv_tpu_torch.ops import rsa as rsa_ops
@@ -177,12 +186,27 @@ def _entry_points():
     sign_msgs = [b"m"] * ecdsa.SIGN_HOST_CROSSOVER
     ident = topology.new_identity("a01", address="loop://a01", key=rsa.generate(512, seed=1))
 
-    def load_home():
+    def load_home(device="cuda"):
         import tempfile
 
         home = tempfile.mkdtemp()
         topology.save_home(home, ident, [ident.cert])
-        return topology.load_home(home, device="cuda")
+        return topology.load_home(home, device=device)
+
+    def node(cls, *extra):
+        # A node on a cpu crypt, built with no device of its own: the
+        # default is cuda:0, which must raise here.
+        from bftkv_tpu_torch.transport.loopback import LoopbackNet, TrLoopback
+
+        graph, crypt, qs = topology.make_node(ident, [ident.cert], device="cpu")
+        return cls(graph, qs, TrLoopback(crypt, LoopbackNet()), crypt, *extra)
+
+    def open_client():
+        import tempfile
+
+        home = tempfile.mkdtemp()
+        topology.save_home(home, ident, [ident.cert])
+        return api.open_client(home, lambda crypt: None, join=False)
     return {
         "ec_scalar_mult_hosts": lambda: ec.scalar_mult_hosts([g], [3], device="cuda"),
         "ec_rns_scalar_mult_hosts": lambda: ec_rns.scalar_mult_hosts([g], [3], device="cuda"),
@@ -237,18 +261,23 @@ def _entry_points():
         "threshold_ecdsa_new": lambda: tecdsa.new(None, device="cuda"),
         "make_node": lambda: topology.make_node(ident, [ident.cert], device="cuda"),
         "load_home": load_home,
+        "Server": lambda: node(Server, MemStorage()),
+        "Client": lambda: node(Client),
+        "open_client": open_client,
     }
 
 
 ENTRY_POINTS = [
-    "AuthClient", "AuthServer", "BatchModExp", "BatchModExp_shared", "CollectiveSignature",
-    "ModexpDispatcher", "RSAThreshold", "SidecarService", "SignDispatcher", "SignerDomain",
+    "AuthClient", "AuthServer", "BatchModExp", "BatchModExp_shared", "Client",
+    "CollectiveSignature", "ModexpDispatcher", "RSAThreshold", "Server", "SidecarService",
+    "SignDispatcher", "SignerDomain",
     "SignerDomain_limb", "ThresholdInstance", "VerifierDomain", "VerifierDomain_limb",
     "VerifierDomain_pallas", "VerifyDispatcher", "calibration", "consts_from_numpy",
     "dryrun_multichip", "ec_rns_engine", "ec_rns_scalar_mult_hosts", "ec_scalar_mult_hosts",
     "ecdsa_sign_batch", "ecdsa_verify_batch", "entry", "flat_verify",
     "generate_partial_auth_params", "key_rows_from_numpy", "limbs_from_numpy", "load_home",
-    "make_node", "new_crypto", "power_batch", "power_mod_rns", "serve", "shard_over", "tally_counts",
+    "make_node", "new_crypto", "open_client", "power_batch", "power_mod_rns", "serve",
+    "shard_over", "tally_counts",
     "threshold_dsa_new", "threshold_ecdsa_new", "verify_batch_e65537",
     "verify_e65537_rns_indexed",
 ]
@@ -322,6 +351,14 @@ def test_flag_seam():
         "BFTKV_LOG_GROUP_COMMIT_MS",
         "BFTKV_LOG_COMPACT_TRIGGER",
         "BFTKV_LOG_COMPACT_MBPS",
+        # Transport, protocol and sync.
+        "BFTKV_ADAPTIVE_FLOOR", "BFTKV_ADAPTIVE_TIMEOUT", "BFTKV_FANOUT_WORKERS",
+        "BFTKV_HEDGE", "BFTKV_HEDGE_CAP", "BFTKV_HEDGE_MIN", "BFTKV_HTTP_POOL",
+        "BFTKV_HTTP_TIMEOUT", "BFTKV_INLINE_FANOUT", "BFTKV_PEER_CB",
+        "BFTKV_PEER_CB_OPEN_SECS", "BFTKV_PEER_CB_THRESHOLD", "BFTKV_PIGGYBACK",
+        "BFTKV_PRESESSION", "BFTKV_REGION_RANK", "BFTKV_REPAIR", "BFTKV_REPAIR_AFTER",
+        "BFTKV_RPC_BACKOFF", "BFTKV_RPC_RETRIES", "BFTKV_RPC_TIMEOUT", "BFTKV_SIGN_FANOUT",
+        "BFTKV_WRITE_CHUNK", "BFTKV_WRITE_PIPELINE",
     }
     # Every declared flag is read somewhere in the port, and no BFTKV_*
     # name is read from the environment outside flags.py.
@@ -329,3 +366,30 @@ def test_flag_seam():
     assert [n for n in flags.declared() if n not in blob] == []
     pat = re.compile(r"(?:environ(?:\.get)?\s*[\(\[]|getenv\s*\()\s*f?['\"]BFTKV_")
     assert not [p for p in _port_files() if p.name != "flags.py" and pat.search(p.read_text())]
+
+
+def test_flags_of_the_protocol_layer_keep_the_reference_defaults():
+    from bftkv_tpu import flags as ref_flags
+
+    names = [n for n in flags.declared() if n.startswith(
+        ("BFTKV_ADAPTIVE", "BFTKV_HEDGE", "BFTKV_HTTP", "BFTKV_PEER_CB", "BFTKV_RPC",
+         "BFTKV_REPAIR", "BFTKV_WRITE_", "BFTKV_PIGGYBACK", "BFTKV_PRESESSION",
+         "BFTKV_REGION_RANK", "BFTKV_SIGN_FANOUT", "BFTKV_INLINE_FANOUT",
+         "BFTKV_FANOUT_WORKERS"))]
+    assert len(names) == 23
+    for n in names:
+        port, ref = flags.declared()[n], ref_flags.FLAGS[n]
+        assert (port.default, port.kind) == (ref.default, ref.kind), n
+
+
+def test_a_node_on_a_crypt_of_another_device_is_refused():
+    from bftkv_tpu_torch import topology
+    from bftkv_tpu_torch.crypto import rsa
+    from bftkv_tpu_torch.protocol.client import Client
+    from bftkv_tpu_torch.transport.loopback import LoopbackNet, TrLoopback
+
+    ident = topology.new_identity("a01", address="loop://a01", key=rsa.generate(512, seed=1))
+    graph, crypt, qs = topology.make_node(ident, [ident.cert], device="cpu")
+    crypt.collective.verifier.device = torch.device("meta")
+    with pytest.raises(ValueError, match="crypt verifies on"):
+        Client(graph, qs, TrLoopback(crypt, LoopbackNet()), crypt, device="cpu")

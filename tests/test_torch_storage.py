@@ -133,7 +133,7 @@ def test_persistence_across_reopen(cls, tmp_path):
 
 def test_keys_and_scan(store):
     # keys()/scan() are part of the storage contract (the anti-entropy
-    # digest tree enumerates the keyspace with them; bftkv_tpu/sync).
+    # digest tree enumerates the keyspace with them; sync/).
     assert store.keys() == []
     assert store.scan() == []
     long_var = b"\xff" * 200  # hash-stemmed in the plain backend
@@ -491,9 +491,7 @@ def test_digest_tree_reads_o_changed(tmp_path):
     """After the initial build, a digest round re-reads ONLY dirty
     variables: 100 changed records out of 3000 cost ~100 reads, not a
     keyspace sweep."""
-    # The reference's digest tree (the port's sync/ is a later slice),
-    # over the port's store.
-    from bftkv_tpu.sync.digest import DigestTree
+    from bftkv_tpu_torch.sync.digest import DigestTree
 
     s = LogStorage(str(tmp_path / "db"), fsync=False)
     n = 3000
@@ -533,9 +531,7 @@ def test_pending_variables_storage_served_cursor(tmp_path):
     via the storage-served sorted_keys cursor: each window reads only
     window-many records, finds exactly the pending residue, and the
     cursor walk terminates."""
-    # The reference's server method (the port's protocol/ is a later
-    # slice), over the port's store.
-    from bftkv_tpu.protocol.server import Server
+    from bftkv_tpu_torch.protocol.server import Server
 
     s = LogStorage(str(tmp_path / "db"), fsync=False)
     pending_vars = set()
