@@ -88,6 +88,7 @@ import hmac
 import io
 import json
 import os
+import socket
 import socketserver
 import struct
 import sys
@@ -711,10 +712,16 @@ def _recvall(sock, n: int) -> bytes | None:
 class _Server(socketserver.ThreadingTCPServer):
     allow_reuse_address = True
     daemon_threads = True
+    # socketserver listens with a backlog of 5.  A fleet's daemons open
+    # their channels together on their first batch, and a connect to a
+    # Unix socket whose backlog is full fails at once (EAGAIN) where TCP
+    # would retry: the tenant then trips its breaker and falls back.
+    request_queue_size = socket.SOMAXCONN
 
 
 class _UnixServer(socketserver.ThreadingUnixStreamServer):
     daemon_threads = True
+    request_queue_size = socket.SOMAXCONN
 
 
 # -- stats endpoint (FleetCollector scrape surface) -------------------------

@@ -17,7 +17,7 @@ import threading
 
 import torch
 
-__all__ = ["DEFAULT", "resolve", "stream"]
+__all__ = ["DEFAULT", "note_cuda_state", "resolve", "stream"]
 
 DEFAULT = "cuda:0"
 
@@ -37,6 +37,13 @@ def resolve(device: str | torch.device | None = None) -> torch.device:
     if dev.type == "cpu":
         return dev
     raise RuntimeError(f"unsupported device {str(dev)!r} (cuda or cpu)")
+
+
+def note_cuda_state(metrics) -> None:
+    """Set the ``device.cuda_initialized`` gauge of ``metrics``: 1 once this
+    process has initialised CUDA (a context on a card), else 0.  A
+    sidecar-mode daemon must stay at 0: the card is the sidecar's."""
+    metrics.gauge("device.cuda_initialized", int(torch.cuda.is_initialized()))
 
 
 _streams = threading.local()

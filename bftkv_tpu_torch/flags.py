@@ -104,6 +104,11 @@ _flag("BFTKV_SIDECAR_MAX_QUEUE", "64", "int",
 _flag("BFTKV_SIDECAR_MAX_WAIT", "0.5", "float",
       "Sidecar admission: longest a batch may wait for a service slot "
       "before it is shed.")
+_flag("BFTKV_SIDECAR_TIMEOUT", "30", "float",
+      "Seconds a daemon's or gateway's sidecar round trip may take before "
+      "the channel drops it, retries once, then opens its breaker (the "
+      "reference's fixed channel timeout; a sidecar shared by many "
+      "tenants queues longer).")
 _flag("BFTKV_SIDECAR_MAX_KEYS", "64", "int",
       "Sign-key handles one sidecar connection may register (bounds "
       "hostile registration floods).")
@@ -231,6 +236,33 @@ _flag("BFTKV_WRITE_CHUNK", '256', "int",
 _flag("BFTKV_WRITE_PIPELINE", '2', "int",
       "write_many: chunk write-rounds in flight behind the caller's "
       "time+sign rounds (1 disables pipelining).")
+
+# The process surfaces: daemon, gateway, workload driver.
+_flag("BFTKV_PROFILE", "", "switch",
+      "Opt-in continuous wall-clock sampling profiler (collapsed "
+      "flamegraph stacks served on /profile).  Off = no sampler "
+      "thread, zero overhead.")
+_flag("BFTKV_PROFILE_HZ", "67", "int",
+      "Sampling rate of the continuous profiler (prime default so the "
+      "comb never phase-locks to periodic work).")
+_flag("BFTKV_GIL_SAMPLER", "1", "switch",
+      "GIL-pressure estimate (runnable-thread gauge) riding the "
+      "profiler tick; costs nothing while the profiler is disarmed.")
+_flag("BFTKV_REGION_LEASE_S", "0", "float",
+      "Gateway freshness lease in seconds: while the last sync-"
+      "invalidation round completed this recently, TTL-expired cache "
+      "entries may still be served same-region (0 disables).")
+_flag("BFTKV_WORKLOAD_SEED", None, "int",
+      "Seed override for workload-driven runs; one seed replays one op "
+      "stream bit-for-bit (unset: the caller's default).")
+_flag("BFTKV_WORKLOAD_RATE", None, "float",
+      "Offered-load override in ops/s for workload-driven runs (unset: "
+      "the caller's default).")
+_flag("BFTKV_WORKLOAD_DURATION", None, "float",
+      "Per-preset schedule duration override in seconds (unset: the "
+      "caller's default).")
+_flag("BFTKV_WORKLOAD_PROCS", None, "int",
+      "Worker-process count of workload.driver.run_multiprocess (unset: 2).")
 
 
 def _check(name: str) -> Flag:

@@ -43,7 +43,32 @@ import time
 
 from bftkv_tpu_torch.devtools.lockwatch import named_lock
 
-__all__ = ["Registry", "registry"]
+__all__ = ["BUCKETS", "Registry", "histogram_quantile", "registry"]
+
+#: The reference's fixed histogram bucket upper bounds
+#: (``bftkv_tpu/metrics.py``), identical in every process so bucket
+#: counts merge across processes (``workload/driver.py``'s latency
+#: histograms).
+BUCKETS: tuple = (
+    0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+    1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 1000.0, 100000.0,
+)
+
+
+def histogram_quantile(q: float, buckets: list[int] | tuple) -> float | None:
+    """Quantile estimate from per-bucket counts (``len(BUCKETS) + 1``, the
+    last being the +Inf overflow): the upper bound of the bucket holding
+    the q-th sample; ``None`` on an empty histogram."""
+    total = sum(buckets)
+    if total <= 0:
+        return None
+    rank = q * total
+    acc = 0
+    for i, c in enumerate(buckets):
+        acc += c
+        if acc > rank or acc >= total:
+            return BUCKETS[i] if i < len(BUCKETS) else float("inf")
+    return float("inf")
 
 #: Samples kept per series for the percentiles (``.count``/``.sum``
 #: cover the whole run).

@@ -110,8 +110,9 @@ holds every hand-written kernel against its plain PyTorch version:
    SyncDaemon's repair_once() and a pull round, and must then match the
    other storage nodes' digest root and serve every write; (c) the 4
    writers released together, write_many of 1024 items of 1 KiB then a
-   read_many of every key, for 2 rounds (rounds, then the batch, are cut
-   to a 240 s budget and the cut printed); every acknowledged write reads
+   read_many of every key, for 1 round (bench.py's 2 rounds cut to 1 for
+   the deploy phase's time; the batch is cut to a 150 s budget and the cut
+   printed); every acknowledged write reads
    back; signed writes/s, reads/s, the write_many phase timers, the
    server handlers, K1/K2 launches and rows, the memo's hits; (d)
    revoke-on-read on a response map of 512 signers with 170 colluders:
@@ -120,11 +121,28 @@ holds every hand-written kernel against its plain PyTorch version:
    ports and api.open_client(device=) on a port home: a write, read,
    write_many and read_many read back.  Every K1 and K2 launch of (c) is
    held against its plain version;
-15. each kernel against its plain version on the card, on the operands the
+15. deploy phase (the port of bftkv_tpu/cmd/, gateway/, workload/,
+   obs/source.py, obs/profiler.py): the same round as the deployment runs
+   it, one process per replica: (a) the 64 + 8 + 4 universe and a gateway
+   at probed localhost ports, homes written by genkeys.write_homes, the
+   port's sidecar served in this process on the card (admission sized for
+   72 tenants), 72 daemons (python -m bftkv_tpu_torch.cmd.bftkv --device
+   cuda:0) spawned by run_cluster.spawn(sidecar=...); spawn time and the
+   fleet's resident memory; (b) 4 bftrw processes released together, each
+   writemany of 1024 items of 1 KiB, then readmany of every key (the batch
+   cut to a 180 s budget, printed); every acknowledged write reads back; no
+   daemon falls back to local crypto or holds a context on the card, the
+   sidecar sheds nothing; (c) run_gateway --sidecar in front of the fleet,
+   64 keys read twice through a GatewayClient, the second pass from its
+   certified cache; (d) workload.driver.run_multiprocess, write_heavy, 2
+   worker processes at 120 ops/s for 10 s (a probe sizes a printed cut),
+   no error; (e) run_cluster.shutdown, every daemon exits 0.  Every K1 and
+   K2 launch of the sidecar in (b) is held against its plain version;
+16. each kernel against its plain version on the card, on the operands the
    main paths gave it: K1 verdicts (T=4096, T=1024 and every fault check's
    T=256), K2 sigma (k=94 at T=512 and T=64, k=188), K3's whole
    (4096, 128) diff and K5's Jacobian residues bit-identical;
-16. times: median of 5 timed flushes per verify/RNS-sign phase, 3 for the
+17. times: median of 5 timed flushes per verify/RNS-sign phase, 3 for the
    limb sign and the EC flushes, and kernel times by CUDA events, beside
    nvidia-smi's name and power limit.
 
@@ -146,6 +164,7 @@ import json
 import multiprocessing
 import os
 import random
+import signal
 import statistics
 import subprocess
 import sys
@@ -245,13 +264,31 @@ HOLD_ROWS = 65536
 # storage nodes and 4 writers of the quorum phase's universe as port servers
 # and clients on one loopback net.
 PROTO_BATCH = 1024  # items per write_many round
-PROTO_ROUNDS = 2
+PROTO_ROUNDS = 1  # cut from bench.py's 2: the deploy phase runs the same round as processes
 PROTO_VALUE_BYTES = 1024
 PROTO_WARM = 64
 PROTO_DISPATCH_BATCH = 4096  # bench.py:1689-1692
-PROTO_BUDGET_S = 240.0  # the counted rounds: rounds are cut first, then the batch
+PROTO_BUDGET_S = 150.0  # the counted rounds: rounds are cut first, then the batch
 PROTO_MISSED = 64  # anti-entropy: a batched round one storage node misses
 PROTO_MISSED_SINGLE = 3  # and single writes whose back-fill it misses
+# The deploy phase: the same round as the deployment runs it, one process
+# per replica (cmd/run_cluster.py), every daemon and the gateway signing and
+# verifying through one crypto sidecar on the card, served in this process.
+DEPLOY_BATCH = 1024  # items per writer's writemany
+DEPLOY_WARM = 128  # warm writemany per writer, whose time sizes the batch cut
+DEPLOY_BUDGET_S = 180.0  # the counted round: the batch is cut to fit
+DEPLOY_GW_READS = 64
+DEPLOY_WL_RATE, DEPLOY_WL_DURATION_S, DEPLOY_WL_PROCS = 120.0, 10.0, 2  # bench.py:2015's rate
+DEPLOY_WL_PROBE_OPS = 8  # ops a worker in the probe run that sizes the workload cut
+DEPLOY_WL_BUDGET_S = 45.0
+DEPLOY_RPC_TIMEOUT_S = 600.0  # a BATCH_WRITE of 256 items verifies ~11k entries via the sidecar
+DEPLOY_SIDECAR_TIMEOUT_S = 600.0  # 72 tenants queue at one sidecar (its channel's default is 30 s)
+# The sidecar's admission for 72 daemons and a gateway (its defaults, 4
+# batches in service and 64 waiting 0.5 s, are for a handful of tenants).
+DEPLOY_ADMISSION = {"max_inflight": 256, "max_queue": 1024, "max_wait": 60.0}
+DEPLOY_START_S = 300.0  # every daemon's ports up
+DEPLOY_STOP_S = 120.0  # every daemon's exit after SIGTERM
+
 # Revoke-on-read: BASELINE config 5's shape (256 replicas, 85 colluders) puts
 # 341 signer entries in the read's rows, under the client's
 # BATCH_REVOKE_THRESHOLD of 512, so the case doubles it.
@@ -2848,6 +2885,483 @@ def protocol_phase(dev, uni, replicas, writers, storage_keys, seed: int) -> dict
     return out
 
 
+# -- the deploy phase --------------------------------------------------------------
+
+
+def _wait_ports(ports, procs, timeout: float, what: str) -> None:
+    """Until every localhost port accepts a connection; fails if one of
+    ``procs`` exits first or the time runs out."""
+    import socket
+
+    deadline = time.monotonic() + timeout
+    left = list(ports)
+    while left:
+        with socket.socket() as sock:
+            sock.settimeout(0.5)
+            try:
+                sock.connect(("127.0.0.1", left[0]))
+                left.pop(0)
+                continue
+            except OSError:
+                pass
+        dead = [p for p in procs if p.poll() is not None]
+        if dead:
+            fail(f"{what}: {len(dead)} process(es) exited before serving, first {dead[0].args}")
+        check(time.monotonic() < deadline, f"{what}: port {left[0]} not up in {timeout:.0f} s")
+        time.sleep(0.25)
+
+
+def _host_used_bytes() -> int:
+    """The host's memory in use: MemTotal - MemAvailable (/proc/meminfo).
+    Its growth over the fleet's start is the fleet's footprint (the
+    daemons' VmRSS counts torch's shared library pages once a process,
+    some 4.6 GB each)."""
+    with open("/proc/meminfo") as f:
+        kb = {l.split(":")[0]: int(l.split()[1]) for l in f}
+    return (kb["MemTotal"] - kb["MemAvailable"]) * 1024
+
+
+def _cpu_seconds(pids) -> float:
+    """User + system CPU seconds of ``pids`` so far (/proc/<pid>/stat)."""
+    tick = os.sysconf("SC_CLK_TCK")
+    total = 0.0
+    for pid in pids:
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+            total += (int(fields[11]) + int(fields[12])) / tick
+        except (OSError, IndexError, ValueError):
+            pass
+    return total
+
+
+def _card_pids() -> list:
+    """nvidia-smi's compute apps, the processes holding a context on a card
+    (pids as the NVIDIA kernel driver sees them: another pid namespace's where the card
+    is shared into a container)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout
+    return [int(x) for x in out.split() if x.strip().isdigit()]
+
+
+def _cuda_initialized(api_ports) -> list:
+    """The ``device.cuda_initialized`` gauge of each API's /metrics."""
+    return [m.get("device.cuda_initialized") for m in _daemon_metrics(api_ports)]
+
+
+class _CardSampler:
+    """Polls nvidia-smi's compute apps every few seconds while a block runs:
+    the pids seen and the most at once."""
+
+    def __init__(self, every: float = 3.0):
+        self.every, self.pids, self.samples, self.most = every, set(), 0, 0
+        self._stop = threading.Event()
+
+    def __enter__(self):
+        def loop():
+            while True:
+                seen = _card_pids()
+                self.pids |= set(seen)
+                self.most = max(self.most, len(seen))
+                self.samples += 1
+                if self._stop.wait(self.every):
+                    return
+
+        self._th = threading.Thread(target=loop, daemon=True)
+        self._th.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._th.join(timeout=90)
+
+
+def _daemon_metrics(api_ports) -> list:
+    """Each daemon's /metrics JSON snapshot."""
+    import urllib.request
+
+    out = []
+    for port in api_ports:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics?format=json", timeout=60) as res:
+            out.append(json.loads(res.read()))
+    return out
+
+
+def _together(argvs, logs, env) -> tuple[float, list]:
+    """The commands started together; wall seconds from the first start to
+    the last exit, and each one's (returncode, stdout, stderr)."""
+    procs, files = [], []
+    t0 = time.perf_counter()
+    for argv, log in zip(argvs, logs):
+        out, err = open(log + ".out", "wb+"), open(log + ".err", "wb+")
+        files.append((out, err))
+        procs.append(subprocess.Popen(argv, stdout=out, stderr=err, env=env))
+    for p in procs:
+        p.wait()
+    wall = time.perf_counter() - t0
+    results = []
+    for p, (out, err) in zip(procs, files):
+        out.seek(0)
+        err.seek(0)
+        results.append((p.returncode, out.read(), err.read()))
+        out.close()
+        err.close()
+    return wall, results
+
+
+def deploy_phase(dev, replicas, writers, storage_keys, seed: int) -> dict:
+    """The process surfaces (the port of bftkv_tpu/cmd/, gateway/, workload/,
+    obs/source.py, obs/profiler.py): the headline's round, bench.py's
+    bench_cluster_batch(64, 8, 4, 1024, 2), as the deployment runs it, one
+    process per replica.  (a) the universe of 64 servers, 8 storage nodes,
+    the 4 writers and a gateway on localhost HTTP at probed ports, its homes
+    written by genkeys' own body; the port's crypto sidecar served in this
+    process on the card (admission sized for 72 tenants); the 72 daemons
+    spawned by run_cluster.spawn(sidecar=...), each with --device on the
+    card; spawn time and the fleet's resident memory.  (b) the counted
+    round: 4 bftrw processes (--device on the card) released together, each
+    a writemany of DEPLOY_BATCH items of 1 KiB (512 seeded bytes, hex),
+    then a readmany of every key; every acknowledged write must read back;
+    signed writes/s, reads/s, the sidecar's K1 and K2 launches and rows,
+    the daemons' handler p50s; no daemon falls back to local crypto, the
+    sidecar sheds nothing, no daemon holds a context on the card; every K1
+    and K2 launch of the sidecar in the round is held against its plain
+    version.  (c) run_gateway with --sidecar in front of the fleet: 64 keys
+    read twice through a GatewayClient, the second pass from the gateway's
+    certified cache.  (d) workload.driver.run_multiprocess, the write_heavy
+    preset, 2 worker processes at 120 ops/s for 10 s (a probe run sizes a
+    cut).  (e) run_cluster.shutdown: every daemon exits 0."""
+    import shutil
+    import tempfile
+    import types
+    import urllib.request
+
+    from bftkv_tpu_torch import flags, topology
+    from bftkv_tpu_torch.admission import AdmissionQueue
+    from bftkv_tpu_torch.cmd import genkeys, run_cluster
+    from bftkv_tpu_torch.cmd import verify_sidecar as vs
+    from bftkv_tpu_torch.crypto import rsa
+    from bftkv_tpu_torch.gateway import GatewayClient, GatewayPeer
+    from bftkv_tpu_torch.ops import cuda_rns
+    from bftkv_tpu_torch.protocol.client import Client
+    from bftkv_tpu_torch.transport.http import TrHTTP
+    from bftkv_tpu_torch.workload import WorkloadSpec, run_multiprocess
+
+    t_phase = time.perf_counter()
+    out = {"cuts": []}
+    root = tempfile.mkdtemp(prefix="smoke-deploy-")
+    logs = os.path.join(root, "logs")
+    os.makedirs(logs)
+    # Every process of the phase imports the package from this checkout.
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.environ["PYTHONPATH"] = os.pathsep.join(p for p in (here, os.environ.get("PYTHONPATH")) if p)
+    env = dict(os.environ, BFTKV_RPC_TIMEOUT=str(DEPLOY_RPC_TIMEOUT_S),
+               BFTKV_SIDECAR_TIMEOUT=str(DEPLOY_SIDECAR_TIMEOUT_S))
+    fleet, gw_proc, srv = [], None, None
+    try:
+        # (a) homes, the sidecar, the fleet
+        t0 = time.perf_counter()
+        n, e, d, p, q = _gen_key(seed * 1000 + N_REPLICAS + N_WRITERS + N_STORAGE)
+        gw_key = rsa.PrivateKey(n=n, e=e, d=d, p=p, q=q)
+        n_nodes = N_REPLICAS + N_STORAGE
+        base = _free_port_block(2 * (n_nodes + 1))
+        api_base = base + n_nodes + 1
+        uni = topology.build_universe(
+            N_REPLICAS, N_WRITERS, N_STORAGE, scheme="http", base_port=base,
+            rw_base_port=base + N_REPLICAS, gw_base_port=base + n_nodes, n_gateways=1,
+            keys=replicas + storage_keys + writers + [gw_key])
+        homes = genkeys.write_homes(uni, os.path.join(root, "keys"))
+        homes_s = time.perf_counter() - t0
+        node_names = [i.name for i in uni.servers + uni.storage_nodes]
+        check(run_cluster.server_homes(os.path.join(root, "keys")) == sorted(homes[n] for n in node_names)
+              and [h for h in run_cluster.gateway_homes(os.path.join(root, "keys"))] == [homes["gw01"]],
+              "run_cluster does not see the 72 server homes and the gateway home")
+        sock = "unix:" + os.path.join(root, "sidecar.sock")
+        prev = flags.raw("BFTKV_DISPATCH_RECAL_S")
+        os.environ.update(BFTKV_DISPATCH_RECAL_S="0")
+        try:
+            srv, _thread = vs.serve(sock, max_batch=VERIFY_FLUSH, device=dev,
+                                    admission=AdmissionQueue(**DEPLOY_ADMISSION, metric="sidecar.shed"))
+        finally:
+            if prev is None:
+                os.environ.pop("BFTKV_DISPATCH_RECAL_S")
+            else:
+                os.environ.update(BFTKV_DISPATCH_RECAL_S=prev)
+        svc = srv.service
+        import glob
+
+        from bftkv_tpu_torch import native
+
+        built = lambda: {p: os.stat(p).st_mtime_ns for p in glob.glob(os.path.join(native.BUILD_DIR, "*.so"))}
+        libs = built()
+        check(len(libs) >= 2, f"the native libraries are not built before the fleet starts: {sorted(libs)}")
+        host_before = _host_used_bytes()
+        t0 = time.perf_counter()
+        fleet = run_cluster.spawn(
+            [homes[n] for n in node_names], os.path.join(root, "dbs"), storage="mem",
+            api_base=api_base, sidecar=sock, rpc_timeout=DEPLOY_RPC_TIMEOUT_S, extra_env=env,
+            device=str(dev), log_dir=logs)
+        api_ports = [api_base + i for i in range(n_nodes)]
+        # The gateway starts beside the fleet, as run_cluster starts it, so
+        # its ports are bound before the round's connections take local
+        # ports from the same range.
+        gw_api = api_base + n_nodes
+        gw_port = int(uni.gateway_addrs["gw01"].rsplit(":", 1)[1])
+        with open(os.path.join(logs, "gw01.log"), "wb") as glog:
+            gw_proc = subprocess.Popen(
+                [sys.executable, "-m", "bftkv_tpu_torch.cmd.run_gateway", "--home", homes["gw01"],
+                 "--sidecar", sock, "--device", str(dev), "--api", f"127.0.0.1:{gw_api}",
+                 "--rpc-timeout", str(DEPLOY_RPC_TIMEOUT_S)],
+                env=env, stdout=glog, stderr=subprocess.STDOUT)
+        _wait_ports(list(range(base, base + n_nodes)) + api_ports, fleet, DEPLOY_START_S, "the fleet")
+        spawn_s = time.perf_counter() - t0
+        _wait_ports([gw_port, gw_api], [gw_proc], DEPLOY_START_S, "the gateway")
+        gw_start_s = time.perf_counter() - t0
+        daemon_pids = [p.pid for p in fleet]
+        host_delta = _host_used_bytes() - host_before
+        check(built() == libs,
+              "a daemon rebuilt a native library")
+        # No daemon holds a context on the card: by its own account (the
+        # gauge on its /metrics) and by the NVIDIA driver's (nvidia-smi's compute
+        # apps: no daemon pid, and no more processes than this one).
+        inited = _cuda_initialized(api_ports)
+        check(inited == [0] * n_nodes, f"daemons report CUDA initialised: {inited}")
+        apps = _card_pids()
+        check(not set(apps) & set(daemon_pids) and len(apps) <= 1,
+              f"the card's compute apps at start: {apps} (daemons {daemon_pids[:4]}...)")
+        out["fleet"] = {"servers": N_REPLICAS, "storage": N_STORAGE, "processes": len(fleet),
+                        "storage_engine": "mem", "homes_s": homes_s, "spawn_s": spawn_s,
+                        "host_memory_bytes": host_delta, "host_memory_bytes_per_daemon": host_delta / len(fleet),
+                        "card_apps_at_start": apps, "cpus": os.cpu_count(),
+                        "admission": DEPLOY_ADMISSION, "first_port": base, "api_base": api_base}
+        print(f"deploy (a) fleet: {N_REPLICAS} servers + {N_STORAGE} storage daemons (python -m "
+              f"bftkv_tpu_torch.cmd.bftkv --device {dev} --sidecar unix:...) up in {spawn_s:.1f} s on "
+              f"{os.cpu_count()} cpus; host memory in use +{host_delta / 2**30:.2f} GiB "
+              f"({host_delta / len(fleet) / 2**20:.0f} MiB a daemon), homes {homes_s:.1f} s; the sidecar in this process on {dev}, admission {DEPLOY_ADMISSION}; every "
+              f"daemon's device.cuda_initialized 0, the card's compute apps {apps}; "
+              f"{nvidia_smi('name,power.limit')}", flush=True)
+
+        # (b) the counted round: 4 bftrw writers, then their readmany
+        vrng = random.Random(seed ^ 0xDE910)
+        user_homes = [homes[u.name] for u in uni.users]
+
+        def bftrw(i, *argv):
+            return [sys.executable, "-m", "bftkv_tpu_torch.cmd.bftrw", "--home", user_homes[i],
+                    "--device", str(dev), *argv]
+
+        def write_files(tag, n):
+            items = []
+            for w in range(len(user_homes)):
+                kv = [(f"deploy/{tag}/{w}/{i}", vrng.randbytes(512).hex()) for i in range(n)]
+                path = os.path.join(root, f"{tag}-{w}.txt")
+                with open(path, "w") as f:
+                    f.write("".join(f"{k}={v}\n" for k, v in kv))
+                items.append((path, kv))
+            return items
+
+        def writemany(tag, files):
+            wall, res = _together([bftrw(w, "writemany", "--file", path) for w, (path, _kv) in enumerate(files)],
+                                  [os.path.join(logs, f"{tag}-write-{w}") for w in range(len(files))], env)
+            for w, ((rc, _o, err), (_p, kv)) in enumerate(zip(res, files)):
+                check(rc == 0 and f"{len(kv)}/{len(kv)} written".encode() in err,
+                      f"writer {w} ({tag}): rc {rc}, {err[-400:]!r}")
+            return wall
+
+        def readmany(tag, files):
+            wall, res = _together([bftrw(w, "readmany", *(k for k, _v in kv)) for w, (_p, kv) in enumerate(files)],
+                                  [os.path.join(logs, f"{tag}-read-{w}") for w in range(len(files))], env)
+            for w, ((rc, o, err), (_p, kv)) in enumerate(zip(res, files)):
+                got = dict(line.split("=", 1) for line in o.decode().splitlines())
+                bad = [k for k, v in kv if got.get(k) != v]
+                check(rc == 0 and not bad, f"writer {w} ({tag}): rc {rc}, {len(bad)} acknowledged writes do "
+                      f"not read back, first {bad[:1]}; {err[-300:]!r}")
+            return wall
+
+        warm = write_files("warm", DEPLOY_WARM)
+        warm_s = writemany("warm", warm)
+        warm_read_s = readmany("warm", warm)
+        print(f"deploy (b) warm: {len(warm)} writers x writemany of {DEPLOY_WARM} in {warm_s:.1f} s, readmany "
+              f"{warm_read_s:.1f} s", flush=True)
+        per_item = max(warm_s - warm_read_s, 1e-3) / DEPLOY_WARM
+        n_batch = DEPLOY_BATCH
+        while n_batch > DEPLOY_WARM and warm_read_s + per_item * n_batch > DEPLOY_BUDGET_S:
+            n_batch //= 2
+        if n_batch != DEPLOY_BATCH:
+            out["cuts"].append(f"batch {DEPLOY_BATCH} -> {n_batch}: the warm writemany of {DEPLOY_WARM} "
+                               f"({warm_s:.1f} s, start-up and read {warm_read_s:.1f} s) projected "
+                               f"{warm_read_s + per_item * DEPLOY_BATCH:.0f} s against a "
+                               f"{DEPLOY_BUDGET_S:.0f} s budget")
+        files = write_files("round", n_batch)
+        cpu0 = (time.process_time(), _cpu_seconds(daemon_pids))
+        with Recorder(cuda_rns, ("verify_cuda", "pow_cuda")) as rec, Counted() as c_run, \
+                _CardSampler() as sampler:
+            write_s = writemany("round", files)
+            cpu1 = (time.process_time(), _cpu_seconds(daemon_pids))
+            load = os.getloadavg()
+            read_s = readmany("round", files)
+        snap, launches = c_run.snap, c_run.launches
+        k1_calls = [("round", a) for a in rec.calls["verify_cuda"]]
+        k2_calls = [("round", a) for a in rec.calls["pow_cuda"]]
+        dm = _daemon_metrics(api_ports)
+        falls = {k: sum(m.get(k, 0) for m in dm) for k in
+                 ("verify.remote_fallback", "sign.remote_fallback", "verify.remote_shed", "sign.remote_shed",
+                  "verify.remote_breaker_open", "crypto.sidecar.dishonest", "sign.remote_refused")}
+        sheds = {k: v for k, v in snap.items() if k.startswith("sidecar.shed")}
+        p50s = lambda name: sorted(m[f"{name}.p50"] for m in dm if f"{name}.p50" in m)
+        bs, bw = p50s("server.batch_sign.handler"), p50s("server.batch_write.handler")
+        n_writes = len(files) * n_batch
+        rows = lambda calls: sum(a[0].shape[0] for _p, a in calls)
+        mid = lambda xs: {"median": statistics.median(xs), "max": xs[-1], "daemons": len(xs)} if xs else None
+        out["round"] = {
+            "writers": len(files), "batch": n_batch, "value_bytes": 1024, "writes": n_writes,
+            "signed_writes_per_sec_64replica_deployed": n_writes / write_s,
+            "reads_per_sec": n_writes / read_s, "write_round_ms": write_s * 1e3, "read_round_ms": read_s * 1e3,
+            "warm_writemany_ms": warm_s * 1e3, "warm_readmany_ms": warm_read_s * 1e3,
+            # CPU seconds over the write round: the sidecar's process (this
+            # one) and the 72 daemons together, beside the round's wall
+            # time on os.cpu_count() cpus, and the load average after it.
+            "cpu_s_sidecar_process": cpu1[0] - cpu0[0], "cpu_s_daemons": cpu1[1] - cpu0[1],
+            "loadavg_1m_after_writes": load[0],
+            "k1_launches": launches["verify"], "k1_rows": rows(k1_calls),
+            "k2_launches": launches["pow"], "k2_rows": rows(k2_calls),
+            "sidecar_verify_items": snap.get("sidecar.items{op=verify}", 0),
+            "sidecar_sign_items": snap.get("sidecar.items{op=sign}", 0),
+            "sidecar_requests": {k: v for k, v in snap.items() if k.startswith("sidecar.ops")},
+            "sidecar_verify_flush_s": {k: snap.get(f"dispatch.flush.seconds.{k}") for k in ("count", "sum", "p50", "p99")},
+            "verify_device": snap.get("verify.device", 0), "verify_host": snap.get("verify.host", 0),
+            "sign_device": snap.get("sign.device", 0), "sign_host": snap.get("sign.host", 0),
+            "server.batch_sign.handler_p50_s": mid(bs), "server.batch_write.handler_p50_s": mid(bw),
+            "daemon_remote": {k: sum(m.get(k, 0) for m in dm) for k in ("verify.remote", "sign.remote")},
+            "fallbacks_and_sheds": {**falls, "sidecar.shed": svc.admission.shed},
+            "card_apps_most": sampler.most, "card_samples": sampler.samples,
+        }
+        ro = out["round"]
+        per = lambda n, d: n / d if d else 0.0
+        ms = lambda xs: f"{statistics.median(xs) * 1e3:.1f} ms" if xs else "n/a"
+        print(f"deploy (b) round: {len(files)} bftrw writers x writemany of {n_batch} items of 1 KiB through the "
+              f"{len(fleet)} daemons: signed writes/s {ro['signed_writes_per_sec_64replica_deployed']:.2f} (round "
+              f"{write_s:.1f} s, process start included), reads/s {ro['reads_per_sec']:.2f} (readmany "
+              f"{read_s:.1f} s); every acknowledged write read back; CPU over the write round: the sidecar's "
+              f"process {ro['cpu_s_sidecar_process']:.1f} s, the daemons {ro['cpu_s_daemons']:.1f} s, on "
+              f"{os.cpu_count()} cpus (load {load[0]:.1f})", flush=True)
+        print(f"deploy (b) sidecar: K1 {ro['k1_launches']} launches ({per(ro['k1_rows'], ro['k1_launches']):.1f} "
+              f"rows a launch), K2 {ro['k2_launches']} ({per(ro['k2_rows'], ro['k2_launches']):.1f} rows a launch); "
+              f"verify items {ro['sidecar_verify_items']}, sign items {ro['sidecar_sign_items']}, verify flushes "
+              f"{ro['sidecar_verify_flush_s']}; verify.device {ro['verify_device']} host {ro['verify_host']}, "
+              f"sign.device {ro['sign_device']} host {ro['sign_host']}; daemons' handler p50 (median over "
+              f"daemons) batch_sign {ms(bs)}, batch_write {ms(bw)}; fallbacks and sheds "
+              f"{ro['fallbacks_and_sheds']}; the card's compute apps {sorted(sampler.pids)}, at most "
+              f"{sampler.most} at once over {sampler.samples} samples", flush=True)
+        check(launches["verify"] >= 1 and launches["pow"] >= 1, f"the sidecar launched {launches} in the round")
+        check(len(k1_calls) == launches["verify"] and len(k2_calls) == launches["pow"],
+              f"recorded launches {len(k1_calls)}, {len(k2_calls)} differ from the counts {launches}")
+        inited = [m.get("device.cuda_initialized") for m in dm]
+        check(inited == [0] * n_nodes, f"daemons report CUDA initialised after the round: {inited}")
+        check(not sampler.pids & set(daemon_pids) and sampler.most <= 1 + len(files),
+              f"the card's compute apps during the round: {sorted(sampler.pids)}, at most {sampler.most} "
+              f"at once (this process and {len(files)} writers)")
+        check(not any(falls.values()), f"the daemons fell back to local crypto: {falls}")
+        check(svc.admission.shed == 0 and not any(sheds.values()),
+              f"the sidecar shed {svc.admission.shed} ({sheds})")
+        check(bs and bw, "no daemon timed a BATCH_SIGN or BATCH_WRITE handler")
+
+        # (c) the gateway, through the sidecar
+        g, cr, q = topology.load_home(user_homes[0], device=dev)
+        gwc = GatewayClient(Client(g, q, TrHTTP(cr), cr, device=dev),
+                            [GatewayPeer(cr.keyring.get(uni.gateways[0].id), uni.gateway_addrs["gw01"])])
+        want = files[0][1][:DEPLOY_GW_READS]
+        passes = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            got = [gwc.read(k.encode()) for k, _v in want]
+            passes.append(time.perf_counter() - t0)
+            check(got == [v.encode() for _k, v in want], "a gateway read differs from what was written")
+        with urllib.request.urlopen(f"http://127.0.0.1:{gw_api}/info", timeout=60) as res:
+            gst = json.loads(res.read())["gateway"]
+        check(gst["misses"] >= DEPLOY_GW_READS and gst["hits"] >= DEPLOY_GW_READS and gst["verify_fail"] == 0,
+              f"the second pass did not hit the gateway's certified cache: {gst}")
+        check(_cuda_initialized([gw_api]) == [0] and gw_proc.pid not in _card_pids(),
+              "the gateway holds a context on the card")
+        out["gateway"] = {"reads": DEPLOY_GW_READS, "passes_ms": [t * 1e3 for t in passes],
+                          "start_s": gw_start_s, "hits": gst["hits"], "misses": gst["misses"]}
+        print(f"deploy (c) gateway: run_gateway --sidecar on {dev} up {gw_start_s:.1f} s after the fleet's start; "
+              f"{DEPLOY_GW_READS} keys "
+              f"read twice through a GatewayClient, {passes[0] * 1e3:.1f} ms (certified fills) then "
+              f"{passes[1] * 1e3:.1f} ms (cache: hits {gst['hits']}, misses {gst['misses']}); every value "
+              f"equal to the write", flush=True)
+
+        # (d) the workload driver: 2 worker processes over HTTP
+        spec = WorkloadSpec.preset("write_heavy", rate=DEPLOY_WL_RATE, duration_s=DEPLOY_WL_DURATION_S,
+                                   seed=seed % 100000)
+        cl = types.SimpleNamespace(universe=uni)
+        wl_dir = os.path.join(root, "workload")
+        os.makedirs(wl_dir)
+        probe = run_multiprocess(spec, cl, wl_dir, procs=DEPLOY_WL_PROCS, device=str(dev),
+                                 max_ops_per_worker=DEPLOY_WL_PROBE_OPS, timeout_s=300.0)
+        check(probe["errors"] == 0, f"the workload probe: {probe['error_samples']}")
+        per_op = probe["elapsed_s"] / DEPLOY_WL_PROBE_OPS
+        full = -(-spec.total_ops() // DEPLOY_WL_PROCS)
+        cap = None
+        if per_op * full > DEPLOY_WL_BUDGET_S:
+            cap = max(DEPLOY_WL_PROBE_OPS, int(DEPLOY_WL_BUDGET_S / per_op))
+            out["cuts"].append(f"workload ops a worker {full} -> {cap}: the probe's {per_op * 1e3:.0f} ms an op "
+                               f"projected {per_op * full:.0f} s against a {DEPLOY_WL_BUDGET_S:.0f} s budget")
+        rep = run_multiprocess(spec, cl, wl_dir, procs=DEPLOY_WL_PROCS, device=str(dev),
+                               max_ops_per_worker=cap, timeout_s=600.0)
+        check(rep["errors"] == 0 and rep["worker_reports"] == DEPLOY_WL_PROCS,
+              f"the workload run: {rep['errors']} errors, {rep['worker_reports']} reports, {rep['error_samples']}")
+        out["workload"] = {k: rep[k] for k in ("spec", "preset", "workers", "offered_rate_per_sec", "offered_ops",
+                                                "achieved_rate_per_sec", "elapsed_s", "p50_offered_s",
+                                                "p99_offered_s", "mean_offered_s", "ops", "errors", "backlog")}
+        out["workload"].update(scheduled_ops=spec.total_ops(), probe_ms_per_op=per_op * 1e3, ops_cap_per_worker=cap)
+        print(f"deploy (d) workload: write_heavy, {DEPLOY_WL_PROCS} worker processes on {dev}, offered "
+              f"{rep['offered_rate_per_sec']:.1f} ops/s for {DEPLOY_WL_DURATION_S:g} s ({spec.total_ops()} ops "
+              f"scheduled, {rep['offered_ops']} run), achieved {rep['achieved_rate_per_sec']} ops/s, p50 "
+              f"{rep['p50_offered_s']} s, p99 {rep['p99_offered_s']} s from the scheduled start, backlog "
+              f"{rep['backlog']}, ops {rep['ops']}, errors 0", flush=True)
+    finally:
+        # (e) teardown: the gateway, the fleet, the sidecar
+        if gw_proc is not None:
+            run_cluster.shutdown([gw_proc], timeout=30.0)
+        t0 = time.perf_counter()
+        # A daemon still running 5 s before the deadline dumps its threads'
+        # stacks into its log (SIGUSR1) before shutdown kills it.
+        dump = threading.Timer(DEPLOY_STOP_S - 5.0, lambda: [p.send_signal(signal.SIGUSR1)
+                                                             for p in fleet if p.poll() is None])
+        dump.start()
+        run_cluster.shutdown(fleet, timeout=DEPLOY_STOP_S)
+        dump.cancel()
+        stop_s = time.perf_counter() - t0
+        if srv is not None:
+            srv.service.stop()
+            srv.shutdown()
+            srv.server_close()
+    rcs = [p.returncode for p in fleet]
+    if not rcs or any(rc != 0 for rc in rcs):
+        stuck = [(n, rc) for n, rc in zip(node_names, rcs) if rc != 0]
+        tails = {n: open(os.path.join(logs, n + ".log"), "rb").read()[-3000:] for n, _rc in stuck[:2]}
+        fail(f"{len(stuck)} daemon(s) did not exit 0 within {DEPLOY_STOP_S:.0f} s of SIGTERM: {stuck[:8]}; "
+             f"log tails {tails}")
+    check(gw_proc.returncode == 0, f"the gateway exited {gw_proc.returncode}")
+    stopped = sum(1 for n in node_names
+                  if open(os.path.join(logs, n + ".log"), "rb").read().rstrip().endswith(b"bftkv: stopped"))
+    check(stopped == len(fleet), f"{len(fleet) - stopped} daemon(s) did not log a clean stop")
+    revs = [n for n in node_names if os.path.exists(os.path.join(root, "dbs", n + ".rev"))]
+    out["teardown"] = {"stop_s": stop_s, "exit_codes": sorted(set(rcs)), "revocation_lists": len(revs)}
+    print(f"deploy (e) teardown: {len(fleet)} daemons and the gateway exited 0 in {stop_s:.1f} s, each logging a "
+          f"clean stop; revocation lists written: {len(revs)} (nothing was revoked)", flush=True)
+    hold_rns_calls(k1_calls, k2_calls, "deploy round")
+    torch.cuda.synchronize()
+    out["held_against_plain"] = {"K1": len(k1_calls), "K2": len(k2_calls)}
+    out["records"] = rns_main_shape_records(k1_calls, k2_calls, "deploy round")
+    shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"deploy: every sidecar launch of the round equal to its plain version ({out['held_against_plain']}); "
+          f"cuts {out['cuts'] or 'none'}; phase {out['phase_s']:.1f} s on {nvidia_smi('name,power.limit')}",
+          flush=True)
+    return out
+
+
 def cuda_ms(fn, reps: int) -> float:
     fn()
     torch.cuda.synchronize()
@@ -3218,6 +3732,10 @@ def main() -> int:
     # servers, clients and transport
     protocol = protocol_phase(dev, qctx["universe"], replicas, writers, storage_keys, args.seed)
 
+    # 15. deploy phase: the same round through the process surfaces, one
+    # daemon process per replica, the card behind one sidecar
+    deploy = deploy_phase(dev, replicas, writers, storage_keys, args.seed)
+
     v_med, s_med = statistics.median(v_times), statistics.median(s_times)
     p_med, l_med = statistics.median(p_times), statistics.median(l_times)
     print(f"verify flush (rns): median {v_med * 1e3:.3f} ms of {TIMED_REPS} "
@@ -3243,7 +3761,7 @@ def main() -> int:
           f"({SIGN_SHARES // SIDECAR_TENANTS} shares) beside the in-process rns sign flush "
           f"{s_med * 1e3:.3f} ms", flush=True)
 
-    # 15. each kernel against its plain version, on the main paths' operands
+    # 16. each kernel against its plain version, on the main paths' operands
     v_args = [a for a in rec_v.calls["verify_cuda"] if a[0].shape[0] == VERIFY_FLUSH]
     check(len(v_args) == 1, f"expected one {VERIFY_FLUSH}-row verify launch")
     p_args = rec_s.calls["pow_cuda"]
@@ -3314,6 +3832,7 @@ def main() -> int:
     kernels += quorum.pop("records")
     kernels += crypto.pop("records")
     kernels += protocol.pop("records")
+    kernels += deploy.pop("records")
     print(f"K1 before its redesign, not measured in this run ({K1_EARLIER_OF}): "
           + ", ".join(f"T={t} {ms} ms" for t, ms in K1_EARLIER_MS.items())
           + "; this run: " + ", ".join(f"T={r['rows']} {r['ms']:.4f} ms" for r in kernels[0:3]),
@@ -3351,9 +3870,10 @@ def main() -> int:
         "quorum": quorum,
         "crypto": crypto,
         "protocol": protocol,
+        "deploy": deploy,
     }), flush=True)
 
-    # 16. the card, as nvidia-smi reports it
+    # 17. the card, as nvidia-smi reports it
     print(nvidia_smi("name,power.limit") or "nvidia-smi: no output", flush=True)
     print(json.dumps({
         "ok": True,

@@ -859,3 +859,126 @@ def test_port_cluster_on_card_writes_and_reads_through_the_dispatchers(dev):
     finally:
         dispatch.uninstall_all()
         c.stop()
+
+
+# -- the operator surfaces on the card ---------------------------------------
+
+
+def _card_fleet(tmp_path, key_base: int, extra_env=None, **spawn_kw):
+    """A 4 + 4 fleet of daemon processes (``run_cluster.spawn``) on
+    localhost HTTP from seeded 2048-bit homes, every daemon on ``cuda:0``;
+    returns (homes dir, processes, API ports)."""
+    import os
+    import socket
+    import sys
+    import time
+
+    from bftkv_tpu_torch.cmd import genkeys, run_cluster
+    from test_torch_utils import build_universe, free_port_block
+
+    uni = build_universe(4, 1, 4, bits=2048, transport="http", key_base=key_base)
+    keys = str(tmp_path / "keys")
+    genkeys.write_homes(uni, keys)
+    api = free_port_block(8)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {"PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", ""), **(extra_env or {})}
+    procs = run_cluster.spawn(run_cluster.server_homes(keys), str(tmp_path / "dbs"), storage="mem",
+                              api_base=api, extra_env=env, device="cuda:0",
+                              log_dir=str(tmp_path / "logs"), **spawn_kw)
+    ports = [int(i.cert.address.rsplit(":", 1)[1]) for i in uni.servers + uni.storage_nodes]
+    deadline = time.monotonic() + 240
+    for port in ports + [api + i for i in range(8)]:
+        while True:
+            with socket.socket() as s:
+                s.settimeout(0.5)
+                if s.connect_ex(("127.0.0.1", port)) == 0:
+                    break
+            assert all(p.poll() is None for p in procs), "a daemon exited at start"
+            assert time.monotonic() < deadline, f"port {port} never came up"
+            time.sleep(0.25)
+    return keys, procs, [api + i for i in range(8)], dict(os.environ, **env), sys.executable
+
+
+def _bftrw_write_read(keys, env, python):
+    import os
+    import subprocess
+
+    home = os.path.join(keys, "u01")
+    lines = "".join(f"card/{i}=value-{i}\n" for i in range(64)).encode()
+    base = [python, "-m", "bftkv_tpu_torch.cmd.bftrw", "--home", home, "--device", "cuda:0"]
+    w = subprocess.run(base + ["writemany"], input=lines, env=env, capture_output=True, timeout=300)
+    assert w.returncode == 0 and b"64/64 written" in w.stderr, w.stderr[-2000:]
+    r = subprocess.run(base + ["readmany"] + [f"card/{i}" for i in range(64)], env=env,
+                       capture_output=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.decode().splitlines() == [f"card/{i}=value-{i}" for i in range(64)]
+
+
+def _card_pids() -> set:
+    import subprocess
+
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout
+    return {int(x) for x in out.split() if x.strip().isdigit()}
+
+
+def _metrics(ports) -> list:
+    import json
+    import urllib.request
+
+    out = []
+    for port in ports:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics?format=json", timeout=60) as res:
+            out.append(json.loads(res.read()))
+    return out
+
+
+def test_dispatch_fleet_claims_the_card_and_reads_back_what_bftrw_wrote(dev, tmp_path):
+    """A 4 + 4 fleet whose daemons run ``--dispatch`` on ``cuda:0``: every
+    daemon claims the card (CUDA initialised, by its ``/metrics``), their
+    batches run on the card (``verify.device`` and ``sign.device``, host
+    thresholds 0), and ``bftrw`` (``--device cuda:0``) reads back its
+    ``writemany``."""
+    from bftkv_tpu_torch.cmd import run_cluster
+
+    keys, procs, apis, env, python = _card_fleet(
+        tmp_path, 7200, {"BFTKV_HOST_VERIFY_THRESHOLD": "0", "BFTKV_HOST_SIGN_THRESHOLD": "0"},
+        dispatch=True)
+    try:
+        _bftrw_write_read(keys, env, python)
+        ms = _metrics(apis)
+        assert [m["device.cuda_initialized"] for m in ms] == [1] * 8
+        assert sum(m.get("verify.device", 0) for m in ms) > 0
+        assert sum(m.get("sign.device", 0) for m in ms) > 0
+    finally:
+        run_cluster.shutdown(procs)
+    assert [p.returncode for p in procs] == [0] * 8
+
+
+def test_sidecar_fleet_daemons_hold_no_card_context(dev, tmp_path):
+    """``run_cluster`` with ``--sidecar auto`` on ``cuda:0``: the spawned
+    sidecar owns the card, the 8 daemons (``--device cuda:0``) create no
+    CUDA context, none falls back to local crypto, and ``bftrw`` reads back
+    its ``writemany`` through them; every daemon exits 0."""
+    from bftkv_tpu_torch.cmd import run_cluster
+
+    # The sidecar's admission sized for its 8 tenants (its defaults serve 4
+    # batches at once and shed after 0.5 s in the queue).
+    admission = {"BFTKV_SIDECAR_MAX_INFLIGHT": "64", "BFTKV_SIDECAR_MAX_QUEUE": "256",
+                 "BFTKV_SIDECAR_MAX_WAIT": "30"}
+    keys, procs, apis, env, python = _card_fleet(tmp_path, 7300, admission, sidecar="auto")
+    try:
+        _bftrw_write_read(keys, env, python)
+        daemons = {p.pid for p in procs if "bftkv_tpu_torch.cmd.bftkv" in p.args}
+        sidecar = {p.pid for p in procs} - daemons
+        assert len(daemons) == 8 and len(sidecar) == 1
+        # By each daemon's own account, and by the NVIDIA driver's where it shows
+        # this namespace's pids.
+        ms = _metrics(apis)
+        assert [m["device.cuda_initialized"] for m in ms] == [0] * 8
+        assert not daemons & set(_card_pids())
+        assert sum(m.get("sign.remote", 0) for m in ms) > 0 and sum(m.get("verify.remote", 0) for m in ms) > 0
+        assert sum(m.get("verify.remote_fallback", 0) + m.get("sign.remote_fallback", 0) for m in ms) == 0
+    finally:
+        run_cluster.shutdown(procs)
+    assert all(p.returncode == 0 for p in procs if "bftkv_tpu_torch.cmd.bftkv" in p.args)

@@ -82,6 +82,14 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import bftkv_tpu_torch.protocol.server, bftkv_tpu_torch.protocol.client\n"
         "import bftkv_tpu_torch.sync, bftkv_tpu_torch.sync.digest, bftkv_tpu_torch.sync.daemon\n"
         "import bftkv_tpu_torch.api\n"
+        "import bftkv_tpu_torch.obs, bftkv_tpu_torch.obs.source, bftkv_tpu_torch.obs.profiler\n"
+        "import bftkv_tpu_torch.transport.visual, bftkv_tpu_torch.faults\n"
+        "import bftkv_tpu_torch.cmd.genkeys, bftkv_tpu_torch.cmd.bftkv, bftkv_tpu_torch.cmd.run_cluster\n"
+        "import bftkv_tpu_torch.cmd.bftrw, bftkv_tpu_torch.cmd.run_gateway\n"
+        "import bftkv_tpu_torch.workload, bftkv_tpu_torch.workload.spec\n"
+        "import bftkv_tpu_torch.workload.universe, bftkv_tpu_torch.workload.driver\n"
+        "import bftkv_tpu_torch.gateway, bftkv_tpu_torch.gateway.cache, bftkv_tpu_torch.gateway.coalesce\n"
+        "import bftkv_tpu_torch.gateway.client, bftkv_tpu_torch.gateway.gateway\n"
         "from bftkv_tpu_torch.ops import _build\n"
         "new = set(sys.modules) - before\n"
         "tops = {m.split('.')[0] for m in new}\n"
@@ -207,6 +215,50 @@ def _entry_points():
         home = tempfile.mkdtemp()
         topology.save_home(home, ident, [ident.cert])
         return api.open_client(home, lambda crypt: None, join=False)
+
+    def home():
+        import tempfile
+
+        path = tempfile.mkdtemp()
+        topology.save_home(path, ident, [ident.cert])
+        return path
+
+    def gateway():
+        from bftkv_tpu_torch.gateway import Gateway
+        from bftkv_tpu_torch.transport.loopback import LoopbackNet, TrLoopback
+
+        graph, crypt, qs = topology.make_node(ident, [ident.cert], device="cpu")
+        return Gateway(graph, qs, TrLoopback(crypt, LoopbackNet()), crypt)
+
+    def workload_worker():
+        import tempfile
+
+        from bftkv_tpu_torch.workload import driver
+
+        out = os.path.join(tempfile.mkdtemp(), "w.json")
+        return driver._worker_main(["--home", home(), "--spec", "write_heavy", "--worker", "0",
+                                    "--workers", "1", "--out", out])
+
+    def run_multiprocess():
+        import tempfile
+
+        from bftkv_tpu_torch.workload import WorkloadSpec, driver
+
+        class _Cluster:
+            universe = None
+
+        return driver.run_multiprocess(WorkloadSpec(), _Cluster(), tempfile.mkdtemp(), procs=1)
+
+    def spawn():
+        import tempfile
+
+        from bftkv_tpu_torch.cmd import run_cluster
+
+        return run_cluster.spawn([home()], os.path.join(tempfile.mkdtemp(), "dbs"))
+
+    from bftkv_tpu_torch.cmd import bftkv as bftkv_cmd
+    from bftkv_tpu_torch.cmd import bftrw as bftrw_cmd
+    from bftkv_tpu_torch.cmd import run_gateway as run_gateway_cmd
     return {
         "ec_scalar_mult_hosts": lambda: ec.scalar_mult_hosts([g], [3], device="cuda"),
         "ec_rns_scalar_mult_hosts": lambda: ec_rns.scalar_mult_hosts([g], [3], device="cuda"),
@@ -264,22 +316,30 @@ def _entry_points():
         "Server": lambda: node(Server, MemStorage()),
         "Client": lambda: node(Client),
         "open_client": open_client,
+        "cmd_bftkv": lambda: bftkv_cmd.main(["--home", home(), "--storage", "mem"]),
+        "cmd_bftrw": lambda: bftrw_cmd.main(["--home", home(), "--no-join", "read", "x"]),
+        "cmd_run_gateway": lambda: run_gateway_cmd.main(["--home", home()]),
+        "workload_worker": workload_worker,
+        "run_multiprocess": run_multiprocess,
+        "run_cluster_spawn": spawn,
+        "Gateway": gateway,
     }
 
 
 ENTRY_POINTS = [
     "AuthClient", "AuthServer", "BatchModExp", "BatchModExp_shared", "Client",
-    "CollectiveSignature", "ModexpDispatcher", "RSAThreshold", "Server", "SidecarService",
+    "CollectiveSignature", "Gateway", "ModexpDispatcher", "RSAThreshold", "Server", "SidecarService",
     "SignDispatcher", "SignerDomain",
     "SignerDomain_limb", "ThresholdInstance", "VerifierDomain", "VerifierDomain_limb",
-    "VerifierDomain_pallas", "VerifyDispatcher", "calibration", "consts_from_numpy",
+    "VerifierDomain_pallas", "VerifyDispatcher", "calibration", "cmd_bftkv", "cmd_bftrw",
+    "cmd_run_gateway", "consts_from_numpy",
     "dryrun_multichip", "ec_rns_engine", "ec_rns_scalar_mult_hosts", "ec_scalar_mult_hosts",
     "ecdsa_sign_batch", "ecdsa_verify_batch", "entry", "flat_verify",
     "generate_partial_auth_params", "key_rows_from_numpy", "limbs_from_numpy", "load_home",
-    "make_node", "new_crypto", "open_client", "power_batch", "power_mod_rns", "serve",
-    "shard_over", "tally_counts",
+    "make_node", "new_crypto", "open_client", "power_batch", "power_mod_rns",
+    "run_cluster_spawn", "run_multiprocess", "serve", "shard_over", "tally_counts",
     "threshold_dsa_new", "threshold_ecdsa_new", "verify_batch_e65537",
-    "verify_e65537_rns_indexed",
+    "verify_e65537_rns_indexed", "workload_worker",
 ]
 
 
@@ -359,6 +419,10 @@ def test_flag_seam():
         "BFTKV_PRESESSION", "BFTKV_REGION_RANK", "BFTKV_REPAIR", "BFTKV_REPAIR_AFTER",
         "BFTKV_RPC_BACKOFF", "BFTKV_RPC_RETRIES", "BFTKV_RPC_TIMEOUT", "BFTKV_SIGN_FANOUT",
         "BFTKV_WRITE_CHUNK", "BFTKV_WRITE_PIPELINE",
+        # The process surfaces.
+        "BFTKV_PROFILE", "BFTKV_PROFILE_HZ", "BFTKV_GIL_SAMPLER", "BFTKV_REGION_LEASE_S",
+        "BFTKV_WORKLOAD_SEED", "BFTKV_WORKLOAD_RATE", "BFTKV_WORKLOAD_DURATION",
+        "BFTKV_WORKLOAD_PROCS", "BFTKV_SIDECAR_TIMEOUT",
     }
     # Every declared flag is read somewhere in the port, and no BFTKV_*
     # name is read from the environment outside flags.py.

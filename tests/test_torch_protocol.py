@@ -1131,9 +1131,7 @@ def test_threshold_x509_issuance(auth_cluster):
         rsa as crsa,
     )
 
-    # The command layer is not ported yet: the reference's helper drives
-    # the port's client through the same one-method API.
-    from bftkv_tpu.cmd.bftrw import threshold_sign_x509
+    from bftkv_tpu_torch.cmd.bftrw import threshold_sign_x509
 
     cli = auth_cluster.clients[0]
     ca_key = seeded_key(2048, 902)

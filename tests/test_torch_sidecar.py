@@ -21,6 +21,7 @@ import os
 import random
 import shutil
 import socket
+import socketserver
 import stat
 import struct
 import tempfile
@@ -672,3 +673,36 @@ def test_sidecar_death_mid_traffic_zero_failed_writes(sock_dir, monkeypatch):
         ref_dispatch.uninstall_all()
         c.stop()
         _stop(srv)
+
+
+def test_a_fleet_of_tenants_connects_at_once(sock_dir):
+    """72 daemons open their channels together on their first batch.  A
+    connect with a timeout to a Unix socket whose listen backlog is full
+    fails at once (EAGAIN; TCP would retry), so the tenant trips its
+    breaker and falls back to local crypto.  The port's sidecar listens
+    with the system's largest backlog: 72 connects queue while it accepts
+    none.  The reference's listens with socketserver's 5 and refuses the
+    seventh."""
+    from bftkv_tpu.cmd import verify_sidecar as ref_vs_mod
+
+    def connects(server_cls, path, n):
+        srv = server_cls(path, socketserver.BaseRequestHandler)  # bound, not accepting
+        socks, refused = [], 0
+        try:
+            for _ in range(n):
+                s = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+                s.settimeout(30)
+                try:
+                    s.connect(path)
+                    socks.append(s)
+                except OSError:
+                    refused += 1
+                    s.close()
+        finally:
+            for s in socks:
+                s.close()
+            srv.server_close()
+        return refused
+
+    assert connects(vs._UnixServer, f"{sock_dir}/port-backlog.sock", 72) == 0
+    assert connects(ref_vs_mod._UnixServer, f"{sock_dir}/ref-backlog.sock", 72) > 0

@@ -89,19 +89,36 @@ def free_port_block(n: int, *, lo: int = 20000, hi: int = 32000, tries: int = 20
 
 @dataclass
 class Cluster:
-    """The port's counterpart of ``cluster_utils.Cluster`` (no gateways)."""
+    """The port's counterpart of ``cluster_utils.Cluster``."""
 
     universe: object
     net: object
     servers: list = field(default_factory=list)  # quorum (a*)
     storage_servers: list = field(default_factory=list)  # rw*
     clients: list = field(default_factory=list)
+    gateways: list = field(default_factory=list)  # bftkv_tpu_torch.gateway
+    gateway_addrs: dict = field(default_factory=dict)
 
     @property
     def all_servers(self) -> list:
         return self.servers + self.storage_servers
 
+    def gateway_client(self, i: int = 0, *, verify: bool = True):
+        """A front-door client riding user ``i``'s identity against every
+        gateway of the cluster (``cluster_utils.Cluster.gateway_client``)."""
+        from bftkv_tpu_torch.gateway import GatewayClient, GatewayPeer
+
+        client = self.clients[i]
+        peers = [
+            GatewayPeer(client.crypt.keyring.get(gw.self_node.get_self_id()),
+                        self.gateway_addrs[gw.self_node.name])
+            for gw in self.gateways
+        ]
+        return GatewayClient(client, peers, verify=verify)
+
     def stop(self) -> None:
+        for gw in self.gateways:
+            gw.stop()
         for s in self.all_servers:
             s.tr.stop()
         if self.universe.regions:
@@ -150,21 +167,25 @@ def build_universe(
     n_shards: int = 1,
     n_regions: int = 0,
     key_base: int = 0,
+    n_gateways: int = 0,
 ):
     """A seeded universe of the port's topology: ``transport="http"``
-    addresses every server at a free localhost port block."""
+    addresses every server (and gateway) at a free localhost port block."""
     from bftkv_tpu_torch import topology
 
-    n_keys = (n_servers + n_rw) * n_shards + n_users
+    n_keys = (n_servers + n_rw) * n_shards + n_users + n_gateways
     kw = dict(
         bits=bits, unsigned_users=unsigned_users, n_shards=n_shards,
         n_regions=n_regions, keys=seeded_keys(n_keys, bits, key_base),
+        n_gateways=n_gateways,
     )
     if transport == "http":
-        base = free_port_block(n_servers * n_shards + n_rw * n_shards)
+        n_nodes = n_servers * n_shards + n_rw * n_shards
+        base = free_port_block(n_nodes + n_gateways)
         return topology.build_universe(
             n_servers, n_users, n_rw, scheme="http", base_port=base,
-            rw_base_port=base + n_servers * n_shards, **kw,
+            rw_base_port=base + n_servers * n_shards,
+            gw_base_port=base + n_nodes, **kw,
         )
     if transport != "loop":
         raise ValueError(f"transport must be 'loop' or 'http', got {transport!r}")
@@ -187,6 +208,7 @@ def start_cluster(
     n_regions: int = 0,
     device=DEVICE,
     key_base: int = 0,
+    n_gateways: int = 0,
 ) -> Cluster:
     """The port's ``cluster_utils.start_cluster``: ``n_servers`` quorum
     servers and ``n_rw`` storage nodes (per shard) and ``n_users``
@@ -206,7 +228,7 @@ def start_cluster(
     uni = build_universe(
         n_servers, n_users, n_rw, bits=bits, transport=transport,
         unsigned_users=unsigned_users, n_shards=n_shards, n_regions=n_regions,
-        key_base=key_base,
+        key_base=key_base, n_gateways=n_gateways,
     )
     if transport == "http":
         http_cls = transport_cls or TrHTTP
@@ -231,6 +253,15 @@ def start_cluster(
         tr = make_tr(crypt)
         tr.link_id = ident.name
         cluster.clients.append(client_cls(graph, qs, tr, crypt, device=device))
+    for ident in uni.gateways:
+        from bftkv_tpu_torch.gateway import Gateway
+
+        graph, crypt, qs = topology.make_node(ident, uni.view_of(ident), device=device)
+        gw = Gateway(graph, qs, make_tr(crypt), crypt, device=device)
+        dial = uni.gateway_addrs[ident.name]
+        gw.start(dial.split("://", 1)[-1])
+        cluster.gateways.append(gw)
+        cluster.gateway_addrs[ident.name] = dial
     return cluster
 
 
