@@ -515,8 +515,7 @@ def main(argv: list[str] | None = None) -> int:
         # dispatchers re-apply the measured crossover server-side).
         # The per-process window stays short — the cross-process
         # coalescing happens in the sidecar.
-        chan = SidecarChannel(args.sidecar, secret=secret,
-                              timeout=flags.get_float("BFTKV_SIDECAR_TIMEOUT"))
+        chan = SidecarChannel(args.sidecar, secret=secret)
         dispatch.install(
             dispatch.VerifyDispatcher(
                 verifier=RemoteVerifierDomain(channel=chan),
@@ -552,8 +551,7 @@ def main(argv: list[str] | None = None) -> int:
         dispatch.install(
             dispatch.VerifyDispatcher(
                 verifier=RemoteVerifierDomain(
-                    args.verify_sidecar, secret=secret,
-                    timeout=flags.get_float("BFTKV_SIDECAR_TIMEOUT"),
+                    args.verify_sidecar, secret=secret
                 ),
                 calibrate=False,
             )

@@ -91,7 +91,6 @@ def spawn(
     extra_env: dict | None = None,
     device=devmod.DEFAULT,
     log_dir: str = "",
-    dispatch: bool = False,
 ) -> list[subprocess.Popen]:
     """``verify_sidecar``: "auto" spawns one shared sidecar process and
     routes every daemon's verification through it (public data only —
@@ -107,9 +106,7 @@ def spawn(
     ``device`` (default ``cuda:0``, which raises here without CUDA, before
     any process starts) is passed to every process as ``--device``.
     ``log_dir`` sends each process's stdout and stderr to
-    ``<log_dir>/<name>.log`` (default: this process's own).  ``dispatch``
-    passes ``--dispatch``: every daemon installs its own dispatchers on
-    ``device`` (a card a daemon, or all of them on one)."""
+    ``<log_dir>/<name>.log`` (default: this process's own)."""
     device = str(devmod.resolve(device))
     if fleet or recorder or autopilot:
         raise ValueError(FLEET_NOT_PORTED)
@@ -188,8 +185,6 @@ def spawn(
             cmd += ["--sidecar", sidecar]
         elif verify_sidecar:
             cmd += ["--verify-sidecar", verify_sidecar]
-        if dispatch:
-            cmd += ["--dispatch"]
         if anti_entropy > 0:
             cmd += ["--anti-entropy", str(anti_entropy)]
         if slow_trace is not None:
@@ -294,9 +289,6 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--device", default=devmod.DEFAULT,
                     help="device of every daemon, gateway and spawned "
                          "sidecar: cuda:N (default cuda:0) or cpu")
-    ap.add_argument("--dispatch", action="store_true",
-                    help="every daemon installs its own dispatchers on "
-                         "--device (see bftkv --dispatch)")
     ap.add_argument("--shards", type=int, default=0, metavar="N",
                     help="one-box sharded quickstart: when --keys holds "
                          "no server homes yet, generate an N-clique "
@@ -352,7 +344,7 @@ def main(argv: list[str] | None = None) -> int:
                   slow_trace=args.slow_trace,
                   rpc_timeout=args.rpc_timeout,
                   chaos_seed=args.chaos_seed, gw_homes=gw_homes,
-                  device=args.device, dispatch=args.dispatch)
+                  device=args.device)
     # The sidecar (if spawned, always first) is an optional optimizer
     # whose clients fall back to local verification: its death must not
     # tear down the replica fleet, and it is not a "server".

@@ -34,7 +34,6 @@ import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from bftkv_tpu_torch import device as devmod
-from bftkv_tpu_torch import flags
 from bftkv_tpu_torch.errors import Error
 from bftkv_tpu_torch.metrics import registry as metrics
 
@@ -206,8 +205,7 @@ def main(argv: list[str] | None = None) -> int:
             from bftkv_tpu_torch.cmd.verify_sidecar import load_secret
 
             secret = load_secret(args.sidecar_secret)
-        chan = SidecarChannel(args.sidecar, secret=secret,
-                              timeout=flags.get_float("BFTKV_SIDECAR_TIMEOUT"))
+        chan = SidecarChannel(args.sidecar, secret=secret)
         # calibrate=False: calibration would probe the card, which the
         # sidecar owns (see bftkv --sidecar).
         dispatch.install(

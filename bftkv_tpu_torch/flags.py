@@ -104,11 +104,6 @@ _flag("BFTKV_SIDECAR_MAX_QUEUE", "64", "int",
 _flag("BFTKV_SIDECAR_MAX_WAIT", "0.5", "float",
       "Sidecar admission: longest a batch may wait for a service slot "
       "before it is shed.")
-_flag("BFTKV_SIDECAR_TIMEOUT", "30", "float",
-      "Seconds a daemon's or gateway's sidecar round trip may take before "
-      "the channel drops it, retries once, then opens its breaker (the "
-      "reference's fixed channel timeout; a sidecar shared by many "
-      "tenants queues longer).")
 _flag("BFTKV_SIDECAR_MAX_KEYS", "64", "int",
       "Sign-key handles one sidecar connection may register (bounds "
       "hostile registration floods).")

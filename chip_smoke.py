@@ -282,10 +282,10 @@ DEPLOY_WL_RATE, DEPLOY_WL_DURATION_S, DEPLOY_WL_PROCS = 120.0, 10.0, 2  # bench.
 DEPLOY_WL_PROBE_OPS = 8  # ops a worker in the probe run that sizes the workload cut
 DEPLOY_WL_BUDGET_S = 45.0
 DEPLOY_RPC_TIMEOUT_S = 600.0  # a BATCH_WRITE of 256 items verifies ~11k entries via the sidecar
-DEPLOY_SIDECAR_TIMEOUT_S = 600.0  # 72 tenants queue at one sidecar (its channel's default is 30 s)
 # The sidecar's admission for 72 daemons and a gateway (its defaults, 4
-# batches in service and 64 waiting 0.5 s, are for a handful of tenants).
-DEPLOY_ADMISSION = {"max_inflight": 256, "max_queue": 1024, "max_wait": 60.0}
+# batches in service and 64 waiting 0.5 s, are for a handful of tenants); a
+# batch waits less than its tenant's 30 s channel timeout.
+DEPLOY_ADMISSION = {"max_inflight": 256, "max_queue": 1024, "max_wait": 20.0}
 DEPLOY_START_S = 300.0  # every daemon's ports up
 DEPLOY_STOP_S = 120.0  # every daemon's exit after SIGTERM
 
@@ -593,7 +593,8 @@ class Counted:
         self.snap = metrics.snapshot()
         # The flush workers' streams are done before anything they made
         # (recorded operands) is read on another stream.
-        torch.cuda.synchronize()
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
 
 
 # -- the dispatch-plane phase ------------------------------------------------------
@@ -2987,18 +2988,52 @@ def _daemon_metrics(api_ports) -> list:
     return out
 
 
-def _together(argvs, logs, env) -> tuple[float, list]:
-    """The commands started together; wall seconds from the first start to
-    the last exit, and each one's (returncode, stdout, stderr)."""
+def _recorded_bftrw(out: str, argv: list) -> int:
+    """``bftrw.main(argv)`` with its K1 and K2 launches counted and their
+    operands kept: written to ``out`` (torch.save) on the host, beside the
+    time.monotonic() at which main returned (one clock for every process
+    of the host).  A writer runs as
+    ``python -c "import chip_smoke; ..." OUT <bftrw arguments>``."""
+    from bftkv_tpu_torch.cmd import bftrw
+    from bftkv_tpu_torch.ops import cuda_rns, rns
+
+    with Recorder(cuda_rns, ("verify_cuda", "pow_cuda")) as rec, Counted() as run:
+        try:
+            rc = bftrw.main(argv)
+        except SystemExit as e:
+            rc = e.code if isinstance(e.code, int) else 1
+    done = time.monotonic()
+    consts = {id(cn): key[:2] for key, cn in rns._consts_cache.items()}
+    calls = {name: [(a.cpu(), b.cpu(), idx.cpu(), tuple(u.cpu() for u in ukey), consts[id(cn)])
+                    for a, b, idx, ukey, cn in recorded] for name, recorded in rec.calls.items()}
+    torch.save({"rc": rc, "done": done, "launches": run.launches, "calls": calls}, out)
+    return rc
+
+
+def _recorded_calls(path: str, part: str, dev) -> tuple[dict, list, list]:
+    """A :func:`_recorded_bftrw` file: (its record, its K1 calls, its K2
+    calls), the operands back on ``dev`` as (part, args) pairs."""
+    from bftkv_tpu_torch.ops import rns
+
+    got = torch.load(path)
+    k1, k2 = ([(part, (a.to(dev), b.to(dev), idx.to(dev), tuple(u.to(dev) for u in ukey), rns.consts(*c, dev)))
+               for a, b, idx, ukey, c in got["calls"][name]] for name in ("verify_cuda", "pow_cuda"))
+    return got, k1, k2
+
+
+def _together(argvs, logs, env) -> tuple[float, float, list]:
+    """The commands started together; the time.monotonic() of the first
+    start, wall seconds from it to the last exit, and each one's
+    (returncode, stdout, stderr)."""
     procs, files = [], []
-    t0 = time.perf_counter()
+    t0 = time.monotonic()
     for argv, log in zip(argvs, logs):
         out, err = open(log + ".out", "wb+"), open(log + ".err", "wb+")
         files.append((out, err))
         procs.append(subprocess.Popen(argv, stdout=out, stderr=err, env=env))
     for p in procs:
         p.wait()
-    wall = time.perf_counter() - t0
+    wall = time.monotonic() - t0
     results = []
     for p, (out, err) in zip(procs, files):
         out.seek(0)
@@ -3006,7 +3041,7 @@ def _together(argvs, logs, env) -> tuple[float, list]:
         results.append((p.returncode, out.read(), err.read()))
         out.close()
         err.close()
-    return wall, results
+    return t0, wall, results
 
 
 def deploy_phase(dev, replicas, writers, storage_keys, seed: int) -> dict:
@@ -3024,9 +3059,11 @@ def deploy_phase(dev, replicas, writers, storage_keys, seed: int) -> dict:
     then a readmany of every key; every acknowledged write must read back;
     signed writes/s, reads/s, the sidecar's K1 and K2 launches and rows,
     the daemons' handler p50s; no daemon falls back to local crypto, the
-    sidecar sheds nothing, no daemon holds a context on the card; every K1
-    and K2 launch of the sidecar in the round is held against its plain
-    version.  (c) run_gateway with --sidecar in front of the fleet: 64 keys
+    sidecar sheds nothing, no daemon holds a context on the card (by its
+    own gauge, and no daemon pid among nvidia-smi's compute apps); the
+    writers run bftrw's main under _recorded_bftrw, and every K1 and K2
+    launch of the round, the sidecar's and the writers' own, is held
+    against its plain version.  (c) run_gateway with --sidecar in front of the fleet: 64 keys
     read twice through a GatewayClient, the second pass from the gateway's
     certified cache.  (d) workload.driver.run_multiprocess, the write_heavy
     preset, 2 worker processes at 120 ops/s for 10 s (a probe run sizes a
@@ -3055,8 +3092,7 @@ def deploy_phase(dev, replicas, writers, storage_keys, seed: int) -> dict:
     # Every process of the phase imports the package from this checkout.
     here = os.path.dirname(os.path.abspath(__file__))
     os.environ["PYTHONPATH"] = os.pathsep.join(p for p in (here, os.environ.get("PYTHONPATH")) if p)
-    env = dict(os.environ, BFTKV_RPC_TIMEOUT=str(DEPLOY_RPC_TIMEOUT_S),
-               BFTKV_SIDECAR_TIMEOUT=str(DEPLOY_SIDECAR_TIMEOUT_S))
+    env = dict(os.environ, BFTKV_RPC_TIMEOUT=str(DEPLOY_RPC_TIMEOUT_S))
     fleet, gw_proc, srv = [], None, None
     try:
         # (a) homes, the sidecar, the fleet
@@ -3127,8 +3163,8 @@ def deploy_phase(dev, replicas, writers, storage_keys, seed: int) -> dict:
         inited = _cuda_initialized(api_ports)
         check(inited == [0] * n_nodes, f"daemons report CUDA initialised: {inited}")
         apps = _card_pids()
-        check(not set(apps) & set(daemon_pids) and len(apps) <= 1,
-              f"the card's compute apps at start: {apps} (daemons {daemon_pids[:4]}...)")
+        check(not set(apps) & set(daemon_pids),
+              f"a daemon pid among the card's compute apps at start: {apps} (daemons {daemon_pids[:4]}...)")
         out["fleet"] = {"servers": N_REPLICAS, "storage": N_STORAGE, "processes": len(fleet),
                         "storage_engine": "mem", "homes_s": homes_s, "spawn_s": spawn_s,
                         "host_memory_bytes": host_delta, "host_memory_bytes_per_daemon": host_delta / len(fleet),
@@ -3159,17 +3195,40 @@ def deploy_phase(dev, replicas, writers, storage_keys, seed: int) -> dict:
                 items.append((path, kv))
             return items
 
-        def writemany(tag, files):
-            wall, res = _together([bftrw(w, "writemany", "--file", path) for w, (path, _kv) in enumerate(files)],
-                                  [os.path.join(logs, f"{tag}-write-{w}") for w in range(len(files))], env)
+        # The counted round's writers run bftrw's main under
+        # _recorded_bftrw: their own launches on the card (the client's
+        # collective-signature verifies and self-signs) are counted and
+        # held against their plain versions with the sidecar's.
+        writer_runs = []
+
+        def together(tag, op, argvs, recorded):
+            logs_ = [os.path.join(logs, f"{tag}-{op}-{w}") for w in range(len(argvs))]
+            if not recorded:
+                return _together(argvs, logs_, env)[1:]
+            outs = [log + ".pt" for log in logs_]
+            call = "import sys, chip_smoke; sys.exit(chip_smoke._recorded_bftrw(sys.argv[1], sys.argv[2:]))"
+            t0, _wall, res = _together([[sys.executable, "-c", call, out, *argv[3:]] for argv, out in zip(argvs, outs)],
+                                       logs_, env)
+            done = 0.0
+            for w, (out, (rc, _o, err)) in enumerate(zip(outs, res)):
+                check(rc == 0 and os.path.exists(out), f"writer {w} ({tag} {op}): rc {rc}, {err[-400:]!r}")
+                got, k1, k2 = _recorded_calls(out, f"writer {w} {op}", dev)
+                writer_runs.append((got["launches"], k1, k2))
+                done = max(done, got["done"])
+                os.remove(out)
+            return done - t0, res
+
+        def writemany(tag, files, recorded=False):
+            wall, res = together(tag, "write", [bftrw(w, "writemany", "--file", path)
+                                                for w, (path, _kv) in enumerate(files)], recorded)
             for w, ((rc, _o, err), (_p, kv)) in enumerate(zip(res, files)):
                 check(rc == 0 and f"{len(kv)}/{len(kv)} written".encode() in err,
                       f"writer {w} ({tag}): rc {rc}, {err[-400:]!r}")
             return wall
 
-        def readmany(tag, files):
-            wall, res = _together([bftrw(w, "readmany", *(k for k, _v in kv)) for w, (_p, kv) in enumerate(files)],
-                                  [os.path.join(logs, f"{tag}-read-{w}") for w in range(len(files))], env)
+        def readmany(tag, files, recorded=False):
+            wall, res = together(tag, "read", [bftrw(w, "readmany", *(k for k, _v in kv))
+                                               for w, (_p, kv) in enumerate(files)], recorded)
             for w, ((rc, o, err), (_p, kv)) in enumerate(zip(res, files)):
                 got = dict(line.split("=", 1) for line in o.decode().splitlines())
                 bad = [k for k, v in kv if got.get(k) != v]
@@ -3195,13 +3254,16 @@ def deploy_phase(dev, replicas, writers, storage_keys, seed: int) -> dict:
         cpu0 = (time.process_time(), _cpu_seconds(daemon_pids))
         with Recorder(cuda_rns, ("verify_cuda", "pow_cuda")) as rec, Counted() as c_run, \
                 _CardSampler() as sampler:
-            write_s = writemany("round", files)
+            write_s = writemany("round", files, recorded=True)
             cpu1 = (time.process_time(), _cpu_seconds(daemon_pids))
             load = os.getloadavg()
-            read_s = readmany("round", files)
+            read_s = readmany("round", files, recorded=True)
         snap, launches = c_run.snap, c_run.launches
         k1_calls = [("round", a) for a in rec.calls["verify_cuda"]]
         k2_calls = [("round", a) for a in rec.calls["pow_cuda"]]
+        w_k1 = [c for _l, k1, _k2 in writer_runs for c in k1]
+        w_k2 = [c for _l, _k1, k2 in writer_runs for c in k2]
+        w_launches = {name: sum(l[name] for l, _k1, _k2 in writer_runs) for name in launches}
         dm = _daemon_metrics(api_ports)
         falls = {k: sum(m.get(k, 0) for m in dm) for k in
                  ("verify.remote_fallback", "sign.remote_fallback", "verify.remote_shed", "sign.remote_shed",
@@ -3224,6 +3286,9 @@ def deploy_phase(dev, replicas, writers, storage_keys, seed: int) -> dict:
             "loadavg_1m_after_writes": load[0],
             "k1_launches": launches["verify"], "k1_rows": rows(k1_calls),
             "k2_launches": launches["pow"], "k2_rows": rows(k2_calls),
+            # The writers' own launches (bftrw on the card, 4 write and 4
+            # read processes), counted and recorded in each process.
+            "writer_launches": w_launches, "writer_k1_rows": rows(w_k1), "writer_k2_rows": rows(w_k2),
             "sidecar_verify_items": snap.get("sidecar.items{op=verify}", 0),
             "sidecar_sign_items": snap.get("sidecar.items{op=sign}", 0),
             "sidecar_requests": {k: v for k, v in snap.items() if k.startswith("sidecar.ops")},
@@ -3233,7 +3298,7 @@ def deploy_phase(dev, replicas, writers, storage_keys, seed: int) -> dict:
             "server.batch_sign.handler_p50_s": mid(bs), "server.batch_write.handler_p50_s": mid(bw),
             "daemon_remote": {k: sum(m.get(k, 0) for m in dm) for k in ("verify.remote", "sign.remote")},
             "fallbacks_and_sheds": {**falls, "sidecar.shed": svc.admission.shed},
-            "card_apps_most": sampler.most, "card_samples": sampler.samples,
+            "card_apps": sorted(sampler.pids), "card_apps_most": sampler.most, "card_samples": sampler.samples,
         }
         ro = out["round"]
         per = lambda n, d: n / d if d else 0.0
@@ -3252,14 +3317,18 @@ def deploy_phase(dev, replicas, writers, storage_keys, seed: int) -> dict:
               f"daemons) batch_sign {ms(bs)}, batch_write {ms(bw)}; fallbacks and sheds "
               f"{ro['fallbacks_and_sheds']}; the card's compute apps {sorted(sampler.pids)}, at most "
               f"{sampler.most} at once over {sampler.samples} samples", flush=True)
+        print(f"deploy (b) writers: the bftrw processes' own launches on {dev} {w_launches} (K1 {ro['writer_k1_rows']} "
+              f"rows, K2 {ro['writer_k2_rows']} rows), recorded in each process", flush=True)
         check(launches["verify"] >= 1 and launches["pow"] >= 1, f"the sidecar launched {launches} in the round")
         check(len(k1_calls) == launches["verify"] and len(k2_calls) == launches["pow"],
               f"recorded launches {len(k1_calls)}, {len(k2_calls)} differ from the counts {launches}")
+        check(len(w_k1) == w_launches["verify"] and len(w_k2) == w_launches["pow"]
+              and not any(v for name, v in w_launches.items() if name not in ("verify", "pow")),
+              f"the writers' recorded launches {len(w_k1)}, {len(w_k2)} differ from their counts {w_launches}")
         inited = [m.get("device.cuda_initialized") for m in dm]
         check(inited == [0] * n_nodes, f"daemons report CUDA initialised after the round: {inited}")
-        check(not sampler.pids & set(daemon_pids) and sampler.most <= 1 + len(files),
-              f"the card's compute apps during the round: {sorted(sampler.pids)}, at most {sampler.most} "
-              f"at once (this process and {len(files)} writers)")
+        check(not sampler.pids & set(daemon_pids),
+              f"a daemon pid among the card's compute apps during the round: {sorted(sampler.pids)}")
         check(not any(falls.values()), f"the daemons fell back to local crypto: {falls}")
         check(svc.admission.shed == 0 and not any(sheds.values()),
               f"the sidecar shed {svc.admission.shed} ({sheds})")
@@ -3350,13 +3419,15 @@ def deploy_phase(dev, replicas, writers, storage_keys, seed: int) -> dict:
     out["teardown"] = {"stop_s": stop_s, "exit_codes": sorted(set(rcs)), "revocation_lists": len(revs)}
     print(f"deploy (e) teardown: {len(fleet)} daemons and the gateway exited 0 in {stop_s:.1f} s, each logging a "
           f"clean stop; revocation lists written: {len(revs)} (nothing was revoked)", flush=True)
-    hold_rns_calls(k1_calls, k2_calls, "deploy round")
+    hold_rns_calls(k1_calls + w_k1, k2_calls + w_k2, "deploy round")
     torch.cuda.synchronize()
-    out["held_against_plain"] = {"K1": len(k1_calls), "K2": len(k2_calls)}
-    out["records"] = rns_main_shape_records(k1_calls, k2_calls, "deploy round")
+    out["held_against_plain"] = {"K1": len(k1_calls), "K2": len(k2_calls),
+                                 "writers_K1": len(w_k1), "writers_K2": len(w_k2)}
+    out["records"] = (rns_main_shape_records(k1_calls, k2_calls, "deploy round, sidecar")
+                      + rns_main_shape_records(w_k1, w_k2, "deploy round, bftrw writers"))
     shutil.rmtree(root, ignore_errors=True)
     out["phase_s"] = time.perf_counter() - t_phase
-    print(f"deploy: every sidecar launch of the round equal to its plain version ({out['held_against_plain']}); "
+    print(f"deploy: every sidecar and writer launch of the round equal to its plain version ({out['held_against_plain']}); "
           f"cuts {out['cuts'] or 'none'}; phase {out['phase_s']:.1f} s on {nvidia_smi('name,power.limit')}",
           flush=True)
     return out

@@ -864,12 +864,15 @@ def test_port_cluster_on_card_writes_and_reads_through_the_dispatchers(dev):
 # -- the operator surfaces on the card ---------------------------------------
 
 
-def _card_fleet(tmp_path, key_base: int, extra_env=None, **spawn_kw):
-    """A 4 + 4 fleet of daemon processes (``run_cluster.spawn``) on
-    localhost HTTP from seeded 2048-bit homes, every daemon on ``cuda:0``;
-    returns (homes dir, processes, API ports)."""
+def _card_fleet(tmp_path, key_base: int, extra_env=None, dispatch: bool = False, **spawn_kw):
+    """A 4 + 4 fleet of daemon processes on localhost HTTP from seeded
+    2048-bit homes, every daemon on ``cuda:0``: with ``dispatch`` each
+    started as ``python -m bftkv_tpu_torch.cmd.bftkv --dispatch``, else by
+    ``run_cluster.spawn(**spawn_kw)``; returns (homes dir, processes, API
+    ports, environment, python)."""
     import os
     import socket
+    import subprocess
     import sys
     import time
 
@@ -882,9 +885,22 @@ def _card_fleet(tmp_path, key_base: int, extra_env=None, **spawn_kw):
     api = free_port_block(8)
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = {"PYTHONPATH": repo + os.pathsep + os.environ.get("PYTHONPATH", ""), **(extra_env or {})}
-    procs = run_cluster.spawn(run_cluster.server_homes(keys), str(tmp_path / "dbs"), storage="mem",
-                              api_base=api, extra_env=env, device="cuda:0",
-                              log_dir=str(tmp_path / "logs"), **spawn_kw)
+    homes, dbs, logs = run_cluster.server_homes(keys), tmp_path / "dbs", tmp_path / "logs"
+    if dispatch:
+        dbs.mkdir()
+        logs.mkdir()
+        procs = []
+        for i, home in enumerate(homes):
+            name = os.path.basename(home)
+            with open(logs / f"{name}.log", "ab") as out:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "bftkv_tpu_torch.cmd.bftkv", "--home", home,
+                     "--db", str(dbs / name), "--storage", "mem", "--revlist", str(dbs / f"{name}.rev"),
+                     "--api", f"127.0.0.1:{api + i}", "--device", "cuda:0", "--dispatch"],
+                    env=dict(os.environ, **env), stdout=out, stderr=subprocess.STDOUT))
+    else:
+        procs = run_cluster.spawn(homes, str(dbs), storage="mem", api_base=api, extra_env=env,
+                                  device="cuda:0", log_dir=str(logs), **spawn_kw)
     ports = [int(i.cert.address.rsplit(":", 1)[1]) for i in uni.servers + uni.storage_nodes]
     deadline = time.monotonic() + 240
     for port in ports + [api + i for i in range(8)]:
@@ -934,7 +950,7 @@ def _metrics(ports) -> list:
 
 
 def test_dispatch_fleet_claims_the_card_and_reads_back_what_bftrw_wrote(dev, tmp_path):
-    """A 4 + 4 fleet whose daemons run ``--dispatch`` on ``cuda:0``: every
+    """A 4 + 4 fleet of daemons started with ``--dispatch`` on ``cuda:0``: every
     daemon claims the card (CUDA initialised, by its ``/metrics``), their
     batches run on the card (``verify.device`` and ``sign.device``, host
     thresholds 0), and ``bftrw`` (``--device cuda:0``) reads back its
@@ -963,9 +979,10 @@ def test_sidecar_fleet_daemons_hold_no_card_context(dev, tmp_path):
     from bftkv_tpu_torch.cmd import run_cluster
 
     # The sidecar's admission sized for its 8 tenants (its defaults serve 4
-    # batches at once and shed after 0.5 s in the queue).
+    # batches at once and shed after 0.5 s in the queue); a batch waits
+    # less than the tenants' 30 s channel timeout.
     admission = {"BFTKV_SIDECAR_MAX_INFLIGHT": "64", "BFTKV_SIDECAR_MAX_QUEUE": "256",
-                 "BFTKV_SIDECAR_MAX_WAIT": "30"}
+                 "BFTKV_SIDECAR_MAX_WAIT": "20"}
     keys, procs, apis, env, python = _card_fleet(tmp_path, 7300, admission, sidecar="auto")
     try:
         _bftrw_write_read(keys, env, python)

@@ -422,7 +422,7 @@ def test_flag_seam():
         # The process surfaces.
         "BFTKV_PROFILE", "BFTKV_PROFILE_HZ", "BFTKV_GIL_SAMPLER", "BFTKV_REGION_LEASE_S",
         "BFTKV_WORKLOAD_SEED", "BFTKV_WORKLOAD_RATE", "BFTKV_WORKLOAD_DURATION",
-        "BFTKV_WORKLOAD_PROCS", "BFTKV_SIDECAR_TIMEOUT",
+        "BFTKV_WORKLOAD_PROCS",
     }
     # Every declared flag is read somewhere in the port, and no BFTKV_*
     # name is read from the environment outside flags.py.
