@@ -647,4 +647,12 @@ def main(argv: list[str] | None = None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    # Leave without the interpreter's finalization: storage is closed and
+    # the revocation list written, but the transport's and API's daemon
+    # threads may still sit in a blocking call, and one of 72 such
+    # daemons aborted after "bftkv: stopped" ("FATAL: exception not
+    # rethrown", exit -6) as finalization ended them.
+    rc = main()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(rc)

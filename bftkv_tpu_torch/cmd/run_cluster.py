@@ -16,9 +16,11 @@ run.sh uses 6001+ for its debug API).
 
 ``--device`` (default ``cuda:0``) is passed to every daemon, gateway and
 spawned sidecar.  With ``--sidecar auto`` the one sidecar process owns
-the card and the daemons create no CUDA context.  The fleet health
-collector (``--fleet``, and ``--recorder``/``--autopilot`` behind it) is
-not ported yet: the runner refuses it.
+the card and the daemons create no CUDA context.  ``--fleet`` boots the
+fleet health collector (``python -m bftkv_tpu_torch.cmd.fleet``, a host
+process that takes no device), ``--recorder`` attaches the flight recorder
+to it.  The topology autopilot is not ported yet: ``--autopilot`` is
+refused.
 """
 
 from __future__ import annotations
@@ -33,11 +35,11 @@ import time
 from bftkv_tpu_torch import device as devmod
 from bftkv_tpu_torch import flags
 
-#: What --fleet needs and this package does not have yet.
-FLEET_NOT_PORTED = (
-    "--fleet (and --recorder/--autopilot behind it) needs the fleet "
-    "collector (obs/collector.py, cmd/fleet.py), which the port does not "
-    "have yet; run the fleet without it, or use bftkv_tpu.cmd.run_cluster"
+#: What --autopilot needs and this package does not have yet.
+AUTOPILOT_NOT_PORTED = (
+    "--autopilot needs the topology autopilot (autopilot/), which the "
+    "port does not have yet; run the fleet without it, or use "
+    "bftkv_tpu.cmd.run_cluster"
 )
 
 
@@ -100,19 +102,25 @@ def spawn(
     sidecar (mode-0600 unix socket under db_root) that every replica
     AND gateway signs+verifies through, with its stats endpoint on the
     port after the gateways' (``role=sidecar``, outside all f-budget
-    math).  ``fleet``, ``recorder`` and ``autopilot`` are refused
-    (ValueError): the fleet collector is not ported yet.
+    math).  ``fleet`` boots the collector process (``cmd.fleet
+    --listen``), ``recorder`` its flight recorder; ``autopilot`` is
+    refused (ValueError): the autopilot is not ported yet.
 
     ``device`` (default ``cuda:0``, which raises here without CUDA, before
     any process starts) is passed to every process as ``--device``.
     ``log_dir`` sends each process's stdout and stderr to
     ``<log_dir>/<name>.log`` (default: this process's own)."""
     device = str(devmod.resolve(device))
-    if fleet or recorder or autopilot:
-        raise ValueError(FLEET_NOT_PORTED)
+    if autopilot:
+        raise ValueError(AUTOPILOT_NOT_PORTED)
     if sidecar and verify_sidecar:
         raise ValueError("--sidecar supersedes --verify-sidecar; "
                          "pass one")
+    if fleet and not api_base:
+        # Argument-only precondition: checked BEFORE any daemon spawns
+        # (raising mid-spawn would orphan the just-launched fleet).
+        raise ValueError("--fleet needs --api-base (it scrapes the "
+                         "daemon APIs)")
     os.makedirs(db_root, exist_ok=True)
     procs = []
     env = dict(os.environ, **(extra_env or {}))
@@ -214,7 +222,30 @@ def spawn(
             cmd += ["--rpc-timeout", str(rpc_timeout)]
         if sidecar:
             cmd += ["--sidecar", sidecar]
+        if fleet:
+            cmd += ["--fleet", f"http://127.0.0.1:{fleet}/fleet"]
         procs.append(popen(cmd, os.path.basename(home)))
+    if fleet:
+        # The health plane rides alongside the fleet: one collector
+        # process (host only, no device) scraping every daemon's (and
+        # gateway's, and the spawned sidecar's) /info + /metrics +
+        # /trace, serving the aggregate on /fleet.  --recorder attaches
+        # the flight recorder to it.
+        cmd = [
+            sys.executable, "-m", "bftkv_tpu_torch.cmd.fleet",
+            "--api-base", str(api_base),
+            "--count", str(
+                len(homes)
+                + len(gw_homes or [])
+                + (1 if sidecar_stats else 0)
+            ),
+            "--api-host", api_host,
+            "--listen", f"127.0.0.1:{fleet}",
+            "--interval", str(fleet_interval),
+        ]
+        if recorder:
+            cmd += ["--recorder", recorder]
+        procs.append(popen(cmd, "fleet"))
     return procs
 
 
@@ -276,16 +307,23 @@ def main(argv: list[str] | None = None) -> int:
                          "same N replays the same fleet-wide fault "
                          "schedule (see bftkv --help)")
     ap.add_argument("--fleet", type=int, default=0, metavar="PORT",
-                    help="the fleet health collector: not ported yet "
-                         "(refused)")
+                    help="boot the fleet health collector alongside the "
+                         "cluster, serving /fleet (JSON + Prometheus) on "
+                         "127.0.0.1:PORT — per-shard f-budget, stitched "
+                         "cross-process traces, anomaly feed "
+                         "(bftkv_tpu_torch.obs; needs --api-base)")
     ap.add_argument("--fleet-interval", type=float, default=2.0,
                     metavar="SECONDS", help="collector scrape interval")
     ap.add_argument("--recorder", default="", metavar="DIR",
-                    help="the flight recorder (needs --fleet): not "
-                         "ported yet (refused)")
+                    help="attach the flight recorder to the --fleet "
+                         "collector: every anomaly snapshots a rate-"
+                         "limited black-box bundle (traces, metrics, "
+                         "anomaly ring, failpoint log, last profile) "
+                         "under DIR; POST /fleet/bundle takes one on "
+                         "demand (needs --fleet)")
     ap.add_argument("--autopilot", action="store_true",
-                    help="the topology autopilot (needs --fleet): not "
-                         "ported yet (refused)")
+                    help="the topology autopilot watcher (needs "
+                         "--fleet): not ported yet (refused, exit 2)")
     ap.add_argument("--device", default=devmod.DEFAULT,
                     help="device of every daemon, gateway and spawned "
                          "sidecar: cuda:N (default cuda:0) or cpu")
@@ -307,8 +345,8 @@ def main(argv: list[str] | None = None) -> int:
                          "`regions` file automatically, so an already-"
                          "generated labeled keyset needs no flag here")
     args = ap.parse_args(argv)
-    if args.fleet or args.recorder or args.autopilot:
-        print(f"run_cluster: {FLEET_NOT_PORTED}", file=sys.stderr)
+    if args.autopilot:
+        print(f"run_cluster: {AUTOPILOT_NOT_PORTED}", file=sys.stderr)
         return 2
 
     if args.shards and not server_homes(args.keys):
@@ -329,6 +367,14 @@ def main(argv: list[str] | None = None) -> int:
     if not homes:
         print(f"no server homes under {args.keys}", file=sys.stderr)
         return 1
+    if args.fleet and not args.api_base:
+        print("--fleet needs --api-base (the collector scrapes the "
+              "daemon APIs)", file=sys.stderr)
+        return 1
+    if args.recorder and not args.fleet:
+        print("--recorder needs --fleet (the recorder hangs off the "
+              "collector's anomaly feed)", file=sys.stderr)
+        return 1
     gw_homes = gateway_homes(args.keys)[: args.gateways]
     if args.gateways and len(gw_homes) < args.gateways:
         print(f"--gateways {args.gateways} but only {len(gw_homes)} gw* "
@@ -344,7 +390,8 @@ def main(argv: list[str] | None = None) -> int:
                   slow_trace=args.slow_trace,
                   rpc_timeout=args.rpc_timeout,
                   chaos_seed=args.chaos_seed, gw_homes=gw_homes,
-                  device=args.device)
+                  fleet=args.fleet, fleet_interval=args.fleet_interval,
+                  recorder=args.recorder, device=args.device)
     # The sidecar (if spawned, always first) is an optional optimizer
     # whose clients fall back to local verification: its death must not
     # tear down the replica fleet, and it is not a "server".

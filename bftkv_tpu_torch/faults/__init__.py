@@ -1,5 +1,10 @@
 """Fault injection of the port (counterpart of ``bftkv_tpu/faults``):
-:mod:`bftkv_tpu_torch.faults.failpoint`, the seeded failpoint registry, and
+:mod:`bftkv_tpu_torch.faults.failpoint`, the seeded failpoint registry;
+:mod:`~bftkv_tpu_torch.faults.byzantine`, Byzantine behaviours as failpoint
+programs; :mod:`~bftkv_tpu_torch.faults.checker`, the history recorder and
+safety checker; :mod:`~bftkv_tpu_torch.faults.harness`, the in-process chaos
+cluster; :mod:`~bftkv_tpu_torch.faults.nemesis`, the seeded chaos schedules
+(``python -m bftkv_tpu_torch.faults.nemesis --seed 7``); and
 :func:`default_chaos_program`, the daemon's ``--chaos-seed`` program."""
 
 from bftkv_tpu_torch.faults.failpoint import (

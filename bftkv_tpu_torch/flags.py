@@ -138,6 +138,10 @@ _flag("BFTKV_WAN_JITTER", "0", "float",
       "Fractional jitter on WAN link delays: each one-way delay "
       "stretches uniformly (seeded per-rule draw) up to "
       "delay x (1 + jitter).")
+_flag("BFTKV_WAN_RTT_MATRIX", None, "str",
+      "Named geo-topology (wan2, wan3) or raw ms spec (e.g. "
+      "20/80/150) compiled onto the link plane as quiet background "
+      "delay rules: the chaos nemesis's `--rtt-matrix` default.")
 _flag("BFTKV_PLAIN_FSYNC", None, "switch",
       "Per-write fsync pair (file + directory) in PlainStorage; "
       "unset: library off / daemon on (durability is a deployment "
@@ -243,10 +247,44 @@ _flag("BFTKV_PROFILE_HZ", "67", "int",
 _flag("BFTKV_GIL_SAMPLER", "1", "switch",
       "GIL-pressure estimate (runnable-thread gauge) riding the "
       "profiler tick; costs nothing while the profiler is disarmed.")
+_flag("BFTKV_SLO_WRITE_P99", None, "float",
+      "Write-latency SLO in seconds: a shard whose per-scrape write "
+      "p99 exceeds it for BFTKV_SLO_BURN_SCRAPES consecutive scrapes "
+      "raises the slo_burn anomaly (unset: disabled).")
+_flag("BFTKV_SLO_BURN_SCRAPES", "3", "int",
+      "Consecutive breaching scrapes before slo_burn fires.")
+_flag("BFTKV_FLIGHT_RECORDER", "", "switch",
+      "Arm the flight recorder in the chaos nemesis: every fault "
+      "window must yield exactly one black-box bundle naming the "
+      "detected anomaly, enforced via the nemesis exit code.")
+_flag("BFTKV_RECORDER_DIR", None, "str",
+      "Flight-recorder bundle directory (unset: <tmpdir>/"
+      "bftkv-blackbox).")
+_flag("BFTKV_RECORDER_MIN_INTERVAL", "5", "float",
+      "Seconds within which anomaly events coalesce into (amend) the "
+      "previous bundle instead of minting a new one.")
+_flag("BFTKV_RECORDER_MAX_MB", "64", "int",
+      "Total on-disk cap across flight-recorder bundles; oldest "
+      "bundles are evicted first.")
+_flag("BFTKV_SAT_THRESHOLD", "0.8", "float",
+      "Capacity plane: per-resource saturation at or above this for "
+      "BFTKV_SAT_SCRAPES consecutive traffic-bearing scrapes raises "
+      "the resource_saturated anomaly (0 disables).")
+_flag("BFTKV_SAT_SCRAPES", "3", "int",
+      "Consecutive saturated scrapes before resource_saturated fires "
+      "(one episode, one anomaly; a clean scrape re-arms).")
+_flag("BFTKV_SAT_WAIT_REF", "0.25", "float",
+      "Capacity plane: queue-wait p99 (seconds) that maps to "
+      "saturation 1.0 for wait-derived resources (admission, "
+      "dispatch; the log commit path uses max(4x linger, this)).")
 _flag("BFTKV_REGION_LEASE_S", "0", "float",
       "Gateway freshness lease in seconds: while the last sync-"
       "invalidation round completed this recently, TTL-expired cache "
       "entries may still be served same-region (0 disables).")
+_flag("BFTKV_WORKLOAD", None, "str",
+      "Workload spec `preset[,k=v,...]` (workload/spec.py) for "
+      "spec-shaped traffic: the chaos nemesis `--workload` default "
+      "(unset: coverage traffic only).")
 _flag("BFTKV_WORKLOAD_SEED", None, "int",
       "Seed override for workload-driven runs; one seed replays one op "
       "stream bit-for-bit (unset: the caller's default).")

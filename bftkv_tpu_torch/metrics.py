@@ -15,7 +15,11 @@ so a run of the port reads like a run of the reference:
 - samples (``observe``, and ``timer`` around a block):
   ``<name>.flush.seconds``, ``<name>.wait``, ``<name>.batch``,
   ``verify.launch``.  The snapshot carries ``<name>.count``,
-  ``<name>.sum``, ``<name>.p50`` and ``<name>.p99``.
+  ``<name>.sum``, ``<name>.p50`` and ``<name>.p99``, and the series'
+  fixed-bucket counts (:data:`BUCKETS`, whole run), one key
+  ``<name>.bucket{...,le=…}`` per non-empty bucket, as the reference
+  emits them: the fleet collector merges latency across processes from
+  these keys.
 
 - the sidecar's (``cmd/verify_sidecar.py``, ``crypto/remote_verify.py``):
   ``sidecar.ops{op=…}``, ``sidecar.items{op=…}``, ``sidecar.shed{op=…}``,
@@ -70,6 +74,20 @@ def histogram_quantile(q: float, buckets: list[int] | tuple) -> float | None:
             return BUCKETS[i] if i < len(BUCKETS) else float("inf")
     return float("inf")
 
+
+def _bucket_index(value: float) -> int:
+    """Index of the bucket of :data:`BUCKETS` holding ``value`` (the first
+    bound >= value); ``len(BUCKETS)`` is the +Inf overflow."""
+    lo, hi = 0, len(BUCKETS)
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if value <= BUCKETS[mid]:
+            hi = mid
+        else:
+            lo = mid + 1
+    return lo
+
+
 #: Samples kept per series for the percentiles (``.count``/``.sum``
 #: cover the whole run).
 _MAX_SAMPLES = 65536
@@ -94,7 +112,7 @@ class Registry:
         self._lock = named_lock("metrics")
         self._counters: dict[tuple, int] = {}
         self._gauges: dict[tuple, float] = {}
-        self._samples: dict[tuple, list] = {}  # key -> [count, sum, ring, pos]
+        self._samples: dict[tuple, list] = {}  # key -> [count, sum, ring, pos, buckets]
 
     def incr(self, name: str, n: int = 1, labels: dict | None = None) -> None:
         k = _key(name, labels)
@@ -112,9 +130,10 @@ class Registry:
         with self._lock:
             s = self._samples.get(k)
             if s is None:
-                s = self._samples[k] = [0, 0.0, [], 0]
+                s = self._samples[k] = [0, 0.0, [], 0, [0] * (len(BUCKETS) + 1)]
             s[0] += 1
             s[1] += value
+            s[4][_bucket_index(value)] += 1
             ring = s[2]
             if len(ring) < _MAX_SAMPLES:
                 ring.append(value)
@@ -135,18 +154,25 @@ class Registry:
         with self._lock:
             counters = dict(self._counters)
             gauges = dict(self._gauges)
-            samples = {k: (c, t, list(r)) for k, (c, t, r, _p) in self._samples.items()}
+            samples = {k: (c, t, list(r), list(b)) for k, (c, t, r, _p, b) in self._samples.items()}
         out: dict = {}
         for (name, labels), v in counters.items():
             out[_flat(name, labels)] = v
         for (name, labels), v in gauges.items():
             out[_flat(name, labels)] = v
-        for (name, labels), (count, total, ring) in samples.items():
+        for (name, labels), (count, total, ring, _b) in samples.items():
             out[_flat(name + ".count", labels)] = count
             out[_flat(name + ".sum", labels)] = total
             ring.sort()
             for q, tag in ((0.5, "p50"), (0.99, "p99")):
                 out[_flat(f"{name}.{tag}", labels)] = ring[min(len(ring) - 1, int(q * len(ring)))]
+        # One key per non-empty bucket; ``le`` follows the series' own
+        # labels, so the key parses with the same name{k=v,...} grammar.
+        for (name, labels), (_c, _t, _r, buckets) in samples.items():
+            for i, c in enumerate(buckets):
+                if c:
+                    le = BUCKETS[i] if i < len(BUCKETS) else "+Inf"
+                    out[_flat(f"{name}.bucket", labels + (("le", le),))] = c
         return out
 
     def prometheus(self) -> str:
@@ -156,7 +182,7 @@ class Registry:
         with self._lock:
             rows = [("counter", k, v, "_total") for k, v in self._counters.items()]
             rows += [("gauge", k, v, "") for k, v in self._gauges.items()]
-            for k, (count, total, _ring, _pos) in self._samples.items():
+            for k, (count, total, _ring, _pos, _b) in self._samples.items():
                 rows += [("summary", k, total, "_sum"), ("summary", k, count, "_count")]
         lines, typed = [], set()
         for kind, (name, labels), v, suffix in sorted(rows, key=lambda r: (r[1], r[3])):

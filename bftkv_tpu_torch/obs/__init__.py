@@ -1,18 +1,49 @@
-"""Observability of the port (counterpart of ``bftkv_tpu/obs``).
+"""Fleet health plane of the port (counterpart of ``bftkv_tpu/obs``):
+cross-process observability for a sharded fleet.  Host code only: the
+collector and ``cmd.fleet`` take no device and never initialise CUDA.
 
-Ported so far:
+- :mod:`bftkv_tpu_torch.obs.source` — where fleet state comes from: one
+  :class:`~bftkv_tpu_torch.obs.source.HTTPSource` per daemon API (scrapes
+  ``/info`` + ``/metrics`` + ``/trace?since=``), or
+  :class:`~bftkv_tpu_torch.obs.source.LocalSource` for in-process
+  clusters (the chaos harness);
+- :mod:`bftkv_tpu_torch.obs.stitch` — joins every process's exported
+  spans into one tree per trace id;
+- :mod:`bftkv_tpu_torch.obs.collector` — the
+  :class:`~bftkv_tpu_torch.obs.collector.FleetCollector`: per-shard
+  f-budget, merged fixed-bucket SLO histograms with slow-trace
+  exemplars, and the anomaly feed;
+- :mod:`bftkv_tpu_torch.obs.http` — ``/fleet`` as JSON and Prometheus
+  text;
+- :mod:`bftkv_tpu_torch.obs.critpath` — exclusive-time decomposition of
+  each stitched write/read trace over the closed ``trace.PHASES`` enum;
+- :mod:`bftkv_tpu_torch.obs.profiler` — opt-in wall-clock sampling
+  profiler (``/profile?seconds=N`` per daemon);
+- :mod:`bftkv_tpu_torch.obs.recorder` — the flight recorder:
+  anomaly-driven, rate-limited, size-capped black-box bundles;
+- :mod:`bftkv_tpu_torch.obs.capacity` — the USE-method capacity plane
+  over the closed resource vocabulary, whose ``dispatch`` row reads the
+  card dispatchers' occupancy gauges.
 
-- :mod:`bftkv_tpu_torch.obs.source` — a fleet member's scrape surface:
-  :class:`~bftkv_tpu_torch.obs.source.HTTPSource` over a daemon's API,
-  :class:`~bftkv_tpu_torch.obs.source.LocalSource` over an in-process
-  server, and ``seat_document`` behind the daemon's ``/info``;
-- :mod:`bftkv_tpu_torch.obs.profiler` — the opt-in wall-clock sampling
-  profiler behind ``/profile?seconds=N``.
-
-The fleet collector, stitcher, critical path, flight recorder, capacity
-plane and ``/fleet`` HTTP surface are not ported yet.
+Entry points: ``python -m bftkv_tpu_torch.cmd.fleet`` (one-shot,
+``--watch``, ``--listen``, ``--budget``, ``--capacity``, ``--bundle``)
+and ``run_cluster --fleet``.
 """
 
+from bftkv_tpu_torch.obs.capacity import CapacityPlane
+from bftkv_tpu_torch.obs.collector import FleetCollector
+from bftkv_tpu_torch.obs.critpath import PhaseBudget, attribute
+from bftkv_tpu_torch.obs.recorder import FlightRecorder
 from bftkv_tpu_torch.obs.source import HTTPSource, LocalSource
+from bftkv_tpu_torch.obs.stitch import Stitcher
 
-__all__ = ["HTTPSource", "LocalSource"]
+__all__ = [
+    "CapacityPlane",
+    "FleetCollector",
+    "FlightRecorder",
+    "HTTPSource",
+    "LocalSource",
+    "PhaseBudget",
+    "Stitcher",
+    "attribute",
+]

@@ -111,7 +111,7 @@ holds every hand-written kernel against its plain PyTorch version:
    other storage nodes' digest root and serve every write; (c) the 4
    writers released together, write_many of 1024 items of 1 KiB then a
    read_many of every key, for 1 round (bench.py's 2 rounds cut to 1 for
-   the deploy phase's time; the batch is cut to a 150 s budget and the cut
+   the deploy phase's time; the batch is cut to a 75 s budget and the cut
    printed); every acknowledged write reads
    back; signed writes/s, reads/s, the write_many phase timers, the
    server handlers, K1/K2 launches and rows, the memo's hits; (d)
@@ -136,13 +136,31 @@ holds every hand-written kernel against its plain PyTorch version:
    64 keys read twice through a GatewayClient, the second pass from its
    certified cache; (d) workload.driver.run_multiprocess, write_heavy, 2
    worker processes at 120 ops/s for 10 s (a probe sizes a printed cut),
-   no error; (e) run_cluster.shutdown, every daemon exits 0.  Every K1 and
-   K2 launch of the sidecar in (b) is held against its plain version;
-16. each kernel against its plain version on the card, on the operands the
+   no error; (f) the fleet health plane (obs/, cmd/fleet.py): the daemons
+   spawned with run_cluster's --fleet and --recorder, 8 writes through a
+   daemon's client API, then /fleet must list all 72 members up, every
+   f-budget full and those writes in its write SLO; a demand bundle; the
+   collector process never maps libcuda; cmd.fleet one-shot over the 72
+   APIs exits 0 without importing torch; a collector in this process times
+   its scrapes of the 72 and sees the sidecar's stats as a role=sidecar
+   member with its dispatch occupancy; (e) run_cluster.shutdown, every
+   daemon exits 0.  Every K1 and K2 launch of the sidecar in (b) is held
+   against its plain version;
+16. chaos phase (the port of bftkv_tpu/faults/), each run a process of its
+   own with its launches counted and kept, host thresholds 0 and the verify
+   memo off (one process shares one memo): (a) python
+   -m bftkv_tpu_torch.faults.nemesis --seed 7 --bits 2048 --device cuda:0,
+   the 4 + 1 + 4 chaos cluster on the card; (b) the sidecar chaos form,
+   --steps 12 --sidecar --kinds sidecar_crash,partition,crash_restart,
+   link_delay,sidecar_crash with the flight recorder armed.  Both exit 0
+   (zero safety violations, every fault window in the health feed, no
+   write lost to a sidecar crash, one bundle per window); every K1 and K2
+   launch of the phase is held against its plain version;
+17. each kernel against its plain version on the card, on the operands the
    main paths gave it: K1 verdicts (T=4096, T=1024 and every fault check's
    T=256), K2 sigma (k=94 at T=512 and T=64, k=188), K3's whole
    (4096, 128) diff and K5's Jacobian residues bit-identical;
-17. times: median of 5 timed flushes per verify/RNS-sign phase, 3 for the
+18. times: median of 5 timed flushes per verify/RNS-sign phase, 3 for the
    limb sign and the EC flushes, and kernel times by CUDA events, beside
    nvidia-smi's name and power limit.
 
@@ -268,7 +286,7 @@ PROTO_ROUNDS = 1  # cut from bench.py's 2: the deploy phase runs the same round 
 PROTO_VALUE_BYTES = 1024
 PROTO_WARM = 64
 PROTO_DISPATCH_BATCH = 4096  # bench.py:1689-1692
-PROTO_BUDGET_S = 150.0  # the counted rounds: rounds are cut first, then the batch
+PROTO_BUDGET_S = 75.0  # the counted rounds: rounds are cut first, then the batch (cut from 150 s for the chaos phase's time)
 PROTO_MISSED = 64  # anti-entropy: a batched round one storage node misses
 PROTO_MISSED_SINGLE = 3  # and single writes whose back-fill it misses
 # The deploy phase: the same round as the deployment runs it, one process
@@ -288,6 +306,18 @@ DEPLOY_RPC_TIMEOUT_S = 600.0  # a BATCH_WRITE of 256 items verifies ~11k entries
 DEPLOY_ADMISSION = {"max_inflight": 256, "max_queue": 1024, "max_wait": 20.0}
 DEPLOY_START_S = 300.0  # every daemon's ports up
 DEPLOY_STOP_S = 120.0  # every daemon's exit after SIGTERM
+DEPLOY_FLEET_INTERVAL_S = 2.0  # the collector's scrape interval (run_cluster's default)
+DEPLOY_FLEET_WRITES = 8  # writes through a daemon's client API after the round: its write latency keys
+DEPLOY_FLEET_WAIT_S = 120.0  # until /fleet shows every member up and those writes in its write SLO
+DEPLOY_FLEET_SCRAPES = 3  # timed scrapes of the 72 daemon APIs by a collector in this process
+
+# The chaos phase (the port of bftkv_tpu/faults/ and the rest of bftkv_tpu/obs/):
+# the roadmap's `nemesis --seed 7`, then the documented sidecar chaos form.
+CHAOS_SEED = 7
+CHAOS_BITS = 2048
+CHAOS_SIDECAR_STEPS = 12
+CHAOS_SIDECAR_KINDS = "sidecar_crash,partition,crash_restart,link_delay,sidecar_crash"
+CHAOS_RUN_TIMEOUT_S = 600.0
 
 # Revoke-on-read: BASELINE config 5's shape (256 replicas, 85 colluders) puts
 # 341 signer entries in the read's rows, under the client's
@@ -2988,30 +3018,38 @@ def _daemon_metrics(api_ports) -> list:
     return out
 
 
-def _recorded_bftrw(out: str, argv: list) -> int:
-    """``bftrw.main(argv)`` with its K1 and K2 launches counted and their
-    operands kept: written to ``out`` (torch.save) on the host, beside the
-    time.monotonic() at which main returned (one clock for every process
-    of the host).  A writer runs as
-    ``python -c "import chip_smoke; ..." OUT <bftrw arguments>``."""
-    from bftkv_tpu_torch.cmd import bftrw
+def _recorded_main(out: str, module: str, argv: list) -> int:
+    """``main(argv)`` of the port's command ``module`` (``bftrw``, the chaos
+    nemesis) with its K1 and K2 launches counted and their operands kept:
+    written to ``out`` (torch.save) on the host, beside the time.monotonic()
+    at which main returned (one clock for every process of the host) and
+    the process's counters.  A command runs as
+    ``python -c "import chip_smoke; ..." OUT MODULE <arguments>``."""
+    import importlib
+
     from bftkv_tpu_torch.ops import cuda_rns, rns
 
+    main_ = importlib.import_module(module).main
     with Recorder(cuda_rns, ("verify_cuda", "pow_cuda")) as rec, Counted() as run:
         try:
-            rc = bftrw.main(argv)
+            rc = main_(argv)
         except SystemExit as e:
             rc = e.code if isinstance(e.code, int) else 1
     done = time.monotonic()
     consts = {id(cn): key[:2] for key, cn in rns._consts_cache.items()}
     calls = {name: [(a.cpu(), b.cpu(), idx.cpu(), tuple(u.cpu() for u in ukey), consts[id(cn)])
                     for a, b, idx, ukey, cn in recorded] for name, recorded in rec.calls.items()}
-    torch.save({"rc": rc, "done": done, "launches": run.launches, "calls": calls}, out)
+    torch.save({"rc": rc, "done": done, "launches": run.launches, "calls": calls,
+                "snap": run.snap}, out)
     return rc
 
 
+#: How a recorded command runs: ``[sys.executable, "-c", RECORDED, OUT, MODULE, *argv]``.
+RECORDED = "import sys, chip_smoke; sys.exit(chip_smoke._recorded_main(sys.argv[1], sys.argv[2], sys.argv[3:]))"
+
+
 def _recorded_calls(path: str, part: str, dev) -> tuple[dict, list, list]:
-    """A :func:`_recorded_bftrw` file: (its record, its K1 calls, its K2
+    """A :func:`_recorded_main` file: (its record, its K1 calls, its K2
     calls), the operands back on ``dev`` as (part, args) pairs."""
     from bftkv_tpu_torch.ops import rns
 
@@ -3044,6 +3082,140 @@ def _together(argvs, logs, env) -> tuple[float, float, list]:
     return t0, wall, results
 
 
+def _get_json(url: str):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=120) as res:
+        return json.loads(res.read())
+
+
+def _maps_libcuda(pid: int) -> bool:
+    """Whether process ``pid`` has libcuda mapped: a process holding a
+    context on a card has."""
+    with open(f"/proc/{pid}/maps") as f:
+        return any("libcuda.so" in line for line in f)
+
+
+#: A fleet one-shot in a process that reports, after cmd.fleet's main,
+#: whether it imported torch and initialised CUDA (a JSON line last).
+FLEET_ONESHOT = ("import json, sys\n"
+                 "from bftkv_tpu_torch.cmd import fleet\n"
+                 "rc = fleet.main(sys.argv[1:])\n"
+                 "t = sys.modules.get('torch')\n"
+                 "print(json.dumps({'torch': t is not None, 'cuda': bool(t is not None and t.cuda.is_initialized())}))\n"
+                 "sys.exit(rc)\n")
+
+
+def fleet_health(api_base: int, n_nodes: int, fleet_port: int, collector, sidecar_stats: int,
+                 blackbox: str, env: dict) -> dict:
+    """Deploy (f), the fleet health plane (the port of bftkv_tpu/obs/ and
+    cmd/fleet.py) over the deployed fleet: DEPLOY_FLEET_WRITES writes through
+    a daemon's client API (the user's home), then run_cluster's collector
+    process (``--fleet``, ``--recorder``) must list all 72 members up, every
+    shard's f-budget full and those writes in the merged write SLO (the
+    daemons' fixed-bucket latency keys); a demand bundle lands under the
+    recorder's directory; the collector process has no libcuda mapped
+    and is no compute app of the card; ``cmd.fleet`` one-shot over the 72
+    APIs exits 0 in a process that never imports torch; a collector in this
+    process times DEPLOY_FLEET_SCRAPES scrapes of the 72 APIs, and one over
+    the 72, the gateway and the sidecar's stats port sees the sidecar as a
+    ``role=sidecar`` member whose capacity row holds its dispatchers'
+    occupancy on the card."""
+    import urllib.request
+
+    from bftkv_tpu_torch.obs import FleetCollector, HTTPSource
+
+    out = {}
+    t0 = time.perf_counter()
+    for i in range(DEPLOY_FLEET_WRITES):
+        req = urllib.request.Request(f"http://127.0.0.1:{api_base}/write/deploy/fleet/{i}",
+                                     data=b"slo-%d" % i, method="POST")
+        with urllib.request.urlopen(req, timeout=DEPLOY_RPC_TIMEOUT_S) as res:
+            check(res.status == 200, f"a write through the daemon API answered {res.status}")
+    out["api_writes_ms"] = (time.perf_counter() - t0) * 1e3
+    with urllib.request.urlopen(f"http://127.0.0.1:{api_base + 1}/read/deploy/fleet/0",
+                                timeout=DEPLOY_RPC_TIMEOUT_S) as res:
+        check(res.read() == b"slo-0", "a write through the daemon API does not read back")
+
+    url = f"http://127.0.0.1:{fleet_port}"
+    t0 = time.perf_counter()
+    while True:
+        doc = _get_json(url + "/fleet")
+        writes = sum(sd["slo"].get("write", {}).get("count", 0) for sd in doc.get("shards", {}).values())
+        if doc.get("fleet", {}).get("up") == n_nodes and writes >= DEPLOY_FLEET_WRITES:
+            break
+        check(collector.poll() is None, f"the fleet collector exited {collector.returncode}")
+        check(time.perf_counter() - t0 < DEPLOY_FLEET_WAIT_S,
+              f"/fleet after {DEPLOY_FLEET_WAIT_S:.0f} s: {doc.get('fleet')}, write SLO count {writes}")
+        time.sleep(0.5)
+    wait_s = time.perf_counter() - t0
+    fl = doc["fleet"]
+    check(fl["daemons"] == n_nodes and not fl.get("down") and not fl.get("unseated"), f"/fleet: {fl}")
+    budgets = {sh: sd["f_budget"] for sh, sd in doc["shards"].items()}
+    check(all(b["remaining"] == b["f"] and not b["down"] and not b["storage_down"] for b in budgets.values()),
+          f"a shard's f-budget is not full: {budgets}")
+    slo = {sh: sd["slo"]["write"] for sh, sd in doc["shards"].items() if "write" in sd["slo"]}
+    with urllib.request.urlopen(url + "/fleet?format=prometheus", timeout=120) as res:
+        prom = res.read().decode()
+    check("bftkv_fleet_write_latency_bucket" in prom, "/fleet's Prometheus text has no write latency histogram")
+    req = urllib.request.Request(url + "/fleet/bundle", data=b"", method="POST")
+    with urllib.request.urlopen(req, timeout=120) as res:
+        bundle = json.loads(res.read())["bundle"]
+    check(bundle.startswith(blackbox) and os.path.exists(os.path.join(bundle, "manifest.json")),
+          f"the demand bundle {bundle} is not under {blackbox}")
+    apps = _card_pids()
+    check(not _maps_libcuda(collector.pid) and collector.pid not in apps,
+          f"the fleet collector (pid {collector.pid}) has libcuda mapped; the card's apps {apps}")
+
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", FLEET_ONESHOT, "--api-base", str(api_base), "--count",
+                        str(n_nodes), "--json"], env=env, capture_output=True, timeout=600)
+    oneshot_s = time.perf_counter() - t0
+    text = r.stdout.decode()
+    check(r.returncode == 0 and "\n{" in text, f"cmd.fleet one-shot exited {r.returncode}: {r.stderr[-600:]!r}")
+    one, state = json.loads(text[: text.rindex("\n{")]), json.loads(text[text.rindex("\n{"):])
+    check(one["fleet"]["up"] == n_nodes, f"cmd.fleet one-shot: {one['fleet']}")
+    check(state == {"torch": False, "cuda": False}, f"the cmd.fleet process: {state}")
+
+    coll = FleetCollector([HTTPSource(f"127.0.0.1:{api_base + i}") for i in range(n_nodes)])
+    scrapes = []
+    for _ in range(DEPLOY_FLEET_SCRAPES):
+        t0 = time.perf_counter()
+        d72 = coll.scrape_once()
+        scrapes.append(time.perf_counter() - t0)
+    check(d72["fleet"]["up"] == n_nodes, f"this process's collector: {d72['fleet']}")
+    sources = [HTTPSource(f"127.0.0.1:{p}") for p in range(api_base, sidecar_stats + 1)]
+    d74 = FleetCollector(sources).scrape_once()
+    sc = d74.get("sidecars") or {}
+    check(len(sc) == 1 and all(m["status"] == "up" for m in sc.values()), f"the sidecar member: {sc}")
+    (sc_name,) = sc
+    sc_disp = ((d74.get("capacity") or {}).get("members", {}).get(sc_name) or {}).get("dispatch") or {}
+    check(bool(sc_disp.get("dispatchers")) and sc_disp["utilization"] > 0,
+          f"the sidecar's capacity row has no dispatch occupancy: {sc_disp}")
+    check(d74["fleet"]["up"] == n_nodes + 2, f"the 72 daemons, the gateway and the sidecar: {d74['fleet']}")
+    out.update(
+        members=fl["daemons"], up=fl["up"], wait_s=wait_s, shards=len(budgets), budgets=budgets,
+        write_slo={sh: {k: v for k, v in w.items() if k != "buckets"} for sh, w in slo.items()},
+        anomalies=len(doc.get("anomalies", [])),
+        traces={k: v for k, v in doc.get("traces", {}).items() if k in ("traces", "stitched")},
+        bundle=os.path.basename(bundle), collector_pid=collector.pid, oneshot_s=oneshot_s,
+        oneshot_process=state, scrape_s_72=scrapes,
+        sidecar_member={"name": sc_name, "dispatch": sc_disp,
+                        "device": (sc[sc_name].get("device_plane") or {}).get("device")},
+    )
+    print(f"deploy (f) fleet: run_cluster --fleet --recorder: /fleet lists {fl['up']}/{fl['daemons']} members up "
+          f"{wait_s:.1f} s after {DEPLOY_FLEET_WRITES} writes through a daemon's API "
+          f"({out['api_writes_ms']:.1f} ms), {len(budgets)} shard(s) at a full f-budget "
+          f"{[(b['remaining'], b['f']) for b in budgets.values()]}, write SLO "
+          f"{ {sh: (w['count'], w.get('p99_le_s')) for sh, w in slo.items()} } (count, p99 bound s); demand "
+          f"bundle {os.path.basename(bundle)}; the collector process never mapped libcuda; cmd.fleet one-shot over "
+          f"{n_nodes} APIs exit 0 in {oneshot_s:.1f} s, torch never imported; this process's collector scrapes "
+          f"the {n_nodes} APIs in {', '.join(f'{t * 1e3:.1f}' for t in scrapes)} ms; over {len(sources)} "
+          f"(the gateway and the sidecar's stats) it sees {sc_name} up on {out['sidecar_member']['device']}, "
+          f"dispatch utilization {sc_disp['utilization']}", flush=True)
+    return out
+
+
 def deploy_phase(dev, replicas, writers, storage_keys, seed: int) -> dict:
     """The process surfaces (the port of bftkv_tpu/cmd/, gateway/, workload/,
     obs/source.py, obs/profiler.py): the headline's round, bench.py's
@@ -3061,7 +3233,7 @@ def deploy_phase(dev, replicas, writers, storage_keys, seed: int) -> dict:
     the daemons' handler p50s; no daemon falls back to local crypto, the
     sidecar sheds nothing, no daemon holds a context on the card (by its
     own gauge, and no daemon pid among nvidia-smi's compute apps); the
-    writers run bftrw's main under _recorded_bftrw, and every K1 and K2
+    writers run bftrw's main under _recorded_main, and every K1 and K2
     launch of the round, the sidecar's and the writers' own, is held
     against its plain version.  (c) run_gateway with --sidecar in front of the fleet: 64 keys
     read twice through a GatewayClient, the second pass from the gateway's
@@ -3093,15 +3265,20 @@ def deploy_phase(dev, replicas, writers, storage_keys, seed: int) -> dict:
     here = os.path.dirname(os.path.abspath(__file__))
     os.environ["PYTHONPATH"] = os.pathsep.join(p for p in (here, os.environ.get("PYTHONPATH")) if p)
     env = dict(os.environ, BFTKV_RPC_TIMEOUT=str(DEPLOY_RPC_TIMEOUT_S))
-    fleet, gw_proc, srv = [], None, None
+    procs, fleet, gw_proc, srv = [], [], None, None
     try:
         # (a) homes, the sidecar, the fleet
         t0 = time.perf_counter()
         n, e, d, p, q = _gen_key(seed * 1000 + N_REPLICAS + N_WRITERS + N_STORAGE)
         gw_key = rsa.PrivateKey(n=n, e=e, d=d, p=p, q=q)
         n_nodes = N_REPLICAS + N_STORAGE
-        base = _free_port_block(2 * (n_nodes + 1))
+        # The nodes and the gateway, their APIs, the sidecar's stats port
+        # and the fleet collector's /fleet.
+        base = _free_port_block(2 * (n_nodes + 1) + 2)
         api_base = base + n_nodes + 1
+        sidecar_stats = api_base + n_nodes + 1
+        fleet_port = sidecar_stats + 1
+        blackbox = os.path.join(root, "blackbox")
         uni = topology.build_universe(
             N_REPLICAS, N_WRITERS, N_STORAGE, scheme="http", base_port=base,
             rw_base_port=base + N_REPLICAS, gw_base_port=base + n_nodes, n_gateways=1,
@@ -3117,7 +3294,8 @@ def deploy_phase(dev, replicas, writers, storage_keys, seed: int) -> dict:
         os.environ.update(BFTKV_DISPATCH_RECAL_S="0")
         try:
             srv, _thread = vs.serve(sock, max_batch=VERIFY_FLUSH, device=dev,
-                                    admission=AdmissionQueue(**DEPLOY_ADMISSION, metric="sidecar.shed"))
+                                    admission=AdmissionQueue(**DEPLOY_ADMISSION, metric="sidecar.shed"),
+                                    stats=f"127.0.0.1:{sidecar_stats}")
         finally:
             if prev is None:
                 os.environ.pop("BFTKV_DISPATCH_RECAL_S")
@@ -3133,10 +3311,18 @@ def deploy_phase(dev, replicas, writers, storage_keys, seed: int) -> dict:
         check(len(libs) >= 2, f"the native libraries are not built before the fleet starts: {sorted(libs)}")
         host_before = _host_used_bytes()
         t0 = time.perf_counter()
-        fleet = run_cluster.spawn(
+        # The fleet health plane rides beside the daemons: the collector
+        # process (python -m bftkv_tpu_torch.cmd.fleet --listen, host only)
+        # with its flight recorder.
+        procs = run_cluster.spawn(
             [homes[n] for n in node_names], os.path.join(root, "dbs"), storage="mem",
             api_base=api_base, sidecar=sock, rpc_timeout=DEPLOY_RPC_TIMEOUT_S, extra_env=env,
-            device=str(dev), log_dir=logs)
+            device=str(dev), log_dir=logs, fleet=fleet_port, fleet_interval=DEPLOY_FLEET_INTERVAL_S,
+            recorder=blackbox, client_home=homes[uni.users[0].name])
+        fleet = [p for p in procs if "bftkv_tpu_torch.cmd.bftkv" in p.args]
+        collector = [p for p in procs if "bftkv_tpu_torch.cmd.fleet" in p.args]
+        check(len(fleet) == n_nodes and len(collector) == 1,
+              f"run_cluster.spawn started {len(fleet)} daemons and {len(collector)} collectors")
         api_ports = [api_base + i for i in range(n_nodes)]
         # The gateway starts beside the fleet, as run_cluster starts it, so
         # its ports are bound before the round's connections take local
@@ -3149,7 +3335,8 @@ def deploy_phase(dev, replicas, writers, storage_keys, seed: int) -> dict:
                  "--sidecar", sock, "--device", str(dev), "--api", f"127.0.0.1:{gw_api}",
                  "--rpc-timeout", str(DEPLOY_RPC_TIMEOUT_S)],
                 env=env, stdout=glog, stderr=subprocess.STDOUT)
-        _wait_ports(list(range(base, base + n_nodes)) + api_ports, fleet, DEPLOY_START_S, "the fleet")
+        _wait_ports(list(range(base, base + n_nodes)) + api_ports + [fleet_port], procs, DEPLOY_START_S,
+                    "the fleet")
         spawn_s = time.perf_counter() - t0
         _wait_ports([gw_port, gw_api], [gw_proc], DEPLOY_START_S, "the gateway")
         gw_start_s = time.perf_counter() - t0
@@ -3196,7 +3383,7 @@ def deploy_phase(dev, replicas, writers, storage_keys, seed: int) -> dict:
             return items
 
         # The counted round's writers run bftrw's main under
-        # _recorded_bftrw: their own launches on the card (the client's
+        # _recorded_main: their own launches on the card (the client's
         # collective-signature verifies and self-signs) are counted and
         # held against their plain versions with the sidecar's.
         writer_runs = []
@@ -3206,9 +3393,8 @@ def deploy_phase(dev, replicas, writers, storage_keys, seed: int) -> dict:
             if not recorded:
                 return _together(argvs, logs_, env)[1:]
             outs = [log + ".pt" for log in logs_]
-            call = "import sys, chip_smoke; sys.exit(chip_smoke._recorded_bftrw(sys.argv[1], sys.argv[2:]))"
-            t0, _wall, res = _together([[sys.executable, "-c", call, out, *argv[3:]] for argv, out in zip(argvs, outs)],
-                                       logs_, env)
+            t0, _wall, res = _together([[sys.executable, "-c", RECORDED, out, "bftkv_tpu_torch.cmd.bftrw",
+                                         *argv[3:]] for argv, out in zip(argvs, outs)], logs_, env)
             done = 0.0
             for w, (out, (rc, _o, err)) in enumerate(zip(outs, res)):
                 check(rc == 0 and os.path.exists(out), f"writer {w} ({tag} {op}): rc {rc}, {err[-400:]!r}")
@@ -3388,6 +3574,9 @@ def deploy_phase(dev, replicas, writers, storage_keys, seed: int) -> dict:
               f"scheduled, {rep['offered_ops']} run), achieved {rep['achieved_rate_per_sec']} ops/s, p50 "
               f"{rep['p50_offered_s']} s, p99 {rep['p99_offered_s']} s from the scheduled start, backlog "
               f"{rep['backlog']}, ops {rep['ops']}, errors 0", flush=True)
+
+        # (f) the fleet health plane over the deployed fleet
+        out["health"] = fleet_health(api_base, n_nodes, fleet_port, collector[0], sidecar_stats, blackbox, env)
     finally:
         # (e) teardown: the gateway, the fleet, the sidecar
         if gw_proc is not None:
@@ -3398,13 +3587,15 @@ def deploy_phase(dev, replicas, writers, storage_keys, seed: int) -> dict:
         dump = threading.Timer(DEPLOY_STOP_S - 5.0, lambda: [p.send_signal(signal.SIGUSR1)
                                                              for p in fleet if p.poll() is None])
         dump.start()
-        run_cluster.shutdown(fleet, timeout=DEPLOY_STOP_S)
+        run_cluster.shutdown(procs, timeout=DEPLOY_STOP_S)
         dump.cancel()
         stop_s = time.perf_counter() - t0
         if srv is not None:
             srv.service.stop()
             srv.shutdown()
             srv.server_close()
+            if srv.stats_httpd is not None:
+                srv.stats_httpd.shutdown()
     rcs = [p.returncode for p in fleet]
     if not rcs or any(rc != 0 for rc in rcs):
         stuck = [(n, rc) for n, rc in zip(node_names, rcs) if rc != 0]
@@ -3430,6 +3621,119 @@ def deploy_phase(dev, replicas, writers, storage_keys, seed: int) -> dict:
     print(f"deploy: every sidecar and writer launch of the round equal to its plain version ({out['held_against_plain']}); "
           f"cuts {out['cuts'] or 'none'}; phase {out['phase_s']:.1f} s on {nvidia_smi('name,power.limit')}",
           flush=True)
+    return out
+
+
+def chaos_phase(dev) -> dict:
+    """16. The chaos phase (the port of bftkv_tpu/faults/ and the rest of
+    bftkv_tpu/obs/): the port's nemesis as its command runs it, ``python -m
+    bftkv_tpu_torch.faults.nemesis``, each run a process of its own under
+    _recorded_main (its K1/K2 launches counted and their operands kept; the
+    failpoint registry and the dispatchers it installs are process-wide and
+    end with it), with the host thresholds at 0 so every verify and sign
+    batch of the chaos cluster, however small, runs on the card (the
+    default crossovers keep a 4 + 4 cluster's batches on the host), and the
+    verify memo off: in one process every node's signature is seeded into
+    the one shared memo by its signer, so no verify would ever reach a
+    kernel, where a deployed replica verifies what it receives: (a) the
+    roadmap's stop condition, ``--seed 7 --bits 2048``: the reference's 4 +
+    1 + 4 cluster (3f+1, f=1) with 2048-bit keys, every node on the card,
+    its fleet collector watching; (b) the documented sidecar chaos form,
+    ``--seed 7 --steps 12 --bits 2048 --sidecar --kinds sidecar_crash,
+    partition,crash_restart,link_delay,sidecar_crash`` with
+    BFTKV_FLIGHT_RECORDER=1: the cluster's verifies and signs through the
+    embedded sidecar on the card, zero failed writes in its crash windows,
+    sidecar_down raised in each, sign-key handles registered again after
+    each restart, one flight-recorder bundle per fault window.  Both must
+    exit 0.  Every K1 and K2 launch of the phase is held against its plain
+    version; each kernel must launch at least once over the phase."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="smoke-chaos-")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, BFTKV_HOST_VERIFY_THRESHOLD="0", BFTKV_HOST_SIGN_THRESHOLD="0", BFTKV_VERIFY_CACHE="0",
+               PYTHONPATH=os.pathsep.join(p for p in (here, os.environ.get("PYTHONPATH")) if p))
+    blackbox = os.path.join(root, "blackbox")
+    common = ["--seed", str(CHAOS_SEED), "--bits", str(CHAOS_BITS), "--device", str(dev), "--json"]
+    runs = [
+        ("a", "nemesis", common, {}),
+        ("b", "sidecar chaos", common + ["--steps", str(CHAOS_SIDECAR_STEPS), "--sidecar", "--kinds",
+                                         CHAOS_SIDECAR_KINDS],
+         {"BFTKV_FLIGHT_RECORDER": "1", "BFTKV_RECORDER_DIR": blackbox}),
+    ]
+    out = {"host_thresholds": 0, "verify_cache": "off", "runs": {}}
+    k1_all, k2_all = [], []
+    for tag, label, argv, extra in runs:
+        rec_path = os.path.join(root, f"{tag}.pt")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-c", RECORDED, rec_path, "bftkv_tpu_torch.faults.nemesis", *argv],
+                           env=dict(env, **extra), capture_output=True, timeout=CHAOS_RUN_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        text = r.stdout.decode()
+        start = text.find('{\n  "seed"')
+        check(start >= 0 and os.path.exists(rec_path),
+              f"chaos ({tag}) {label}: exit {r.returncode}, no report; {text[-800:]!r} {r.stderr[-1500:]!r}")
+        report = json.loads(text[start:])
+        failed = {k: report[k] for k in ("violations", "undetected", "gray_blocked", "sidecar_blocked",
+                                         "region_blocked", "recorder_missing") if report[k]}
+        check(r.returncode == 0 and report["converged"] and not failed,
+              f"chaos ({tag}) {label}: exit {r.returncode}, converged {report['converged']}, {failed}")
+        got, k1, k2 = _recorded_calls(rec_path, f"chaos ({tag})", dev)
+        check(got["rc"] == 0, f"chaos ({tag}): main returned {got['rc']}")
+        launches, snap = got["launches"], got["snap"]
+        check(len(k1) == launches["verify"] and len(k2) == launches["pow"]
+              and not any(v for name, v in launches.items() if name not in ("verify", "pow")),
+              f"chaos ({tag}): recorded launches {len(k1)}, {len(k2)} differ from the counts {launches}")
+        k1_all += k1
+        k2_all += k2
+        det = report["detection"]
+        rows = lambda calls: sum(a[0].shape[0] for _p, a in calls)
+        run = {
+            "argv": argv, "wall_s": wall, "steps": len(report["plan"]),
+            "kinds": [s_["kind"] for s_ in report["plan"]],
+            "faults_fired": report["faults_fired"], "detected": sum(d["detected"] for d in det),
+            "windows": len(det), "anomalies": [d["anomaly"] for d in det], "failures": report["failures"],
+            "anomaly_feed": report["anomalies"],
+            "k1_launches": launches["verify"], "k1_rows": rows(k1),
+            "k2_launches": launches["pow"], "k2_rows": rows(k2),
+            "counters": {k: snap.get(k, 0) for k in (
+                "verify.device", "verify.host", "sign.device", "sign.host", "verify.remote", "sign.remote",
+                "verify.remote_fallback", "sign.remote_fallback", "verify.remote_breaker_open",
+                "sign.remote_register", "crypto.sidecar.dishonest")},
+        }
+        if tag == "b":
+            crashes = [d for d in det if d["kind"] == "sidecar_crash"]
+            check(bool(crashes) and all(d["anomaly"] in ("sidecar_down", "sidecar_dishonest") for d in crashes),
+                  f"chaos (b): a sidecar_crash window without sidecar_down: {crashes}")
+            check(run["counters"]["sign.remote_register"] >= len(crashes) + 1,
+                  f"chaos (b): {run['counters']['sign.remote_register']} sign-key registrations over "
+                  f"{len(crashes)} sidecar restarts")
+            windows = [d for d in det if d["anomaly"] != "vacuous"]
+            bundles = sorted(n for n in os.listdir(blackbox) if n.startswith("bundle-"))
+            check(all(d.get("bundles") == 1 for d in windows) and len(bundles) >= len(windows),
+                  f"chaos (b): bundles per window {[d.get('bundles') for d in windows]}, {len(bundles)} on disk")
+            run.update(sidecar_crash_windows=len(crashes), bundles_on_disk=len(bundles),
+                       recorder=report["recorder"] and {k: v for k, v in report["recorder"].items() if k != "dir"})
+        out["runs"][tag] = run
+        print(f"chaos ({tag}) {label}: python -m bftkv_tpu_torch.faults.nemesis {' '.join(argv)} exit 0 in "
+              f"{wall:.1f} s (process start and key generation included); plan {run['kinds']}; faults fired "
+              f"{run['faults_fired']}, windows detected {run['detected']}/{run['windows']} as {run['anomalies']}; "
+              f"failures {run['failures']}; on {dev}: K1 {run['k1_launches']} launches ({run['k1_rows']} rows), "
+              f"K2 {run['k2_launches']} ({run['k2_rows']} rows); counters {run['counters']}"
+              + (f"; {run['sidecar_crash_windows']} sidecar crash windows, {run['bundles_on_disk']} bundles on disk"
+                 if tag == "b" else ""), flush=True)
+    check(len(k1_all) >= 1 and len(k2_all) >= 1,
+          f"the chaos phase launched K1 {len(k1_all)} and K2 {len(k2_all)} times")
+    hold_rns_calls(k1_all, k2_all, "chaos phase")
+    torch.cuda.synchronize()
+    out["held_against_plain"] = {"K1": len(k1_all), "K2": len(k2_all)}
+    out["records"] = rns_main_shape_records(k1_all, k2_all, "chaos phase")
+    shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"chaos: every K1 and K2 launch of the phase equal to its plain version ({out['held_against_plain']}); "
+          f"phase {out['phase_s']:.1f} s on {nvidia_smi('name,power.limit')}", flush=True)
     return out
 
 
@@ -3807,6 +4111,9 @@ def main() -> int:
     # daemon process per replica, the card behind one sidecar
     deploy = deploy_phase(dev, replicas, writers, storage_keys, args.seed)
 
+    # 16. chaos phase: the port's nemesis on the card, and its sidecar form
+    chaos = chaos_phase(dev)
+
     v_med, s_med = statistics.median(v_times), statistics.median(s_times)
     p_med, l_med = statistics.median(p_times), statistics.median(l_times)
     print(f"verify flush (rns): median {v_med * 1e3:.3f} ms of {TIMED_REPS} "
@@ -3832,7 +4139,7 @@ def main() -> int:
           f"({SIGN_SHARES // SIDECAR_TENANTS} shares) beside the in-process rns sign flush "
           f"{s_med * 1e3:.3f} ms", flush=True)
 
-    # 16. each kernel against its plain version, on the main paths' operands
+    # 17. each kernel against its plain version, on the main paths' operands
     v_args = [a for a in rec_v.calls["verify_cuda"] if a[0].shape[0] == VERIFY_FLUSH]
     check(len(v_args) == 1, f"expected one {VERIFY_FLUSH}-row verify launch")
     p_args = rec_s.calls["pow_cuda"]
@@ -3904,6 +4211,7 @@ def main() -> int:
     kernels += crypto.pop("records")
     kernels += protocol.pop("records")
     kernels += deploy.pop("records")
+    kernels += chaos.pop("records")
     print(f"K1 before its redesign, not measured in this run ({K1_EARLIER_OF}): "
           + ", ".join(f"T={t} {ms} ms" for t, ms in K1_EARLIER_MS.items())
           + "; this run: " + ", ".join(f"T={r['rows']} {r['ms']:.4f} ms" for r in kernels[0:3]),
@@ -3942,9 +4250,10 @@ def main() -> int:
         "crypto": crypto,
         "protocol": protocol,
         "deploy": deploy,
+        "chaos": chaos,
     }), flush=True)
 
-    # 17. the card, as nvidia-smi reports it
+    # 18. the card, as nvidia-smi reports it
     print(nvidia_smi("name,power.limit") or "nvidia-smi: no output", flush=True)
     print(json.dumps({
         "ok": True,

@@ -63,6 +63,7 @@ def cluster(tmp_path_factory):
     dbs = str(tmp / "dbs")
     base = free_port_block(8)
     api = free_port_block(9)
+    fleet_port = free_port_block(1)
     gen = run_cmd([
         "bftkv_tpu_torch.cmd.genkeys", "--out", keys,
         "--servers", "4", "--rw", "4", "--users", "1", "--bits", "1024",
@@ -82,12 +83,17 @@ def cluster(tmp_path_factory):
         # process (a unix socket under dbs), so every case below runs
         # the sidecar path too.
         sidecar="auto", device="cpu",
+        # The health plane beside it: the collector process scrapes the
+        # 8 daemons and the sidecar's stats port, with a flight recorder.
+        fleet=fleet_port, fleet_interval=0.5, recorder=str(tmp / "blackbox"),
     )
     try:
         for port in range(base, base + 8):
             wait_port(port)
         wait_port(api)
-        yield {"keys": keys, "dbs": dbs, "procs": procs, "api": api, "base": base}
+        wait_port(fleet_port)
+        yield {"keys": keys, "dbs": dbs, "procs": procs, "api": api, "base": base,
+               "fleet": fleet_port, "recorder": str(tmp / "blackbox")}
     finally:
         run_cluster.shutdown(procs)
 
@@ -346,18 +352,85 @@ def test_genkeys_homes_load_in_both_packages(tmp_path, writer):
 
 
 def test_run_cluster_refuses_the_fleet_collector(tmp_path):
-    """``--fleet`` (and ``--recorder``/``--autopilot``) need the fleet
-    collector, which the port does not have yet: the runner exits 2 with a
-    message naming it, and ``spawn`` raises before any process starts."""
+    """What of the health plane the runner still refuses: ``--autopilot``
+    (the topology autopilot is not ported) exits 2 naming ``autopilot/``,
+    and ``spawn`` raises before any process starts, for the autopilot and
+    for ``--fleet`` without ``--api-base`` (the reference's precondition).
+    ``--fleet`` and ``--recorder`` themselves run: see the ``cluster``
+    fixture and :func:`test_fleet_collector_beside_the_port_daemons`."""
     from bftkv_tpu_torch.cmd import run_cluster
 
     r = run_cmd(["bftkv_tpu_torch.cmd.run_cluster", "--keys", str(tmp_path / "k"),
-                 "--db-root", str(tmp_path / "d"), "--fleet", "7899", "--device", "cpu"])
-    assert r.returncode == 2 and b"fleet collector" in r.stderr, r.stderr.decode()
-    for kw in ({"fleet": 7899, "api_base": 7000}, {"recorder": "x"}, {"autopilot": True}):
-        with pytest.raises(ValueError, match="fleet collector"):
+                 "--db-root", str(tmp_path / "d"), "--fleet", "7899", "--autopilot",
+                 "--device", "cpu"])
+    assert r.returncode == 2 and b"autopilot/" in r.stderr, r.stderr.decode()
+    for kw, msg in (({"fleet": 7899, "api_base": 7000, "autopilot": True}, "autopilot/"),
+                    ({"autopilot": True}, "autopilot/"),
+                    ({"fleet": 7899}, "needs --api-base")):
+        with pytest.raises(ValueError, match=msg):
             run_cluster.spawn(["h"], str(tmp_path / "d"), device="cpu", **kw)
     assert not (tmp_path / "d").exists()
+
+
+def _get_json(url: str):
+    with urllib.request.urlopen(url, timeout=30) as res:
+        return json.loads(res.read())
+
+
+def test_fleet_collector_beside_the_port_daemons(cluster):
+    """``run_cluster --fleet --recorder`` over the port's daemons: the
+    collector process serves /fleet with the 8 daemons and the sidecar
+    (``role=sidecar``) up, both shard budgets full and the capacity
+    plane's dispatch row filled; a write through a
+    daemon's API reaches the fleet's write SLO (the daemons' fixed-bucket
+    latency keys); ``cmd.fleet`` one-shot over the same APIs exits 0 in
+    JSON and text; the collector answers 404 to a garbage trace id and
+    POST /fleet/bundle writes a bundle under the recorder's directory;
+    the daemons' /trace answers hostile ``since`` values."""
+    import urllib.error
+
+    fleet = f"http://127.0.0.1:{cluster['fleet']}"
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{cluster['api']}/write/smoke/fleet", data=b"slo", method="POST",
+    )
+    with urllib.request.urlopen(req, timeout=60) as res:
+        assert res.status == 200
+    deadline = time.monotonic() + 60
+    doc = {}
+    while time.monotonic() < deadline:
+        doc = _get_json(fleet + "/fleet")
+        slo = [sd.get("slo", {}).get("write", {}).get("count", 0) for sd in doc.get("shards", {}).values()]
+        if doc.get("fleet", {}).get("up") == 9 and sum(slo) >= 1:
+            break
+        time.sleep(0.5)
+    assert doc["fleet"]["daemons"] == 9 and doc["fleet"]["up"] == 9, doc["fleet"]
+    assert doc["sidecars"]["sidecar01"]["status"] == "up"
+    assert doc["sidecars"]["sidecar01"]["device_plane"]["device"] == "cpu"
+    # The capacity plane's dispatch row reads the daemons' dispatchers.
+    assert doc["capacity"]["fleet"]["dispatch"]["utilization"] > 0
+    for sd in doc["shards"].values():
+        assert sd["f_budget"]["remaining"] == sd["f_budget"]["f"] == 1, sd["f_budget"]
+    assert sum(sd["slo"]["write"]["count"] for sd in doc["shards"].values() if "write" in sd["slo"]) >= 1
+
+    args = ["bftkv_tpu_torch.cmd.fleet", "--api-base", str(cluster["api"]), "--count", "9"]
+    r = run_cmd(args + ["--json"])
+    assert r.returncode == 0, r.stderr.decode()
+    one = json.loads(r.stdout)
+    assert one["fleet"]["up"] == 9
+    r = run_cmd(args + ["--capacity"])
+    assert r.returncode == 0 and b"budget 1/1" in r.stdout, r.stdout.decode()
+
+    try:
+        urllib.request.urlopen(fleet + "/fleet/trace/garbage%00", timeout=30)
+        raise AssertionError("a garbage trace id answered 200")
+    except urllib.error.HTTPError as e:
+        assert e.code == 404
+    req = urllib.request.Request(fleet + "/fleet/bundle", data=b"", method="POST")
+    bundle = json.loads(urllib.request.urlopen(req, timeout=60).read())["bundle"]
+    assert bundle.startswith(cluster["recorder"]) and os.path.exists(os.path.join(bundle, "manifest.json"))
+    for since in ("abc", "-5", "1e4"):
+        got = _get_json(f"http://127.0.0.1:{cluster['api']}/trace?since={since}")
+        assert {"cursor", "dropped", "spans", "slow"} <= set(got)
 
 
 def test_default_chaos_program_arms_the_references_rules():

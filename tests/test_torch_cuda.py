@@ -999,3 +999,66 @@ def test_sidecar_fleet_daemons_hold_no_card_context(dev, tmp_path):
     finally:
         run_cluster.shutdown(procs)
     assert all(p.returncode == 0 for p in procs if "bftkv_tpu_torch.cmd.bftkv" in p.args)
+
+
+# -- the health plane and the chaos nemesis on the card ------------------------
+
+
+def test_nemesis_seed_7_on_the_card_launches_k1(dev, monkeypatch, capsys):
+    """``nemesis --seed 7 --steps 2 --bits 2048 --device cuda:0``: the
+    chaos cluster's nodes verify on the card (host thresholds 0, so every
+    collective and writer-signature verify batch launches K1; the verify
+    memo off, since in one process every node's own signature is seeded
+    into the one shared memo) and the run exits 0 with K1 launched and
+    counted."""
+    from bftkv_tpu_torch.crypto import vcache
+    from bftkv_tpu_torch.faults import nemesis
+    from bftkv_tpu_torch.faults import failpoint as fp
+
+    monkeypatch.setenv("BFTKV_HOST_VERIFY_THRESHOLD", "0")
+    monkeypatch.setenv("BFTKV_HOST_SIGN_THRESHOLD", "0")
+    monkeypatch.setattr(vcache, "_ENABLED", False)
+    cuda_rns.reset_launches()
+    try:
+        rc = nemesis.main(["--seed", "7", "--steps", "2", "--bits", "2048", "--device", "cuda:0"])
+    finally:
+        fp.disarm()
+    out = capsys.readouterr().out
+    assert rc == 0, out[-3000:]
+    assert "nemesis: ok" in out
+    assert cuda_rns.LAUNCHES["verify"] >= 1, cuda_rns.LAUNCHES
+
+
+def test_fleet_cli_against_a_sidecar_fleet_holds_no_card_context(dev, tmp_path):
+    """``cmd.fleet --scrapes 1`` against a ``--sidecar auto`` fleet on
+    ``cuda:0``: the one-shot sees the 8 daemons and the sidecar up, exits
+    0, and its process never initialises CUDA (it does not even import
+    torch)."""
+    import json
+    import subprocess
+
+    from bftkv_tpu_torch.cmd import run_cluster
+
+    admission = {"BFTKV_SIDECAR_MAX_INFLIGHT": "64", "BFTKV_SIDECAR_MAX_QUEUE": "256",
+                 "BFTKV_SIDECAR_MAX_WAIT": "20"}
+    keys, procs, apis, env, python = _card_fleet(tmp_path, 7400, admission, sidecar="auto")
+    try:
+        _bftrw_write_read(keys, env, python)
+        code = ("import json, sys\n"
+                "from bftkv_tpu_torch.cmd import fleet\n"
+                "rc = fleet.main(sys.argv[1:])\n"
+                "t = sys.modules.get('torch')\n"
+                "print(json.dumps({'torch': t is not None,"
+                " 'cuda': bool(t is not None and t.cuda.is_initialized())}))\n"
+                "sys.exit(rc)\n")
+        r = subprocess.run([python, "-c", code, "--api-base", str(apis[0]), "--count", "9",
+                            "--scrapes", "1", "--json"], env=env, capture_output=True, timeout=120)
+        assert r.returncode == 0, r.stderr[-2000:]
+        text = r.stdout.decode()
+        doc = json.loads(text[: text.rindex("\n{")])
+        state = json.loads(text[text.rindex("\n{"):])
+        assert doc["fleet"]["up"] == 9 and doc["sidecars"]["sidecar01"]["status"] == "up"
+        assert doc["sidecars"]["sidecar01"]["device_plane"]["device"] == "cuda:0"
+        assert state == {"torch": False, "cuda": False}
+    finally:
+        run_cluster.shutdown(procs)

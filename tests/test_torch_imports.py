@@ -90,6 +90,11 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import bftkv_tpu_torch.workload.universe, bftkv_tpu_torch.workload.driver\n"
         "import bftkv_tpu_torch.gateway, bftkv_tpu_torch.gateway.cache, bftkv_tpu_torch.gateway.coalesce\n"
         "import bftkv_tpu_torch.gateway.client, bftkv_tpu_torch.gateway.gateway\n"
+        "import bftkv_tpu_torch.obs.stitch, bftkv_tpu_torch.obs.critpath, bftkv_tpu_torch.obs.capacity\n"
+        "import bftkv_tpu_torch.obs.collector, bftkv_tpu_torch.obs.recorder, bftkv_tpu_torch.obs.http\n"
+        "import bftkv_tpu_torch.cmd.fleet, bftkv_tpu_torch.faults.byzantine\n"
+        "import bftkv_tpu_torch.faults.checker, bftkv_tpu_torch.faults.harness\n"
+        "import bftkv_tpu_torch.faults.nemesis\n"
         "from bftkv_tpu_torch.ops import _build\n"
         "new = set(sys.modules) - before\n"
         "tops = {m.split('.')[0] for m in new}\n"
@@ -256,6 +261,21 @@ def _entry_points():
 
         return run_cluster.spawn([home()], os.path.join(tempfile.mkdtemp(), "dbs"))
 
+    def chaos_cluster():
+        from bftkv_tpu_torch.faults.harness import build_cluster
+
+        return build_cluster(4, 1, 4, bits=512)
+
+    def sidecar_harness():
+        from bftkv_tpu_torch.faults.nemesis import SidecarHarness
+
+        return SidecarHarness()
+
+    def nemesis_main():
+        from bftkv_tpu_torch.faults import nemesis
+
+        return nemesis.main(["--seed", "7", "--steps", "1"])
+
     from bftkv_tpu_torch.cmd import bftkv as bftkv_cmd
     from bftkv_tpu_torch.cmd import bftrw as bftrw_cmd
     from bftkv_tpu_torch.cmd import run_gateway as run_gateway_cmd
@@ -323,23 +343,26 @@ def _entry_points():
         "run_multiprocess": run_multiprocess,
         "run_cluster_spawn": spawn,
         "Gateway": gateway,
+        "build_cluster": chaos_cluster,
+        "SidecarHarness": sidecar_harness,
+        "nemesis_main": nemesis_main,
     }
 
 
 ENTRY_POINTS = [
     "AuthClient", "AuthServer", "BatchModExp", "BatchModExp_shared", "Client",
-    "CollectiveSignature", "Gateway", "ModexpDispatcher", "RSAThreshold", "Server", "SidecarService",
-    "SignDispatcher", "SignerDomain",
-    "SignerDomain_limb", "ThresholdInstance", "VerifierDomain", "VerifierDomain_limb",
-    "VerifierDomain_pallas", "VerifyDispatcher", "calibration", "cmd_bftkv", "cmd_bftrw",
-    "cmd_run_gateway", "consts_from_numpy",
-    "dryrun_multichip", "ec_rns_engine", "ec_rns_scalar_mult_hosts", "ec_scalar_mult_hosts",
-    "ecdsa_sign_batch", "ecdsa_verify_batch", "entry", "flat_verify",
-    "generate_partial_auth_params", "key_rows_from_numpy", "limbs_from_numpy", "load_home",
-    "make_node", "new_crypto", "open_client", "power_batch", "power_mod_rns",
-    "run_cluster_spawn", "run_multiprocess", "serve", "shard_over", "tally_counts",
-    "threshold_dsa_new", "threshold_ecdsa_new", "verify_batch_e65537",
-    "verify_e65537_rns_indexed", "workload_worker",
+    "CollectiveSignature", "Gateway", "ModexpDispatcher", "RSAThreshold", "Server",
+    "SidecarHarness", "SidecarService", "SignDispatcher", "SignerDomain", "SignerDomain_limb",
+    "ThresholdInstance", "VerifierDomain", "VerifierDomain_limb", "VerifierDomain_pallas",
+    "VerifyDispatcher", "build_cluster", "calibration", "cmd_bftkv", "cmd_bftrw",
+    "cmd_run_gateway", "consts_from_numpy", "dryrun_multichip", "ec_rns_engine",
+    "ec_rns_scalar_mult_hosts", "ec_scalar_mult_hosts", "ecdsa_sign_batch",
+    "ecdsa_verify_batch", "entry", "flat_verify", "generate_partial_auth_params",
+    "key_rows_from_numpy", "limbs_from_numpy", "load_home", "make_node", "nemesis_main",
+    "new_crypto", "open_client", "power_batch", "power_mod_rns", "run_cluster_spawn",
+    "run_multiprocess", "serve", "shard_over", "tally_counts", "threshold_dsa_new",
+    "threshold_ecdsa_new", "verify_batch_e65537", "verify_e65537_rns_indexed",
+    "workload_worker",
 ]
 
 
@@ -423,6 +446,11 @@ def test_flag_seam():
         "BFTKV_PROFILE", "BFTKV_PROFILE_HZ", "BFTKV_GIL_SAMPLER", "BFTKV_REGION_LEASE_S",
         "BFTKV_WORKLOAD_SEED", "BFTKV_WORKLOAD_RATE", "BFTKV_WORKLOAD_DURATION",
         "BFTKV_WORKLOAD_PROCS",
+        # The health plane and the chaos nemesis.
+        "BFTKV_SLO_WRITE_P99", "BFTKV_SLO_BURN_SCRAPES", "BFTKV_FLIGHT_RECORDER",
+        "BFTKV_RECORDER_DIR", "BFTKV_RECORDER_MIN_INTERVAL", "BFTKV_RECORDER_MAX_MB",
+        "BFTKV_SAT_THRESHOLD", "BFTKV_SAT_SCRAPES", "BFTKV_SAT_WAIT_REF",
+        "BFTKV_WAN_RTT_MATRIX", "BFTKV_WORKLOAD",
     }
     # Every declared flag is read somewhere in the port, and no BFTKV_*
     # name is read from the environment outside flags.py.

@@ -6,7 +6,8 @@ visualizer transport (``bftkv_tpu_torch/transport/visual.py``;
 ``tests/test_visual.py``: WebSocket handshake, graph snapshot, request
 feed of a port cluster on localhost HTTP, reference:
 transport/http-visual/http-visual.go:43-173); ``obs.source``'s seat
-document against the reference's."""
+document against the reference's; the metrics registry's fixed-bucket
+counts (``name.bucket{...,le=…}``) against the reference's."""
 
 from __future__ import annotations
 
@@ -314,3 +315,57 @@ def test_seat_document_equals_the_references():
             rg, _rc, rqs = ref_topology.load_home(home)
             assert seat_document(qs, g.get_self_id()) == ref_seat(rqs, rg.get_self_id())
     assert seat_document(object(), 1) == ref_seat(object(), 1)
+
+
+# -- the registry's fixed-bucket counts ---------------------------------------
+
+
+def test_bucket_counts_equal_the_references():
+    """The same observations (every bucket edge, values between and past
+    the ladder, negative and zero ones, labelled and unlabelled series)
+    give the port's ``Registry.snapshot()`` the reference's
+    ``name.bucket{...,le=…}`` keys with the same counts, one key per
+    non-empty bucket, beside equal ``.count``/``.sum`` and
+    ``histogram_quantile`` estimates of the merged buckets; the series'
+    p50/p99 keys stay."""
+    import random
+
+    from bftkv_tpu.metrics import BUCKETS as REF_BUCKETS
+    from bftkv_tpu.metrics import Metrics, _bucket_index as ref_index
+    from bftkv_tpu.metrics import histogram_quantile as ref_quantile
+    from bftkv_tpu_torch.metrics import BUCKETS, Registry, _bucket_index, histogram_quantile
+
+    assert BUCKETS == REF_BUCKETS
+    edges = [b for b in BUCKETS] + [b * (1 + 1e-12) for b in BUCKETS] + [-1.0, 0.0, 1e9]
+    assert [_bucket_index(v) for v in edges] == [ref_index(v) for v in edges]
+    port, ref = Registry(), Metrics()
+    rng = random.Random(15)
+    series = [("client.write.latency", {"shard": 0}), ("client.write.latency", {"shard": 1}),
+              ("client.read.latency", None), ("dispatch.batch", None),
+              ("admission.wait", {"resource": "sidecar"})]
+    for i in range(3000):
+        name, labels = series[i % len(series)]
+        v = edges[i % len(edges)] if i % 3 == 0 else rng.lognormvariate(-3, 2.5)
+        port.observe(name, v, labels)
+        ref.observe(name, v, labels)
+    ps, rs = port.snapshot(), ref.snapshot()
+    pb = {k: v for k, v in ps.items() if ".bucket{" in k}
+    rb = {k: v for k, v in rs.items() if ".bucket{" in k}
+    assert pb == rb and len(pb) > 40 and all(v > 0 for v in pb.values())
+    for k in ps:
+        if k.endswith((".count", ".p50", ".p99")) or ".count{" in k or ".p50{" in k or ".p99{" in k:
+            assert ps[k] == rs[k], k
+    for k in rs:
+        if ".sum" in k:
+            assert ps[k] == pytest.approx(rs[k]), k
+    # The collector's merge: sum the per-bucket counts of a series.
+    for name in ("client.write.latency", "client.read.latency"):
+        vec = [0] * (len(BUCKETS) + 1)
+        for k, c in pb.items():
+            if k.startswith(name + ".bucket{"):
+                le = k.rsplit("le=", 1)[1].rstrip("}")
+                vec[len(BUCKETS) if le == "+Inf" else BUCKETS.index(float(le))] += c
+        for q in (0.5, 0.9, 0.99):
+            assert histogram_quantile(q, vec) == ref_quantile(q, vec)
+    port.reset()
+    assert not [k for k in port.snapshot() if ".bucket" in k]

@@ -769,9 +769,10 @@ def test_starved_tail_raises_anomaly():
     shareless ack — clean drops beyond f would fail the round outright,
     so starvation is inherently a misbehavior phenomenon) starve the
     tail.  The write still succeeds (that is the point of early
-    commit), the counter fires, and a later read certifies the record
-    anyway (helping).  The reference also turns the counter into a fleet
-    anomaly through ``obs``, which the port does not have yet."""
+    commit), the counter fires, the fleet collector turns it into an
+    anomaly, and a later read certifies the record anyway (helping)."""
+    from bftkv_tpu_torch.obs import FleetCollector, LocalSource
+
     c = start_cluster(5, 1, 4, bits=BITS)
     cl = c.clients[0]
 
@@ -782,6 +783,13 @@ def test_starved_tail_raises_anomaly():
     try:
         cl.write(b"starve/warm", b"v")
         cl.drain_tails()
+        collector = FleetCollector(
+            [
+                LocalSource("a01", lambda: c.servers[0]),
+            ],
+            local_metrics=metrics,
+        )
+        collector.scrape_once()  # baseline for counter deltas
         fp.arm(83)
         try:
             fp.registry.add(
@@ -803,6 +811,9 @@ def test_starved_tail_raises_anomaly():
             )
         finally:
             fp.disarm()
+        collector.scrape_once()
+        kinds = {a["kind"] for a in collector.anomalies()}
+        assert "tail_starved" in kinds
         # the read certifies the starved record (misbehavior healed)
         assert cl.read(b"starve/x") == b"survives"
     finally:

@@ -519,9 +519,9 @@ def test_repair_respects_grace_window(rec_cluster, monkeypatch):
 
 def test_uncertifiable_residue_demoted_with_one_anomaly(rec_cluster):
     """A planted record no quorum will ever endorse (its writer
-    signature does not verify) is demoted — once.  The reference also
-    reads exactly one tail_starved anomaly from the fleet feed (``obs``,
-    not ported yet); here the demotion counter moves once."""
+    signature does not verify) is demoted — once — and surfaces as
+    exactly one tail_starved anomaly in the fleet feed."""
+    from bftkv_tpu_torch.obs import FleetCollector
 
     cl = rec_cluster.clients[0]
     srv = rec_cluster.storage_servers[2]
@@ -541,17 +541,34 @@ def test_uncertifiable_residue_demoted_with_one_anomaly(rec_cluster):
     )
     srv.storage.write(var, 1, residue)
 
+    collector = FleetCollector([], local_metrics=metrics)
+    collector.scrape_once()  # counter-delta baseline
+    seq0 = max((a["seq"] for a in collector.anomalies()), default=0)
+
+    def fresh_starved():
+        return [
+            a
+            for a in collector.anomalies(since_seq=seq0)
+            if a["kind"] == "tail_starved"
+        ]
+
     demoted0 = metrics.snapshot().get("sync.repair.demoted", 0)
     daemon = SyncDaemon(srv, interval=999)
     stats = daemon.repair_once()
     assert stats["demoted"] == 1 and stats["certified"] == 0
 
     assert metrics.snapshot().get("sync.repair.demoted", 0) == demoted0 + 1
+    collector.scrape_once()
+    starved = fresh_starved()
+    assert len(starved) == 1
+    assert "sync.repair.demoted" in starved[0]["detail"]
 
     # Demotion is remembered: no retry loop, no second anomaly.
     stats = daemon.repair_once()
     assert stats["demoted"] == 0 and stats["certified"] == 0
     assert metrics.snapshot().get("sync.repair.demoted", 0) == demoted0 + 1
+    collector.scrape_once()
+    assert len(fresh_starved()) == 1
 
 
 def test_outage_retries_instead_of_demoting(rec_cluster, monkeypatch):

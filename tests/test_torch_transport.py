@@ -448,8 +448,12 @@ def test_restarted_peer_costs_one_reseal_not_group_bootstrap():
     other peer on the session envelope — the per-recipient OAEP
     bootstrap wrap count grows by ~the single resealed peer, not by the
     whole group — and the transport's unknown-session retry heals the
-    one stale link (crypto.session.reseal)."""
-    c = start_cluster(4, 1, 4, bits=BITS)
+    one stale link (crypto.session.reseal).  On the chaos harness's
+    cluster, as in the reference: ``restart`` builds a fresh Server on
+    the same storage and device."""
+    from bftkv_tpu_torch.faults.harness import build_cluster
+
+    c = build_cluster(4, 1, 4, bits=BITS, device=DEVICE)
     cl = c.clients[0]
     try:
         cl.write(b"reseal/x", b"v1")
@@ -621,7 +625,7 @@ def test_auth_attempts_fold_after_midflight_eviction():
 
 
 # -- hedged staged fan-out and health-aware staging (tests/test_hedge.py; its
-# -- p50 timing gate and fleet-feed cases wait for obs/) ---------------------
+# -- wall-clock p50 gate is not copied) ---------------------------------------
 
 @pytest.fixture()
 def hedge_cluster():
@@ -648,6 +652,50 @@ def _gray_target(cluster) -> str:
 
 
 
+
+
+def test_gray_member_surfaces_in_fleet_feed(hedge_cluster):
+    """The latency tracker's gray transition reaches the anomaly feed
+    as gray_member — detection without any injected-fault echo."""
+    import time
+
+    from bftkv_tpu_torch.obs import FleetCollector
+
+    cl = hedge_cluster.clients[0]
+    collector = FleetCollector([], local_metrics=metrics)
+    collector.scrape_once()
+    seq0 = max((a["seq"] for a in collector.anomalies()), default=0)
+
+    target = _gray_target(hedge_cluster)
+    fp.arm(4)
+    fp.registry.add(
+        "transport.send",
+        "delay",
+        match={"dst": target},
+        seconds=0.6,
+        rule_id=f"slow_node:{target}",
+    )
+    try:
+        cl.write(b"hedge/feed", b"v")
+    finally:
+        fp.disarm()
+    cl.drain_tails()
+
+    # The delayed response (and with it the gray sample) lands ~0.6 s
+    # after the hedged write committed — poll the scrape for it.
+    gray: list = []
+    deadline = time.monotonic() + 5.0
+    while time.monotonic() < deadline and not gray:
+        collector.scrape_once()
+        gray = [
+            a
+            for a in collector.anomalies(since_seq=seq0)
+            if a["kind"] == "gray_member"
+        ]
+        if not gray:
+            time.sleep(0.1)
+    assert gray, "gray transition never reached the anomaly feed"
+    assert any(target in a["detail"] for a in gray)
 
 
 def test_ranking_pushes_flagged_peers_back(hedge_cluster):
