@@ -19,8 +19,9 @@ spawned sidecar.  With ``--sidecar auto`` the one sidecar process owns
 the card and the daemons create no CUDA context.  ``--fleet`` boots the
 fleet health collector (``python -m bftkv_tpu_torch.cmd.fleet``, a host
 process that takes no device), ``--recorder`` attaches the flight recorder
-to it.  The topology autopilot is not ported yet: ``--autopilot`` is
-refused.
+to it, and ``--autopilot`` (which needs ``--fleet``) boots the advisory
+topology watcher beside it (``python -m bftkv_tpu_torch.autopilot``, a
+host process as well).
 """
 
 from __future__ import annotations
@@ -34,13 +35,6 @@ import time
 
 from bftkv_tpu_torch import device as devmod
 from bftkv_tpu_torch import flags
-
-#: What --autopilot needs and this package does not have yet.
-AUTOPILOT_NOT_PORTED = (
-    "--autopilot needs the topology autopilot (autopilot/), which the "
-    "port does not have yet; run the fleet without it, or use "
-    "bftkv_tpu.cmd.run_cluster"
-)
 
 
 def server_homes(keys_dir: str) -> list[str]:
@@ -103,16 +97,15 @@ def spawn(
     AND gateway signs+verifies through, with its stats endpoint on the
     port after the gateways' (``role=sidecar``, outside all f-budget
     math).  ``fleet`` boots the collector process (``cmd.fleet
-    --listen``), ``recorder`` its flight recorder; ``autopilot`` is
-    refused (ValueError): the autopilot is not ported yet.
+    --listen``), ``recorder`` its flight recorder, ``autopilot`` the
+    advisory watcher over the collector's ``/fleet`` (it needs
+    ``fleet``).
 
     ``device`` (default ``cuda:0``, which raises here without CUDA, before
     any process starts) is passed to every process as ``--device``.
     ``log_dir`` sends each process's stdout and stderr to
     ``<log_dir>/<name>.log`` (default: this process's own)."""
     device = str(devmod.resolve(device))
-    if autopilot:
-        raise ValueError(AUTOPILOT_NOT_PORTED)
     if sidecar and verify_sidecar:
         raise ValueError("--sidecar supersedes --verify-sidecar; "
                          "pass one")
@@ -121,6 +114,9 @@ def spawn(
         # (raising mid-spawn would orphan the just-launched fleet).
         raise ValueError("--fleet needs --api-base (it scrapes the "
                          "daemon APIs)")
+    if autopilot and not fleet:
+        raise ValueError("--autopilot needs --fleet (it watches the "
+                         "collector's /fleet document)")
     os.makedirs(db_root, exist_ok=True)
     procs = []
     env = dict(os.environ, **(extra_env or {}))
@@ -246,6 +242,19 @@ def spawn(
         if recorder:
             cmd += ["--recorder", recorder]
         procs.append(popen(cmd, "fleet"))
+    if autopilot:
+        # Advisory watcher over the collector's /fleet document: prints
+        # retire/split decisions as JSON lines (BFTKV_AUTOPILOT=off
+        # silences it).  In-process fleets (nemesis, tests) run the
+        # executing Autopilot directly.
+        procs.append(popen(
+            [
+                sys.executable, "-m", "bftkv_tpu_torch.autopilot",
+                "--fleet-url", f"http://127.0.0.1:{fleet}/fleet",
+                "--interval", str(max(fleet_interval * 2, 2.0)),
+            ],
+            "autopilot",
+        ))
     return procs
 
 
@@ -322,8 +331,11 @@ def main(argv: list[str] | None = None) -> int:
                          "under DIR; POST /fleet/bundle takes one on "
                          "demand (needs --fleet)")
     ap.add_argument("--autopilot", action="store_true",
-                    help="the topology autopilot watcher (needs "
-                         "--fleet): not ported yet (refused, exit 2)")
+                    help="boot the topology autopilot watcher beside "
+                         "the fleet collector (needs --fleet): it "
+                         "consumes /fleet and prints split/retire "
+                         "decisions as JSON lines "
+                         "(BFTKV_AUTOPILOT=off disables)")
     ap.add_argument("--device", default=devmod.DEFAULT,
                     help="device of every daemon, gateway and spawned "
                          "sidecar: cuda:N (default cuda:0) or cpu")
@@ -345,8 +357,9 @@ def main(argv: list[str] | None = None) -> int:
                          "`regions` file automatically, so an already-"
                          "generated labeled keyset needs no flag here")
     args = ap.parse_args(argv)
-    if args.autopilot:
-        print(f"run_cluster: {AUTOPILOT_NOT_PORTED}", file=sys.stderr)
+    if args.autopilot and not args.fleet:
+        print("run_cluster: --autopilot needs --fleet (it watches the "
+              "collector's /fleet document)", file=sys.stderr)
         return 2
 
     if args.shards and not server_homes(args.keys):
@@ -391,7 +404,8 @@ def main(argv: list[str] | None = None) -> int:
                   rpc_timeout=args.rpc_timeout,
                   chaos_seed=args.chaos_seed, gw_homes=gw_homes,
                   fleet=args.fleet, fleet_interval=args.fleet_interval,
-                  recorder=args.recorder, device=args.device)
+                  recorder=args.recorder, autopilot=args.autopilot,
+                  device=args.device)
     # The sidecar (if spawned, always first) is an optional optimizer
     # whose clients fall back to local verification: its death must not
     # tear down the replica fleet, and it is not a "server".

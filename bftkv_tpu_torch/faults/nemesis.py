@@ -44,8 +44,9 @@ plan + fault-trace summary as JSON (``--json``) for the CI soak lane.
 
 Every node of the cluster, and the embedded sidecar under ``--sidecar``,
 runs on ``--device`` (default ``cuda:0``, which raises without CUDA).
-The topology autopilot is not ported yet: ``--autopilot`` and the
-``route_flap`` kind (which needs it) exit 2 before any cluster is built.
+``--autopilot`` runs the topology autopilot against the cluster (a forced
+hot-shard migration under the second half of the schedule); the
+``route_flap`` kind needs it and ``--shards 2+``.
 """
 
 from __future__ import annotations
@@ -63,13 +64,6 @@ from bftkv_tpu_torch.faults.harness import ChaosCluster, build_cluster
 from bftkv_tpu_torch.storage.memkv import MemStorage
 
 __all__ = ["Nemesis", "SidecarHarness", "main"]
-
-#: What ``--autopilot`` (and the ``route_flap`` kind behind it) needs and
-#: this package does not have yet.
-AUTOPILOT_NOT_PORTED = (
-    "needs the topology autopilot (autopilot/), which the port does not "
-    "have yet; use bftkv_tpu.faults.nemesis for it"
-)
 
 STEP_KINDS = (
     "partition",
@@ -1328,8 +1322,6 @@ class Nemesis:
         ``undetected`` empty = every fault surfaced in the health
         plane's anomaly feed within its own window; ``gray_blocked``
         empty = no slow_node window ever blocked a commit)."""
-        if self._want_autopilot:
-            raise RuntimeError(f"the autopilot {AUTOPILOT_NOT_PORTED}")
         plan = self.plan(steps, kinds=kinds)
         # Shard layout before the run: if it survives unchanged (no
         # membership churn rerouted the keyspace), the checker may apply
@@ -1372,6 +1364,12 @@ class Nemesis:
                 max_bundles=max(2 * steps + 8, 32),
             ).add_to(self.collector)
         self.autopilot = None
+        if self._want_autopilot:
+            from bftkv_tpu_torch.autopilot import Autopilot
+
+            self.autopilot = Autopilot.for_cluster(
+                self.cluster, collector=self.collector
+            )
         epoch_of = getattr(
             self._client(0).qs, "route_epoch", lambda: 0
         )
@@ -1586,10 +1584,15 @@ def main(argv: list[str] | None = None) -> int:
                     help="comma-separated step-kind pool override "
                          "(e.g. a slow_node-heavy soak: "
                          "--kinds slow_node,link_delay,crash_restart; "
-                         "route_flap needs the autopilot: refused)")
+                         "route_flap needs --autopilot and --shards 2+)")
     ap.add_argument("--autopilot", action="store_true",
-                    help="the topology autopilot under chaos: not ported "
-                         "yet (refused, exit 2)")
+                    help="run the topology autopilot against the "
+                         "cluster: one forced hot-shard migration "
+                         "executes WHILE the second half of the fault "
+                         "schedule lands (pre-copy / flip / drain under "
+                         "chaos), crash-restarted replicas are "
+                         "re-delivered the current route table, and "
+                         "the route_flap kind becomes available")
     ap.add_argument("--storage", choices=["mem", "log"], default="mem",
                     help="replica storage engine: `log` gives every "
                          "replica its own on-disk §19 segment-log "
@@ -1606,15 +1609,15 @@ def main(argv: list[str] | None = None) -> int:
                          "sign-key handles")
     args = ap.parse_args(argv)
 
-    if args.autopilot:
-        ap.error(f"--autopilot {AUTOPILOT_NOT_PORTED}")
     kinds = tuple(
         k.strip() for k in args.kinds.split(",") if k.strip()
     ) or None
     if kinds and any(k not in STEP_KINDS for k in kinds):
         ap.error(f"--kinds must draw from {STEP_KINDS}")
-    if kinds and "route_flap" in kinds:
-        ap.error(f"--kinds route_flap {AUTOPILOT_NOT_PORTED}")
+    if kinds and "route_flap" in kinds and not (
+        args.autopilot and args.shards > 1
+    ):
+        ap.error("--kinds route_flap needs --autopilot and --shards 2+")
     if kinds and "sidecar_crash" in kinds and not args.sidecar:
         ap.error("--kinds sidecar_crash needs --sidecar")
     if kinds and "region_partition" in kinds and args.regions < 2:

@@ -77,6 +77,10 @@ _flag("BFTKV_EC_SIGN_THRESHOLD", None, "int",
 _flag("BFTKV_EC_VERIFY_THRESHOLD", None, "int",
       "ECDSA batch size below which verifies stay on host (unset: "
       "ecdsa.VERIFY_HOST_CROSSOVER).")
+_flag("BFTKV_AUTOPILOT", "on", "switch",
+      "Automatic topology decisions (hot-shard split, clique retirement; "
+      "autopilot/); `off` disables deciding only: forced executes stay "
+      "available.")
 _flag("BFTKV_SHARD", "auto", "str",
       "Split of the RNS verify and sign launches over every local cuda device "
       "(ops/rns.py, contiguous row shards); `off` pins one device.")

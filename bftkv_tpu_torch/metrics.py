@@ -35,19 +35,46 @@ so a run of the port reads like a run of the reference:
 
 A labelled series flattens to ``name{k=v,...}`` in the snapshot, as in
 the reference; :meth:`Registry.prometheus` renders the same series as
-Prometheus text (the sidecar's stats endpoint).  ``chip_smoke.py`` reads
-the snapshot to show which path ran.
+the reference's Prometheus text, byte for byte (the daemon's, the
+gateway's and the sidecar's ``/metrics``): counters as
+``bftkv_<name>_total``, gauges plain, ``observe()`` series as
+fixed-bucket histograms, so a scraper can sum bucket counts across
+processes.  Counters are sharded per thread, as in the reference: an
+``incr`` takes no shared lock, and readers sum the shards.
+``chip_smoke.py`` reads the snapshot to show which path ran.
 """
 
 from __future__ import annotations
 
 import contextlib
 import re
+import threading
 import time
+from collections import defaultdict
 
 from bftkv_tpu_torch.devtools.lockwatch import named_lock
 
-__all__ = ["BUCKETS", "Registry", "histogram_quantile", "registry"]
+__all__ = ["BUCKETS", "LABEL_KEYS", "Registry", "histogram_quantile", "registry"]
+
+#: The closed set of label keys an instrument may carry (the reference's
+#: ``bftkv_tpu/metrics.py``): low-cardinality dimensions only; a new key
+#: is a schema change of both packages.
+LABEL_KEYS = (
+    "transport",  # backend: http / loop / visual / ws
+    "side",       # client / server
+    "cmd",        # protocol command name
+    "shard",      # shard index
+    "op",         # gateway op (read/write) / sidecar op (verify/sign/modexp)
+    "point",      # failpoint name
+    "action",     # failpoint action kind
+    "endpoint",   # daemon API endpoint (closed set + "other")
+    "peer",       # normalized link name (bounded by fleet size)
+    "event",      # visual/ws event type
+    "kind",       # autopilot plan kind: split / retire
+    "resource",   # capacity-plane resource
+    "width",      # device batch limb-width group
+    "le",         # histogram bucket bound (the BUCKETS ladder)
+)
 
 #: The reference's fixed histogram bucket upper bounds
 #: (``bftkv_tpu/metrics.py``), identical in every process so bucket
@@ -89,7 +116,7 @@ def _bucket_index(value: float) -> int:
 
 
 #: Samples kept per series for the percentiles (``.count``/``.sum``
-#: cover the whole run).
+#: and the bucket counts cover the whole run).
 _MAX_SAMPLES = 65536
 
 
@@ -103,21 +130,70 @@ def _flat(name: str, labels: tuple) -> str:
     return name + "{" + ",".join(f"{k}={v}" for k, v in labels) + "}"
 
 
+def _prom_name(name: str) -> str:
+    return "bftkv_" + re.sub(r"[^a-zA-Z0-9_:]", "_", name)
+
+
 def _prom_escape(v) -> str:
     return str(v).replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+def _prom_labels(labels: tuple, extra: tuple = ()) -> str:
+    items = tuple(labels) + tuple(extra)
+    if not items:
+        return ""
+    return "{" + ",".join(f'{k}="{_prom_escape(v)}"' for k, v in items) + "}"
+
+
+def _prom_value(v) -> str:
+    return repr(v) if isinstance(v, float) else str(v)
+
+
+def _by_name(d: dict) -> dict[str, list]:
+    g: dict[str, list] = {}
+    for (name, labels), v in d.items():
+        g.setdefault(name, []).append((labels, v))
+    return g
 
 
 class Registry:
     def __init__(self):
         self._lock = named_lock("metrics")
-        self._counters: dict[tuple, int] = {}
+        # Counters are sharded per thread: each thread writes only its
+        # own dict, readers sum the shards (exact at read time).  Shards
+        # of finished threads stay in the list, so their counts keep
+        # counting.
+        self._tl = threading.local()
+        self._counter_shards: list[dict] = []
         self._gauges: dict[tuple, float] = {}
-        self._samples: dict[tuple, list] = {}  # key -> [count, sum, ring, pos, buckets]
+        self._counts: dict[tuple, int] = defaultdict(int)
+        self._sums: dict[tuple, float] = defaultdict(float)
+        self._samples: dict[tuple, list[float]] = defaultdict(list)
+        self._sample_pos: dict[tuple, int] = defaultdict(int)
+        # Fixed-bucket counts per series (len(BUCKETS) + 1, the last the
+        # +Inf overflow), over the whole run.
+        self._buckets: dict[tuple, list[int]] = defaultdict(lambda: [0] * (len(BUCKETS) + 1))
+
+    def _local_counters(self) -> dict:
+        d = getattr(self._tl, "counters", None)
+        if d is None:
+            d = self._tl.counters = defaultdict(int)
+            with self._lock:
+                self._counter_shards.append(d)
+        return d
+
+    def _counter_totals(self) -> dict:
+        totals: dict[tuple, int] = defaultdict(int)
+        with self._lock:
+            shards = list(self._counter_shards)
+        for d in shards:
+            # One C-level copy under the GIL: the owner cannot tear it.
+            for k, v in d.copy().items():
+                totals[k] += v
+        return dict(totals)
 
     def incr(self, name: str, n: int = 1, labels: dict | None = None) -> None:
-        k = _key(name, labels)
-        with self._lock:
-            self._counters[k] = self._counters.get(k, 0) + n
+        self._local_counters()[_key(name, labels)] += n
 
     def gauge(self, name: str, value: float, labels: dict | None = None) -> None:
         """Last-write-wins instantaneous value."""
@@ -125,21 +201,20 @@ class Registry:
             self._gauges[_key(name, labels)] = value
 
     def observe(self, name: str, value: float, labels: dict | None = None) -> None:
-        """One sample (seconds, batch size, ...)."""
+        """One sample (seconds, batch size, ...): the totals and bucket
+        counts cover the whole run, the percentiles the newest
+        ``_MAX_SAMPLES``."""
         k = _key(name, labels)
         with self._lock:
-            s = self._samples.get(k)
-            if s is None:
-                s = self._samples[k] = [0, 0.0, [], 0, [0] * (len(BUCKETS) + 1)]
-            s[0] += 1
-            s[1] += value
-            s[4][_bucket_index(value)] += 1
-            ring = s[2]
-            if len(ring) < _MAX_SAMPLES:
-                ring.append(value)
+            self._counts[k] += 1
+            self._sums[k] += value
+            self._buckets[k][_bucket_index(value)] += 1
+            s = self._samples[k]
+            if len(s) < _MAX_SAMPLES:
+                s.append(value)
             else:
-                ring[s[3]] = value
-                s[3] = (s[3] + 1) % _MAX_SAMPLES
+                s[self._sample_pos[k]] = value
+                self._sample_pos[k] = (self._sample_pos[k] + 1) % _MAX_SAMPLES
 
     @contextlib.contextmanager
     def timer(self, name: str):
@@ -150,55 +225,106 @@ class Registry:
         finally:
             self.observe(name, time.perf_counter() - t0)
 
-    def snapshot(self) -> dict:
+    def percentile(self, name: str, q: float, labels: dict | None = None) -> float | None:
+        """The sample at rank ``q`` of the series' kept samples; ``None``
+        for a series with none.  Sorted outside the lock."""
         with self._lock:
-            counters = dict(self._counters)
+            s = list(self._samples.get(_key(name, labels), ()))
+        if not s:
+            return None
+        s.sort()
+        return s[min(len(s) - 1, int(q * len(s)))]
+
+    def snapshot(self) -> dict:
+        counters = self._counter_totals()
+        with self._lock:
             gauges = dict(self._gauges)
-            samples = {k: (c, t, list(r), list(b)) for k, (c, t, r, _p, b) in self._samples.items()}
+            counts = dict(self._counts)
+            sums = dict(self._sums)
+            series = {k: list(s) for k, s in self._samples.items() if s}
+            buckets = {k: list(b) for k, b in self._buckets.items()}
         out: dict = {}
         for (name, labels), v in counters.items():
             out[_flat(name, labels)] = v
         for (name, labels), v in gauges.items():
             out[_flat(name, labels)] = v
-        for (name, labels), (count, total, ring, _b) in samples.items():
-            out[_flat(name + ".count", labels)] = count
-            out[_flat(name + ".sum", labels)] = total
-            ring.sort()
+        for (name, labels), v in counts.items():
+            out[_flat(name + ".count", labels)] = v
+        for (name, labels), v in sums.items():
+            out[_flat(name + ".sum", labels)] = v
+        for (name, labels), s in series.items():
+            s.sort()
             for q, tag in ((0.5, "p50"), (0.99, "p99")):
-                out[_flat(f"{name}.{tag}", labels)] = ring[min(len(ring) - 1, int(q * len(ring)))]
+                out[_flat(f"{name}.{tag}", labels)] = s[min(len(s) - 1, int(q * len(s)))]
         # One key per non-empty bucket; ``le`` follows the series' own
         # labels, so the key parses with the same name{k=v,...} grammar.
-        for (name, labels), (_c, _t, _r, buckets) in samples.items():
-            for i, c in enumerate(buckets):
+        for (name, labels), b in buckets.items():
+            for i, c in enumerate(b):
                 if c:
                     le = BUCKETS[i] if i < len(BUCKETS) else "+Inf"
                     out[_flat(f"{name}.bucket", labels + (("le", le),))] = c
         return out
 
-    def prometheus(self) -> str:
-        """Prometheus text exposition (format 0.0.4): counters as
-        ``bftkv_<name>_total``, gauges plain, samples as ``_sum`` and
-        ``_count``."""
+    def histograms(self) -> dict:
+        """Flat series key -> ``{"count", "sum", "buckets"}``, ``buckets``
+        the raw per-bucket counts (len(BUCKETS) + 1, the last +Inf)."""
         with self._lock:
-            rows = [("counter", k, v, "_total") for k, v in self._counters.items()]
-            rows += [("gauge", k, v, "") for k, v in self._gauges.items()]
-            for k, (count, total, _ring, _pos, _b) in self._samples.items():
-                rows += [("summary", k, total, "_sum"), ("summary", k, count, "_count")]
-        lines, typed = [], set()
-        for kind, (name, labels), v, suffix in sorted(rows, key=lambda r: (r[1], r[3])):
-            pn = "bftkv_" + re.sub(r"[^a-zA-Z0-9_:]", "_", name)
-            if pn not in typed:
-                typed.add(pn)
-                lines.append(f"# TYPE {pn}{'_total' if kind == 'counter' else ''} {kind}")
-            lab = ",".join(f'{k}="{_prom_escape(x)}"' for k, x in labels)
-            lines.append(f"{pn}{suffix}{'{' + lab + '}' if lab else ''} {v!r}")
+            counts = dict(self._counts)
+            sums = dict(self._sums)
+            buckets = {k: list(b) for k, b in self._buckets.items()}
+        return {
+            _flat(name, labels): {
+                "count": counts.get((name, labels), 0),
+                "sum": sums.get((name, labels), 0.0),
+                "buckets": b,
+            }
+            for (name, labels), b in buckets.items()
+        }
+
+    def prometheus(self) -> str:
+        """Prometheus text exposition (format 0.0.4), the reference's:
+        counters (``_total``), then gauges, then each ``observe()``
+        series as a histogram (cumulative ``_bucket{le=…}`` up to
+        ``+Inf``, ``_sum``, ``_count``); one ``# TYPE`` line a name, each
+        group sorted by name, then labels."""
+        counters = self._counter_totals()
+        with self._lock:
+            gauges = dict(self._gauges)
+            counts = dict(self._counts)
+            sums = dict(self._sums)
+            series = {k: list(b) for k, b in self._buckets.items()}
+        lines: list[str] = []
+        for kind, group, suffix in (("counter", counters, "_total"), ("gauge", gauges, "")):
+            for name, rows in sorted(_by_name(group).items()):
+                pn = _prom_name(name) + suffix
+                lines.append(f"# TYPE {pn} {kind}")
+                for labels, v in sorted(rows):
+                    lines.append(f"{pn}{_prom_labels(labels)} {_prom_value(v)}")
+        for name, rows in sorted(_by_name(series).items()):
+            pn = _prom_name(name)
+            lines.append(f"# TYPE {pn} histogram")
+            for labels, b in sorted(rows):
+                acc = 0
+                for i, c in enumerate(b):
+                    acc += c
+                    le = BUCKETS[i] if i < len(BUCKETS) else "+Inf"
+                    lines.append(f"{pn}_bucket{_prom_labels(labels, (('le', le),))} {acc}")
+                key = (name, labels)
+                lines.append(f"{pn}_sum{_prom_labels(labels)} {_prom_value(sums.get(key, 0.0))}")
+                lines.append(f"{pn}_count{_prom_labels(labels)} {_prom_value(counts.get(key, 0))}")
         return "\n".join(lines) + "\n"
 
     def reset(self) -> None:
         with self._lock:
-            self._counters.clear()
+            shards = list(self._counter_shards)
             self._gauges.clear()
+            self._counts.clear()
+            self._sums.clear()
             self._samples.clear()
+            self._sample_pos.clear()
+            self._buckets.clear()
+        for d in shards:
+            d.clear()
 
 
 registry = Registry()

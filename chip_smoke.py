@@ -143,8 +143,12 @@ holds every hand-written kernel against its plain PyTorch version:
    collector process never maps libcuda; cmd.fleet one-shot over the 72
    APIs exits 0 without importing torch; a collector in this process times
    its scrapes of the 72 and sees the sidecar's stats as a role=sidecar
-   member with its dispatch occupancy; (e) run_cluster.shutdown, every
-   daemon exits 0.  Every K1 and K2 launch of the sidecar in (b) is held
+   member with its dispatch occupancy; the topology autopilot's advisory
+   watcher (run_cluster --autopilot, python -m bftkv_tpu_torch.autopilot)
+   runs beside the collector, and its --once scrape of /fleet exits 0 with
+   no advice (one shard: nothing to split or retire); (e)
+   run_cluster.shutdown, every daemon exits 0, the watcher exits with
+   the fleet.  Every K1 and K2 launch of the sidecar in (b) is held
    against its plain version;
 16. chaos phase (the port of bftkv_tpu/faults/), each run a process of its
    own with its launches counted and kept, host thresholds 0 and the verify
@@ -152,10 +156,22 @@ holds every hand-written kernel against its plain PyTorch version:
    -m bftkv_tpu_torch.faults.nemesis --seed 7 --bits 2048 --device cuda:0,
    the 4 + 1 + 4 chaos cluster on the card; (b) the sidecar chaos form,
    --steps 12 --sidecar --kinds sidecar_crash,partition,crash_restart,
-   link_delay,sidecar_crash with the flight recorder armed.  Both exit 0
-   (zero safety violations, every fault window in the health feed, no
-   write lost to a sidecar crash, one bundle per window); every K1 and K2
-   launch of the phase is held against its plain version;
+   link_delay,sidecar_crash with the flight recorder armed; (c) the
+   topology autopilot under chaos (the port of bftkv_tpu/autopilot/),
+   --shards 2 --autopilot --kinds route_flap,partition,crash_restart: a
+   forced hot-shard split (pre-copy, flip, drain) under the second half of
+   the schedule, route_flap windows shipping abrupt tables.  All three
+   exit 0 (zero safety violations, every fault window in the health feed,
+   no write lost to a sidecar crash, one bundle per window, the migration
+   done); (split) a live split in a process of its own: the 4 + 1 + 4
+   cluster at 2 shards on the card, 16 hot keys of shard 0, the
+   autopilot's own decision (a split of shard 0) executed while a writer
+   keeps writing: no failed write, writes across the flip, every member
+   on the final epoch, the moved keys read back and written afresh, a
+   migrated record re-certified by its new clique and verified on the
+   card; (gpg) the committed GnuPG universe (tests/data/gpg_universe)
+   imported by cmd/import_gpg.py, its native homes loaded on the card.
+   Every K1 and K2 launch of the phase is held against its plain version;
 17. each kernel against its plain version on the card, on the operands the
    main paths gave it: K1 verdicts (T=4096, T=1024 and every fault check's
    T=256), K2 sigma (k=94 at T=512 and T=64, k=188), K3's whole
@@ -318,6 +334,12 @@ CHAOS_BITS = 2048
 CHAOS_SIDECAR_STEPS = 12
 CHAOS_SIDECAR_KINDS = "sidecar_crash,partition,crash_restart,link_delay,sidecar_crash"
 CHAOS_RUN_TIMEOUT_S = 600.0
+# The topology autopilot: ROADMAP A1's stop condition, and the reference's
+# tests/test_autopilot.py::test_split_smoke on the card.
+CHAOS_AUTOPILOT_KINDS = "route_flap,partition,crash_restart"
+SPLIT_HOT_KEYS = 16
+SPLIT_PACE_S = 0.1
+SPLIT_DEADLINE_S = 300.0  # any one wait of the split step
 
 # Revoke-on-read: BASELINE config 5's shape (256 replicas, 85 colluders) puts
 # 341 signer entries in the read's rows, under the client's
@@ -2919,9 +2941,10 @@ def protocol_phase(dev, uni, replicas, writers, storage_keys, seed: int) -> dict
 # -- the deploy phase --------------------------------------------------------------
 
 
-def _wait_ports(ports, procs, timeout: float, what: str) -> None:
+def _wait_ports(ports, procs, timeout: float, what: str, logs: str = "") -> None:
     """Until every localhost port accepts a connection; fails if one of
-    ``procs`` exits first or the time runs out."""
+    ``procs`` exits first (with the tail of its ``<logs>/<name>.log``, the
+    name as run_cluster.spawn gives it) or the time runs out."""
     import socket
 
     deadline = time.monotonic() + timeout
@@ -2937,7 +2960,14 @@ def _wait_ports(ports, procs, timeout: float, what: str) -> None:
                 pass
         dead = [p for p in procs if p.poll() is not None]
         if dead:
-            fail(f"{what}: {len(dead)} process(es) exited before serving, first {dead[0].args}")
+            args, tail = dead[0].args, b""
+            if logs:
+                name = (os.path.basename(args[args.index("--home") + 1]) if "--home" in args
+                        else "fleet" if "bftkv_tpu_torch.cmd.fleet" in args else "autopilot")
+                path = os.path.join(logs, name + ".log")
+                tail = open(path, "rb").read()[-3000:] if os.path.exists(path) else b""
+            fail(f"{what}: {len(dead)} process(es) exited before serving, first {args} with "
+                 f"{dead[0].returncode}; its log's tail {tail!r}")
         check(time.monotonic() < deadline, f"{what}: port {left[0]} not up in {timeout:.0f} s")
         time.sleep(0.25)
 
@@ -3020,7 +3050,8 @@ def _daemon_metrics(api_ports) -> list:
 
 def _recorded_main(out: str, module: str, argv: list) -> int:
     """``main(argv)`` of the port's command ``module`` (``bftrw``, the chaos
-    nemesis) with its K1 and K2 launches counted and their operands kept:
+    nemesis; ``module:function`` calls that function instead, as the split
+    step runs) with its K1 and K2 launches counted and their operands kept:
     written to ``out`` (torch.save) on the host, beside the time.monotonic()
     at which main returned (one clock for every process of the host) and
     the process's counters.  A command runs as
@@ -3029,7 +3060,8 @@ def _recorded_main(out: str, module: str, argv: list) -> int:
 
     from bftkv_tpu_torch.ops import cuda_rns, rns
 
-    main_ = importlib.import_module(module).main
+    modname, _, fn = module.partition(":")
+    main_ = getattr(importlib.import_module(modname), fn or "main")
     with Recorder(cuda_rns, ("verify_cuda", "pow_cuda")) as rec, Counted() as run:
         try:
             rc = main_(argv)
@@ -3216,6 +3248,41 @@ def fleet_health(api_base: int, n_nodes: int, fleet_port: int, collector, sideca
     return out
 
 
+def autopilot_watch(fleet_port: int, watcher, logs: str, env: dict) -> dict:
+    """Deploy (f), the topology autopilot's advisory watcher beside the
+    collector (run_cluster --autopilot): its process is up and has printed
+    advice lines over /fleet into its log, and ``python -m
+    bftkv_tpu_torch.autopilot --fleet-url .../fleet --once`` exits 0 with
+    ``advice: []`` (the deployed cluster has one shard: nothing to split
+    or retire); neither process maps libcuda."""
+    url = f"http://127.0.0.1:{fleet_port}/fleet"
+    check(watcher.poll() is None, f"the autopilot watcher exited {watcher.returncode}")
+    t0 = time.perf_counter()
+    while True:
+        lines = [json.loads(ln) for ln in open(os.path.join(logs, "autopilot.log"), "rb").read().splitlines()
+                 if ln.startswith(b"{")]
+        if any("advice" in d for d in lines):
+            break
+        check(time.perf_counter() - t0 < DEPLOY_FLEET_WAIT_S, f"the autopilot watcher printed {lines[-3:]}")
+        time.sleep(0.5)
+    check(not _maps_libcuda(watcher.pid), f"the autopilot watcher (pid {watcher.pid}) has libcuda mapped")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "bftkv_tpu_torch.autopilot", "--fleet-url", url, "--once"],
+                       env=env, capture_output=True, timeout=120)
+    once_s = time.perf_counter() - t0
+    check(r.returncode == 0, f"the autopilot watcher's --once exited {r.returncode}: {r.stdout[-400:]!r} "
+          f"{r.stderr[-800:]!r}")
+    advice = json.loads(r.stdout)["advice"]
+    check(advice == [], f"the autopilot watcher's --once advised {advice} on the one-shard fleet")
+    advised = [d["advice"] for d in lines if "advice" in d]
+    out = {"watcher_pid": watcher.pid, "watcher_lines": len(lines), "watcher_advice": advised[-1],
+           "once_rc": r.returncode, "once_advice": advice, "once_s": once_s}
+    print(f"deploy (f) autopilot: run_cluster --autopilot's watcher up beside the collector, {len(lines)} JSON "
+          f"line(s) over /fleet, the last advice {advised[-1]}; python -m bftkv_tpu_torch.autopilot --once exit 0 "
+          f"with advice [] in {once_s:.1f} s; the watcher never mapped libcuda", flush=True)
+    return out
+
+
 def deploy_phase(dev, replicas, writers, storage_keys, seed: int) -> dict:
     """The process surfaces (the port of bftkv_tpu/cmd/, gateway/, workload/,
     obs/source.py, obs/profiler.py): the headline's round, bench.py's
@@ -3318,11 +3385,13 @@ def deploy_phase(dev, replicas, writers, storage_keys, seed: int) -> dict:
             [homes[n] for n in node_names], os.path.join(root, "dbs"), storage="mem",
             api_base=api_base, sidecar=sock, rpc_timeout=DEPLOY_RPC_TIMEOUT_S, extra_env=env,
             device=str(dev), log_dir=logs, fleet=fleet_port, fleet_interval=DEPLOY_FLEET_INTERVAL_S,
-            recorder=blackbox, client_home=homes[uni.users[0].name])
+            recorder=blackbox, client_home=homes[uni.users[0].name], autopilot=True)
         fleet = [p for p in procs if "bftkv_tpu_torch.cmd.bftkv" in p.args]
         collector = [p for p in procs if "bftkv_tpu_torch.cmd.fleet" in p.args]
-        check(len(fleet) == n_nodes and len(collector) == 1,
-              f"run_cluster.spawn started {len(fleet)} daemons and {len(collector)} collectors")
+        watcher = [p for p in procs if "bftkv_tpu_torch.autopilot" in p.args]
+        check(len(fleet) == n_nodes and len(collector) == 1 and len(watcher) == 1,
+              f"run_cluster.spawn started {len(fleet)} daemons, {len(collector)} collectors and "
+              f"{len(watcher)} autopilot watchers")
         api_ports = [api_base + i for i in range(n_nodes)]
         # The gateway starts beside the fleet, as run_cluster starts it, so
         # its ports are bound before the round's connections take local
@@ -3336,7 +3405,7 @@ def deploy_phase(dev, replicas, writers, storage_keys, seed: int) -> dict:
                  "--rpc-timeout", str(DEPLOY_RPC_TIMEOUT_S)],
                 env=env, stdout=glog, stderr=subprocess.STDOUT)
         _wait_ports(list(range(base, base + n_nodes)) + api_ports + [fleet_port], procs, DEPLOY_START_S,
-                    "the fleet")
+                    "the fleet", logs)
         spawn_s = time.perf_counter() - t0
         _wait_ports([gw_port, gw_api], [gw_proc], DEPLOY_START_S, "the gateway")
         gw_start_s = time.perf_counter() - t0
@@ -3577,6 +3646,7 @@ def deploy_phase(dev, replicas, writers, storage_keys, seed: int) -> dict:
 
         # (f) the fleet health plane over the deployed fleet
         out["health"] = fleet_health(api_base, n_nodes, fleet_port, collector[0], sidecar_stats, blackbox, env)
+        out["autopilot"] = autopilot_watch(fleet_port, watcher[0], logs, env)
     finally:
         # (e) teardown: the gateway, the fleet, the sidecar
         if gw_proc is not None:
@@ -3603,13 +3673,18 @@ def deploy_phase(dev, replicas, writers, storage_keys, seed: int) -> dict:
         fail(f"{len(stuck)} daemon(s) did not exit 0 within {DEPLOY_STOP_S:.0f} s of SIGTERM: {stuck[:8]}; "
              f"log tails {tails}")
     check(gw_proc.returncode == 0, f"the gateway exited {gw_proc.returncode}")
+    # The watcher has no handler of its own: SIGTERM ends it, as it ends
+    # the reference's; SIGKILL at the deadline would not count.
+    check(watcher[0].returncode in (0, -signal.SIGTERM), f"the autopilot watcher exited {watcher[0].returncode}")
     stopped = sum(1 for n in node_names
                   if open(os.path.join(logs, n + ".log"), "rb").read().rstrip().endswith(b"bftkv: stopped"))
     check(stopped == len(fleet), f"{len(fleet) - stopped} daemon(s) did not log a clean stop")
     revs = [n for n in node_names if os.path.exists(os.path.join(root, "dbs", n + ".rev"))]
-    out["teardown"] = {"stop_s": stop_s, "exit_codes": sorted(set(rcs)), "revocation_lists": len(revs)}
+    out["teardown"] = {"stop_s": stop_s, "exit_codes": sorted(set(rcs)), "revocation_lists": len(revs),
+                       "watcher_exit": watcher[0].returncode}
     print(f"deploy (e) teardown: {len(fleet)} daemons and the gateway exited 0 in {stop_s:.1f} s, each logging a "
-          f"clean stop; revocation lists written: {len(revs)} (nothing was revoked)", flush=True)
+          f"clean stop, the autopilot watcher with {watcher[0].returncode}; revocation lists written: "
+          f"{len(revs)} (nothing was revoked)", flush=True)
     hold_rns_calls(k1_calls + w_k1, k2_calls + w_k2, "deploy round")
     torch.cuda.synchronize()
     out["held_against_plain"] = {"K1": len(k1_calls), "K2": len(k2_calls),
@@ -3621,6 +3696,182 @@ def deploy_phase(dev, replicas, writers, storage_keys, seed: int) -> dict:
     print(f"deploy: every sidecar and writer launch of the round equal to its plain version ({out['held_against_plain']}); "
           f"cuts {out['cuts'] or 'none'}; phase {out['phase_s']:.1f} s on {nvidia_smi('name,power.limit')}",
           flush=True)
+    return out
+
+
+def split_step_main(argv: list) -> int:
+    """The chaos phase's split step, in a process of its own under
+    _recorded_main (``chip_smoke:split_step_main DEVICE OUT.json``): the
+    reference's tests/test_autopilot.py::test_split_smoke on the card.
+    build_cluster(4, 1, 4, bits=CHAOS_BITS, n_shards=2) on DEVICE, 16 hot
+    keys of shard 0 written, the autopilot's own decision (a split of
+    shard 0) executed with pace SPLIT_PACE_S while one writer thread keeps
+    writing.  Checks: the plan, no failed write, writes across the flip
+    (acknowledged after the flip table went out and before execute
+    returned), every member and client on the final epoch, every key read
+    back, fresh writes to moved keys read back, and migrated records
+    re-certified by the new owner clique, each verified by a new-owner
+    replica's collective verify (on the card, the memo off).  Writes its
+    summary to OUT.json."""
+    from bftkv_tpu_torch import packet as pkt
+    from bftkv_tpu_torch import quorum as q
+    from bftkv_tpu_torch.autopilot import Autopilot
+    from bftkv_tpu_torch.faults.harness import build_cluster
+    from bftkv_tpu_torch.ops import cuda_rns
+    from bftkv_tpu_torch.sync.digest import latest_completed
+
+    dev, out_path = torch.device(argv[0]), argv[1]
+    t_step = time.perf_counter()
+    cluster = build_cluster(4, 1, 4, bits=CHAOS_BITS, n_shards=2, device=dev)
+    try:
+        build_s = time.perf_counter() - t_step
+        cl = cluster.clients[0]
+        qs = cl.qs
+        keys, i = [], 0
+        while len(keys) < SPLIT_HOT_KEYS:
+            k = b"hot/%d" % i
+            i += 1
+            if qs.shard_of(k) == 0:
+                keys.append(k)
+        for k in keys:
+            cl.write(k, b"v1-" + k)
+        cl.drain_tails()
+        ap = Autopilot.for_cluster(cluster)
+        epoch_before = qs.route_epoch()
+        plan = ap.decide()
+        check(plan is not None and plan.kind == "split" and plan.shard == 0,
+              f"split step: the autopilot decided {plan}")
+
+        # The tables as they go out: (time, epoch, fleet-wide, dual buckets).
+        shipped = []
+        distribute = ap.distribute
+
+        def recorded_distribute(rt, targets=None):
+            shipped.append((time.monotonic(), rt.epoch, targets is None, len(rt.dual)))
+            return distribute(rt, targets)
+
+        ap.distribute = recorded_distribute
+        cond = threading.Condition()
+        acked, failures = [], []
+        stop = threading.Event()
+
+        def writer():
+            n = 0
+            while not stop.is_set():
+                n += 1
+                k = keys[n % len(keys)]
+                try:
+                    cl.write(k, b"w%d-" % n + k)
+                except Exception as e:
+                    failures.append(repr(e))
+                    continue
+                with cond:
+                    acked.append(time.monotonic())
+                    cond.notify_all()
+
+        def wait_past(n: int, what: str) -> None:
+            with cond:
+                check(cond.wait_for(lambda: len(acked) > n or failures, SPLIT_DEADLINE_S) and not failures,
+                      f"split step: {what}: {len(acked)} writes, failures {failures[:3]}")
+
+        th = threading.Thread(target=writer, daemon=True)
+        th.start()
+        try:
+            wait_past(0, "no write before the migration")
+            t_exec = time.monotonic()
+            report = ap.execute(plan, pace=SPLIT_PACE_S)
+            t_done = time.monotonic()
+            wait_past(len(acked), "no write after the migration")
+        finally:
+            stop.set()
+            th.join(SPLIT_DEADLINE_S)
+        check(not th.is_alive(), "split step: the writer did not stop")
+        cl.drain_tails()
+        check(report.get("ok") and "final_epoch" in report, f"split step: the migration report {report}")
+        check(not failures, f"split step: {len(failures)} failed writes: {failures[:3]}")
+        flips = [t for t, e, fleet, dual in shipped if fleet and dual and e == report["epoch"]]
+        check(len(flips) == 1, f"split step: the flip table went out {len(flips)} times: {shipped}")
+        across = sum(1 for t in acked if flips[0] <= t <= t_done)
+        during = sum(1 for t in acked if t_exec <= t <= t_done)
+        check(across > 0, f"split step: no write acknowledged across the flip ({during} during the migration)")
+        epochs = {s_.qs.route_epoch() for s_ in cluster.all_servers} | {c.qs.route_epoch() for c in cluster.clients}
+        check(epochs == {report["final_epoch"]}, f"split step: epochs {epochs}, final {report['final_epoch']}")
+        moved = [k for k in keys if qs.shard_of(k) == 1]
+        check(bool(moved), "split step: no hot key rerouted by the split")
+        for k in keys:
+            check(cl.read(k) is not None, f"split step: {k!r} does not read back")
+        for k in moved[:4]:
+            cl.write(k, b"post-" + k)
+        cl.drain_tails()
+        for k in moved[:4]:
+            check(cl.read(k) == b"post-" + k, f"split step: the fresh write to {k!r} does not read back")
+        new_members = [s_ for s_ in cluster.all_servers if s_.qs.shard_index_of(s_.self_node.get_self_id()) == 1]
+        recert, k1_before = 0, cuda_rns.LAUNCHES["verify"]
+        for srv in new_members:
+            for k in moved:
+                rec = latest_completed(srv.storage, k)
+                if rec is None:
+                    continue
+                _t, raw, p = rec
+                srv.crypt.collective.verify(pkt.tbss(raw), p.ss, q.choose_quorum_for(srv.qs, k, q.AUTH),
+                                            srv.crypt.keyring, use_cache=False)
+                recert += 1
+        recert_k1 = cuda_rns.LAUNCHES["verify"] - k1_before
+        check(recert > 0 and recert_k1 > 0,
+              f"split step: {recert} migrated records verified by new owners, {recert_k1} K1 launches")
+        summary = {
+            "hot_keys": len(keys), "moved_keys": len(moved), "plan": {"kind": plan.kind, "shard": plan.shard,
+                                                                    "buckets": len(plan.assign)},
+            "epochs": {"before": epoch_before, "tables": [e for _t, e, _f, _d in shipped],
+                       "flip": report["epoch"], "final": report["final_epoch"]},
+            "writes": {"total": len(acked), "during_migration": during, "across_flip": across, "failed": 0},
+            "recertified_verified": recert, "recert_verify_k1_launches": recert_k1,
+            "migration": {k: report[k] for k in ("precopy_s", "flip_s", "drain_s", "elapsed_s", "residual",
+                                                 "snapshot_shipped") if k in report},
+            "build_s": build_s, "wall_s": time.perf_counter() - t_step,
+        }
+    finally:
+        cluster.stop()
+    with open(out_path, "w") as f:
+        json.dump(summary, f)
+    return 0
+
+
+def gpg_fixture_step(dev) -> dict:
+    """The chaos phase's importer step: the committed GnuPG universe
+    (tests/data/gpg_universe: a01, rw01, u01, RSA-2048, three
+    cross-signatures) imported by the port's cmd/import_gpg.py, its native
+    homes written and each loaded with topology.load_home(device=dev)."""
+    import tempfile
+
+    from bftkv_tpu_torch.cmd import import_gpg
+    from bftkv_tpu_torch.topology import load_home
+
+    t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    dirs = [os.path.join(here, "tests", "data", "gpg_universe", n) for n in ("a01", "rw01", "u01")]
+    res = import_gpg.import_homedirs(dirs)
+    by_name = {c.name: c for c in res.certs.values()}
+    check(set(by_name) == {"a01", "rw01", "u01"} and len(res.secrets) == 3 and len(res.edges) == 3
+          and not res.unconverted, f"gpg: imported {sorted(by_name)}, {len(res.secrets)} secrets, "
+          f"{len(res.edges)} edges, {len(res.unconverted)} unconverted")
+    with tempfile.TemporaryDirectory(prefix="smoke-gpg-") as root:
+        written = import_gpg.write_native_homes(res, root)
+        check(len(written) == 3, f"gpg: {len(written)} native homes written")
+        devices = []
+        for path in written:
+            graph, crypt, _qs = load_home(path, device=dev)
+            check(crypt.signer.cert.name == os.path.basename(path), f"gpg: {path} loads as {crypt.signer.cert.name}")
+            devices.append(str(crypt.collective.verifier.device))
+        graph, _c, _q = load_home(os.path.join(root, "rw01"), device=dev)
+        check(by_name["a01"].id in {c.id for c in graph.get_reachable_nodes(by_name["rw01"].id, 1)},
+              "gpg: rw01's home does not reach a01")
+    check(set(devices) == {str(dev)}, f"gpg: the homes' verifiers run on {devices}")
+    out = {"identities": len(res.certs), "edges": len(res.edges), "homes": len(written),
+           "device": devices[0], "s": time.perf_counter() - t0}
+    print(f"chaos (gpg) import_gpg: the committed universe ({len(res.certs)} identities, {len(res.edges)} "
+          f"trust edges re-signed natively, 0 unconverted), {len(written)} native homes loaded on {devices[0]} "
+          f"in {out['s']:.2f} s", flush=True)
     return out
 
 
@@ -3644,9 +3895,15 @@ def chaos_phase(dev) -> dict:
     BFTKV_FLIGHT_RECORDER=1: the cluster's verifies and signs through the
     embedded sidecar on the card, zero failed writes in its crash windows,
     sidecar_down raised in each, sign-key handles registered again after
-    each restart, one flight-recorder bundle per fault window.  Both must
-    exit 0.  Every K1 and K2 launch of the phase is held against its plain
-    version; each kernel must launch at least once over the phase."""
+    each restart, one flight-recorder bundle per fault window; (c) the
+    topology autopilot under chaos (ROADMAP A1's stop condition), ``--seed 7
+    --bits 2048 --shards 2 --autopilot --kinds route_flap,partition,
+    crash_restart``: the forced split done, the route epoch advanced, a
+    route_flap window among the windows, K1 launched.  All must exit 0.
+    Then the split step (:func:`split_step_main`, its own process) and the
+    importer step (:func:`gpg_fixture_step`, in this process).  Every K1
+    and K2 launch of the phase is held against its plain version; each
+    kernel must launch at least once over the phase."""
     import shutil
     import tempfile
 
@@ -3662,9 +3919,11 @@ def chaos_phase(dev) -> dict:
         ("b", "sidecar chaos", common + ["--steps", str(CHAOS_SIDECAR_STEPS), "--sidecar", "--kinds",
                                          CHAOS_SIDECAR_KINDS],
          {"BFTKV_FLIGHT_RECORDER": "1", "BFTKV_RECORDER_DIR": blackbox}),
+        ("c", "autopilot chaos", common + ["--shards", "2", "--autopilot", "--kinds", CHAOS_AUTOPILOT_KINDS], {}),
     ]
     out = {"host_thresholds": 0, "verify_cache": "off", "runs": {}}
     k1_all, k2_all = [], []
+    k1_of, k2_of = {}, {}
     for tag, label, argv, extra in runs:
         rec_path = os.path.join(root, f"{tag}.pt")
         t0 = time.perf_counter()
@@ -3688,6 +3947,7 @@ def chaos_phase(dev) -> dict:
               f"chaos ({tag}): recorded launches {len(k1)}, {len(k2)} differ from the counts {launches}")
         k1_all += k1
         k2_all += k2
+        k1_of[tag], k2_of[tag] = k1, k2
         det = report["detection"]
         rows = lambda calls: sum(a[0].shape[0] for _p, a in calls)
         run = {
@@ -3716,6 +3976,21 @@ def chaos_phase(dev) -> dict:
                   f"chaos (b): bundles per window {[d.get('bundles') for d in windows]}, {len(bundles)} on disk")
             run.update(sidecar_crash_windows=len(crashes), bundles_on_disk=len(bundles),
                        recorder=report["recorder"] and {k: v for k, v in report["recorder"].items() if k != "dir"})
+        if tag == "c":
+            ap_doc = report["autopilot"] or {}
+            mig, status = ap_doc.get("migration") or {}, ap_doc.get("status") or {}
+            flaps = [d for d in det if d["kind"] == "route_flap"]
+            check(bool(mig.get("ok")) and mig.get("kind") == "split",
+                  f"chaos (c): the autopilot's migration {mig}")
+            check(report["route_epoch"] >= mig.get("final_epoch", mig.get("epoch", 0)) > 0,
+                  f"chaos (c): route epoch {report['route_epoch']}, migration {mig}")
+            check(bool(flaps), f"chaos (c): no route_flap window in {run['kinds']}")
+            check(run["k1_launches"] >= 1, "chaos (c): K1 was not launched")
+            run.update(route_flap_windows=len(flaps), route_epoch=report["route_epoch"],
+                       migration={k: mig.get(k) for k in ("kind", "shard", "targets", "buckets", "epoch",
+                                                          "final_epoch", "window_open", "precopy_s", "flip_s",
+                                                          "drain_s", "elapsed_s") if k in mig},
+                       autopilot_status={k: status.get(k) for k in ("epoch", "retired", "migrations")})
         out["runs"][tag] = run
         print(f"chaos ({tag}) {label}: python -m bftkv_tpu_torch.faults.nemesis {' '.join(argv)} exit 0 in "
               f"{wall:.1f} s (process start and key generation included); plan {run['kinds']}; faults fired "
@@ -3723,13 +3998,54 @@ def chaos_phase(dev) -> dict:
               f"failures {run['failures']}; on {dev}: K1 {run['k1_launches']} launches ({run['k1_rows']} rows), "
               f"K2 {run['k2_launches']} ({run['k2_rows']} rows); counters {run['counters']}"
               + (f"; {run['sidecar_crash_windows']} sidecar crash windows, {run['bundles_on_disk']} bundles on disk"
-                 if tag == "b" else ""), flush=True)
+                 if tag == "b" else "")
+              + (f"; {run['route_flap_windows']} route_flap windows; route epoch 0 -> {run['route_epoch']}, the "
+                 f"migration {run['migration']}" if tag == "c" else ""), flush=True)
+
+    # The split step: a live split under a writer, its own process.
+    rec_path, sum_path = os.path.join(root, "split.pt"), os.path.join(root, "split.json")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", RECORDED, rec_path, "chip_smoke:split_step_main", str(dev), sum_path],
+                       env=env, capture_output=True, timeout=CHAOS_RUN_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    check(r.returncode == 0 and os.path.exists(sum_path) and os.path.exists(rec_path),
+          f"chaos (split): exit {r.returncode}: {r.stdout[-800:]!r} {r.stderr[-2000:]!r}")
+    got, k1, k2 = _recorded_calls(rec_path, "chaos (split)", dev)
+    launches = got["launches"]
+    check(got["rc"] == 0 and len(k1) == launches["verify"] and len(k2) == launches["pow"]
+          and not any(v for name, v in launches.items() if name not in ("verify", "pow")),
+          f"chaos (split): rc {got['rc']}, recorded launches {len(k1)}, {len(k2)}, counts {launches}")
+    check(len(k1) >= 1, "chaos (split): K1 was not launched")
+    with open(sum_path) as f:
+        split = json.load(f)
+    split.update(wall_s=wall, k1_launches=len(k1), k2_launches=len(k2))
+    out["split"] = split
+    k1_all += k1
+    k2_all += k2
+    k1_of["split"], k2_of["split"] = k1, k2
+    ep, wr = split["epochs"], split["writes"]
+    print(f"chaos (split) live split: build_cluster(4, 1, 4, bits={CHAOS_BITS}, n_shards=2) on {dev}, "
+          f"{split['hot_keys']} hot keys of shard 0, the autopilot's plan {split['plan']}; {wr['total']} writes, "
+          f"0 failed, {wr['across_flip']} across the flip ({wr['during_migration']} during the migration); "
+          f"epochs {ep['before']} -> tables {ep['tables']} (flip {ep['flip']}, final {ep['final']}), every member "
+          f"and client on {ep['final']}; {split['moved_keys']} keys moved and read back; "
+          f"{split['recertified_verified']} migrated records re-certified and verified by new owners "
+          f"({split['recert_verify_k1_launches']} K1 launches); migration {split['migration']}; "
+          f"K1 {len(k1)}, K2 {len(k2)} launches; {wall:.1f} s (process start and key generation included)",
+          flush=True)
+
+    # The importer: the committed GnuPG universe, homes loaded on the card.
+    out["gpg"] = gpg_fixture_step(dev)
+
     check(len(k1_all) >= 1 and len(k2_all) >= 1,
           f"the chaos phase launched K1 {len(k1_all)} and K2 {len(k2_all)} times")
     hold_rns_calls(k1_all, k2_all, "chaos phase")
     torch.cuda.synchronize()
-    out["held_against_plain"] = {"K1": len(k1_all), "K2": len(k2_all)}
-    out["records"] = rns_main_shape_records(k1_all, k2_all, "chaos phase")
+    out["held_against_plain"] = {"K1": len(k1_all), "K2": len(k2_all),
+                                 "by_run": {t: {"K1": len(k1_of[t]), "K2": len(k2_of[t])} for t in k1_of}}
+    out["records"] = (rns_main_shape_records(k1_of["a"] + k1_of["b"], k2_of["a"] + k2_of["b"], "chaos phase")
+                      + rns_main_shape_records(k1_of["c"], k2_of["c"], "chaos (c), autopilot")
+                      + rns_main_shape_records(k1_of["split"], k2_of["split"], "chaos (split), live split"))
     shutil.rmtree(root, ignore_errors=True)
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"chaos: every K1 and K2 launch of the phase equal to its plain version ({out['held_against_plain']}); "

@@ -5,7 +5,8 @@ checker) against the reference's cases (``tests/test_chaos.py``), on a
 ``Nemesis.plan`` equals the reference's for seeds 0–31 over several
 step counts and kind pools, on a dummy and on a live cluster; both
 ``SafetyChecker``s give the same verdicts on the same recorded history,
-planted violations included; the CLI's refusals of the autopilot.
+planted violations included; the CLI's rule for ``route_flap``; the
+autopilot under chaos on a two-shard cluster.
 
 Tier-1 keeps the short deterministic runs; the long seeded soak is
 ``slow``-marked, as in the reference."""
@@ -277,16 +278,43 @@ def test_cli_sidecar_chaos_form_with_the_flight_recorder(capsys, monkeypatch, tm
     assert dispatch.get() is None and dispatch.get_signer() is None
 
 
+def test_cli_autopilot_route_flap_on_two_shards(capsys):
+    """``nemesis --seed 7 --bits 1024 --shards 2 --autopilot --kinds
+    route_flap,partition,crash_restart`` on the cpu: exit 0, converged,
+    no violation, the forced split done under the second half of the
+    schedule (its final epoch past the epoch the run started at), at
+    least one route_flap window, the autopilot's status in the report."""
+    import json
+
+    from bftkv_tpu_torch.faults import nemesis
+
+    rc = nemesis.main(["--seed", "7", "--bits", "1024", "--shards", "2", "--autopilot",
+                       "--kinds", "route_flap,partition,crash_restart", "--device", DEVICE, "--json"])
+    report = json.loads(capsys.readouterr().out)
+    failed = {k: report[k] for k in ("violations", "undetected", "gray_blocked", "sidecar_blocked",
+                                     "region_blocked", "recorder_missing") if report[k]}
+    assert rc == 0 and report["converged"] and not failed, failed
+    mig = report["autopilot"]["migration"]
+    assert mig and mig["ok"] and mig["kind"] == "split", mig
+    assert report["route_epoch"] >= mig.get("final_epoch", mig["epoch"]) > 0
+    assert "route_flap" in {s_["kind"] for s_ in report["plan"]}
+    status = report["autopilot"]["status"]
+    assert status["enabled"] and status["migrations"] >= 1 and status["epoch"] == report["route_epoch"]
+
+
 @pytest.mark.parametrize("argv", [
-    ["--autopilot"],
-    ["--autopilot", "--shards", "2", "--kinds", "route_flap"],
     ["--kinds", "route_flap"],
+    ["--autopilot", "--kinds", "route_flap"],
+    ["--autopilot", "--shards", "1", "--kinds", "route_flap"],
     ["--kinds", "partition,route_flap", "--shards", "2"],
 ])
 def test_autopilot_and_route_flap_refused_before_any_cluster(argv, monkeypatch, capsys):
-    """The autopilot is not ported: ``--autopilot`` and the ``route_flap``
-    kind exit 2 naming ``autopilot/`` before a cluster (or a sidecar) is
-    built; ``Nemesis.run`` with the autopilot raises before arming."""
+    """The reference's rule (``bftkv_tpu/faults/nemesis.py:1600-1603``):
+    ``--kinds route_flap`` needs ``--autopilot`` and ``--shards 2+``.
+    Without the autopilot, with ``--shards 1`` or with the default one
+    shard it exits 2 before a cluster (or a sidecar) is built, as the
+    reference's CLI does on the same arguments."""
+    from bftkv_tpu.faults import nemesis as ref_nemesis
     from bftkv_tpu_torch.faults import nemesis
 
     def boom(*a, **k):
@@ -297,8 +325,10 @@ def test_autopilot_and_route_flap_refused_before_any_cluster(argv, monkeypatch, 
     with pytest.raises(SystemExit) as e:
         nemesis.main(argv + ["--device", DEVICE])
     assert e.value.code == 2
-    assert "autopilot/" in capsys.readouterr().err
-    dummy = types.SimpleNamespace(names=lambda storage_only=True: ["rw01"])
-    with pytest.raises(RuntimeError, match="autopilot/"):
-        Nemesis(dummy, seed=1, autopilot=True).run(steps=1)
+    assert "route_flap needs --autopilot and --shards 2+" in capsys.readouterr().err
+    monkeypatch.setattr(ref_nemesis, "build_cluster", boom)
+    with pytest.raises(SystemExit) as e:
+        ref_nemesis.main(argv)
+    assert e.value.code == 2
+    assert "route_flap needs --autopilot and --shards 2+" in capsys.readouterr().err
     assert not fp.ARMED

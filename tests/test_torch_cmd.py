@@ -86,6 +86,8 @@ def cluster(tmp_path_factory):
         # The health plane beside it: the collector process scrapes the
         # 8 daemons and the sidecar's stats port, with a flight recorder.
         fleet=fleet_port, fleet_interval=0.5, recorder=str(tmp / "blackbox"),
+        # And the advisory topology watcher over the collector's /fleet.
+        autopilot=True,
     )
     try:
         for port in range(base, base + 8):
@@ -351,25 +353,33 @@ def test_genkeys_homes_load_in_both_packages(tmp_path, writer):
     assert pcr.collective.verifier.verify_batch([(tbs, entries[0][1], key)])[0]
 
 
-def test_run_cluster_refuses_the_fleet_collector(tmp_path):
-    """What of the health plane the runner still refuses: ``--autopilot``
-    (the topology autopilot is not ported) exits 2 naming ``autopilot/``,
-    and ``spawn`` raises before any process starts, for the autopilot and
-    for ``--fleet`` without ``--api-base`` (the reference's precondition).
-    ``--fleet`` and ``--recorder`` themselves run: see the ``cluster``
-    fixture and :func:`test_fleet_collector_beside_the_port_daemons`."""
+def test_run_cluster_refuses_the_fleet_collector(tmp_path, cluster):
+    """What of the health plane the runner refuses, as the reference does:
+    ``--autopilot`` without ``--fleet`` (the watcher reads the collector's
+    ``/fleet``) exits 2 before any process starts, and ``spawn`` raises
+    for it and for ``--fleet`` without ``--api-base``.  With ``--fleet``
+    the watcher runs beside the collector (the ``cluster`` fixture): its
+    process is up, and a ``--once`` scrape of the same ``/fleet`` exits 0
+    with no advice (one low-traffic shard: nothing to split or retire)."""
     from bftkv_tpu_torch.cmd import run_cluster
 
     r = run_cmd(["bftkv_tpu_torch.cmd.run_cluster", "--keys", str(tmp_path / "k"),
-                 "--db-root", str(tmp_path / "d"), "--fleet", "7899", "--autopilot",
-                 "--device", "cpu"])
-    assert r.returncode == 2 and b"autopilot/" in r.stderr, r.stderr.decode()
-    for kw, msg in (({"fleet": 7899, "api_base": 7000, "autopilot": True}, "autopilot/"),
-                    ({"autopilot": True}, "autopilot/"),
+                 "--db-root", str(tmp_path / "d"), "--autopilot", "--device", "cpu"])
+    assert r.returncode == 2 and b"--autopilot needs --fleet" in r.stderr, r.stderr.decode()
+    for kw, msg in (({"api_base": 7000, "autopilot": True}, "--autopilot needs --fleet"),
+                    ({"autopilot": True}, "--autopilot needs --fleet"),
                     ({"fleet": 7899}, "needs --api-base")):
         with pytest.raises(ValueError, match=msg):
             run_cluster.spawn(["h"], str(tmp_path / "d"), device="cpu", **kw)
     assert not (tmp_path / "d").exists()
+    watchers = [p for p in cluster["procs"] if "bftkv_tpu_torch.autopilot" in p.args]
+    assert len(watchers) == 1 and watchers[0].poll() is None
+    assert watchers[0].args[-4:] == ["--fleet-url", f"http://127.0.0.1:{cluster['fleet']}/fleet",
+                                     "--interval", "2.0"]
+    once = run_cmd(["bftkv_tpu_torch.autopilot", "--fleet-url",
+                    f"http://127.0.0.1:{cluster['fleet']}/fleet", "--once"])
+    assert once.returncode == 0, once.stderr.decode()
+    assert json.loads(once.stdout)["advice"] == []
 
 
 def _get_json(url: str):

@@ -94,7 +94,9 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import bftkv_tpu_torch.obs.collector, bftkv_tpu_torch.obs.recorder, bftkv_tpu_torch.obs.http\n"
         "import bftkv_tpu_torch.cmd.fleet, bftkv_tpu_torch.faults.byzantine\n"
         "import bftkv_tpu_torch.faults.checker, bftkv_tpu_torch.faults.harness\n"
-        "import bftkv_tpu_torch.faults.nemesis\n"
+        "import bftkv_tpu_torch.faults.nemesis, bftkv_tpu_torch.autopilot\n"
+        "import bftkv_tpu_torch.autopilot.plan, bftkv_tpu_torch.autopilot.daemon\n"
+        "import bftkv_tpu_torch.autopilot.__main__, bftkv_tpu_torch.cmd.import_gpg\n"
         "from bftkv_tpu_torch.ops import _build\n"
         "new = set(sys.modules) - before\n"
         "tops = {m.split('.')[0] for m in new}\n"
@@ -451,6 +453,8 @@ def test_flag_seam():
         "BFTKV_RECORDER_DIR", "BFTKV_RECORDER_MIN_INTERVAL", "BFTKV_RECORDER_MAX_MB",
         "BFTKV_SAT_THRESHOLD", "BFTKV_SAT_SCRAPES", "BFTKV_SAT_WAIT_REF",
         "BFTKV_WAN_RTT_MATRIX", "BFTKV_WORKLOAD",
+        # The topology autopilot.
+        "BFTKV_AUTOPILOT",
     }
     # Every declared flag is read somewhere in the port, and no BFTKV_*
     # name is read from the environment outside flags.py.
