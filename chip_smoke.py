@@ -2495,10 +2495,17 @@ def crypto_phase(dev, replicas, writers, ec_replicas, seed: int, build_dir: str,
 # -- the protocol phase --------------------------------------------------------------
 
 
-def _free_port_block(n: int) -> int:
-    """The first of ``n`` consecutive localhost ports this process can bind,
-    probed from a random start in [20000, 32000): below the OS's ephemeral
-    range."""
+def _reserve_port_block(n: int) -> tuple[int, list]:
+    """The first of ``n`` consecutive free localhost ports, probed from a
+    random start in [20000, 32000), and the sockets that hold them.  Each
+    socket is bound with SO_REUSEADDR and never listens: a server that binds
+    the same port (http.server sets SO_REUSEADDR) still can, but no outgoing
+    connection takes the port as its local one meanwhile.  That matters
+    where the OS's ephemeral range reaches into the block (it starts at
+    16000 on some hosts): the fleet's own connections, the collector's
+    scrapes among them, would otherwise take ports of daemons not yet up.
+    Close the sockets (:func:`_release_ports`) once every server of the
+    block is up."""
     import socket
 
     rng = random.Random()
@@ -2509,14 +2516,28 @@ def _free_port_block(n: int) -> int:
             for port in range(base, base + n):
                 sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
                 held.append(sock)
+                sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
                 sock.bind(("127.0.0.1", port))
         except OSError:
+            _release_ports(held)
             continue
-        finally:
-            for sock in held:
-                sock.close()
-        return base
+        return base, held
     fail(f"no {n} consecutive free localhost ports")
+
+
+def _ephemeral_range() -> str:
+    """The OS's range of local ports for outgoing connections."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            return "-".join(f.read().split())
+    except OSError:
+        return "unknown"
+
+
+def _release_ports(held: list) -> None:
+    for sock in held:
+        sock.close()
+    held.clear()
 
 
 class _RecordingTransport:
@@ -2886,9 +2907,9 @@ def protocol_phase(dev, uni, replicas, writers, storage_keys, seed: int) -> dict
 
         # (e) HTTP and api.py: bench.py's cluster_4_http shape
         tmp = tempfile.mkdtemp(prefix="smoke-http-")
-        http_servers = []
+        http_servers, reserved = [], []
         try:
-            base = _free_port_block(HTTP_SERVERS + HTTP_STORAGE)
+            base, reserved = _reserve_port_block(HTTP_SERVERS + HTTP_STORAGE)
             huni = topology.build_universe(
                 HTTP_SERVERS, 1, HTTP_STORAGE, scheme="http", base_port=base,
                 rw_base_port=base + HTTP_SERVERS, bits=2048,
@@ -2899,6 +2920,7 @@ def protocol_phase(dev, uni, replicas, writers, storage_keys, seed: int) -> dict
                 srv = Server(g2, qs, TrHTTP(crypt), crypt, MemStorage(), device=dev)
                 srv.start()
                 http_servers.append(srv)
+            _release_ports(reserved)
             home = os.path.join(tmp, huni.users[0].name)
             topology.save_home(home, huni.users[0], huni.view_of(huni.users[0]))
             cli = api.open_client(home, device=dev)
@@ -2914,6 +2936,7 @@ def protocol_phase(dev, uni, replicas, writers, storage_keys, seed: int) -> dict
             cli.client.drain_tails()
             http_ms = (time.perf_counter() - t0) * 1e3
         finally:
+            _release_ports(reserved)
             for srv in http_servers:
                 srv.tr.stop()
             shutil.rmtree(tmp, ignore_errors=True)
@@ -3332,7 +3355,7 @@ def deploy_phase(dev, replicas, writers, storage_keys, seed: int) -> dict:
     here = os.path.dirname(os.path.abspath(__file__))
     os.environ["PYTHONPATH"] = os.pathsep.join(p for p in (here, os.environ.get("PYTHONPATH")) if p)
     env = dict(os.environ, BFTKV_RPC_TIMEOUT=str(DEPLOY_RPC_TIMEOUT_S))
-    procs, fleet, gw_proc, srv = [], [], None, None
+    procs, fleet, gw_proc, srv, reserved = [], [], None, None, []
     try:
         # (a) homes, the sidecar, the fleet
         t0 = time.perf_counter()
@@ -3341,7 +3364,8 @@ def deploy_phase(dev, replicas, writers, storage_keys, seed: int) -> dict:
         n_nodes = N_REPLICAS + N_STORAGE
         # The nodes and the gateway, their APIs, the sidecar's stats port
         # and the fleet collector's /fleet.
-        base = _free_port_block(2 * (n_nodes + 1) + 2)
+        n_ports = 2 * (n_nodes + 1) + 2
+        base, reserved = _reserve_port_block(n_ports)
         api_base = base + n_nodes + 1
         sidecar_stats = api_base + n_nodes + 1
         fleet_port = sidecar_stats + 1
@@ -3409,6 +3433,7 @@ def deploy_phase(dev, replicas, writers, storage_keys, seed: int) -> dict:
         spawn_s = time.perf_counter() - t0
         _wait_ports([gw_port, gw_api], [gw_proc], DEPLOY_START_S, "the gateway")
         gw_start_s = time.perf_counter() - t0
+        _release_ports(reserved)
         daemon_pids = [p.pid for p in fleet]
         host_delta = _host_used_bytes() - host_before
         check(built() == libs,
@@ -3425,12 +3450,14 @@ def deploy_phase(dev, replicas, writers, storage_keys, seed: int) -> dict:
                         "storage_engine": "mem", "homes_s": homes_s, "spawn_s": spawn_s,
                         "host_memory_bytes": host_delta, "host_memory_bytes_per_daemon": host_delta / len(fleet),
                         "card_apps_at_start": apps, "cpus": os.cpu_count(),
-                        "admission": DEPLOY_ADMISSION, "first_port": base, "api_base": api_base}
+                        "admission": DEPLOY_ADMISSION, "first_port": base, "api_base": api_base,
+                        "ephemeral_ports": _ephemeral_range()}
         print(f"deploy (a) fleet: {N_REPLICAS} servers + {N_STORAGE} storage daemons (python -m "
               f"bftkv_tpu_torch.cmd.bftkv --device {dev} --sidecar unix:...) up in {spawn_s:.1f} s on "
               f"{os.cpu_count()} cpus; host memory in use +{host_delta / 2**30:.2f} GiB "
               f"({host_delta / len(fleet) / 2**20:.0f} MiB a daemon), homes {homes_s:.1f} s; the sidecar in this process on {dev}, admission {DEPLOY_ADMISSION}; every "
-              f"daemon's device.cuda_initialized 0, the card's compute apps {apps}; "
+              f"daemon's device.cuda_initialized 0, the card's compute apps {apps}; ports {base}-"
+              f"{base + n_ports - 1} held until bound (the host's ephemeral ports {_ephemeral_range()}); "
               f"{nvidia_smi('name,power.limit')}", flush=True)
 
         # (b) the counted round: 4 bftrw writers, then their readmany
@@ -3649,6 +3676,7 @@ def deploy_phase(dev, replicas, writers, storage_keys, seed: int) -> dict:
         out["autopilot"] = autopilot_watch(fleet_port, watcher[0], logs, env)
     finally:
         # (e) teardown: the gateway, the fleet, the sidecar
+        _release_ports(reserved)
         if gw_proc is not None:
             run_cluster.shutdown([gw_proc], timeout=30.0)
         t0 = time.perf_counter()

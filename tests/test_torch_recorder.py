@@ -167,7 +167,23 @@ def test_reason_is_sanitized_into_the_dirname(tmp_path):
 # -- across the packages ----------------------------------------------------
 
 
-def test_bundles_equal_the_references(tmp_path):
+class _SteppedClock:
+    """The ``time`` module as a recorder reads it, each ``time()`` at least
+    2 ms after the one before: bundles minted back to back never share a
+    millisecond stamp, so name order is mint order in both packages."""
+
+    def __init__(self):
+        self.last = 0.0
+
+    def time(self):
+        self.last = max(time.time(), self.last + 0.002)
+        return self.last
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
+def test_bundles_equal_the_references(tmp_path, monkeypatch):
     """Both packages' recorders, each on its own collector, fed the same
     anomaly sequence (two fault windows, a follow-up that amends, a demand
     snapshot) over the same feeds: the same number of bundles, amended
@@ -177,8 +193,12 @@ def test_bundles_equal_the_references(tmp_path):
 
     from bftkv_tpu.obs import FleetCollector as RefCollector
     from bftkv_tpu.obs.recorder import FlightRecorder as RefRecorder
+    from bftkv_tpu.obs import recorder as ref_recorder
     from bftkv_tpu.obs.recorder import read_manifest as ref_read
+    from bftkv_tpu_torch.obs import recorder as port_recorder
 
+    for mod in (port_recorder, ref_recorder):
+        monkeypatch.setattr(mod, "time", _SteppedClock())
     snap = {"client.write.latency.count": 3, "verify.device": 12}
     feeds = dict(
         tracer=types.SimpleNamespace(traces=lambda limit=50: [{"trace": "t1"}],
