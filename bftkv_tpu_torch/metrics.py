@@ -6,15 +6,25 @@ so a run of the port reads like a run of the reference:
 - counters (``incr``): ``verify.device``, ``verify.host``,
   ``sign.device``, ``sign.host``, ``sign.fault``,
   ``sign.fault_check_divergence``, ``modexp.device``, ``modexp.host``,
-  ``<name>.flushes`` / ``.items`` / ``.launches`` of each dispatcher,
+  ``<name>.flushes`` / ``.items`` of each dispatcher, ``<name>.launches``
+  (the device launches its flushes' staging leases made),
   ``devbuf.overflow{width=…}``;
+- counters read at read time from a collector (:meth:`Registry.add_collector`,
+  ``ops/idle.py``): the card's idle-state ledger in seconds,
+  ``device.busy.seconds``, ``device.idle.gc.seconds``,
+  ``device.idle.flush_host.seconds``, ``device.idle.queued.seconds``,
+  ``device.idle.no_work.seconds`` (they sum to the process's life), and
+  the process's ``process.gc.seconds``, ``process.gc.collections`` and
+  ``process.cpu_seconds`` (user + system, ``os.times()``; on
+  ``/metrics`` ``bftkv_process_cpu_seconds_total``);
 - gauges (``gauge``, last write wins): ``dispatch.launch_rtt``,
   ``dispatch.crossover``, ``<name>.occupancy``,
   ``<name>.device_occupancy{width=…}``, ``<name>.throughput``,
   ``devbuf.in_flight{width=…}``, ``devbuf.saturation{width=…}``;
 - samples (``observe``, and ``timer`` around a block):
-  ``<name>.flush.seconds``, ``<name>.wait``, ``<name>.batch``,
-  ``verify.launch``.  The snapshot carries ``<name>.count``,
+  ``<name>.flush.seconds``, its phases ``<name>.flush.encode`` /
+  ``.device`` / ``.decode`` (``ops/idle.py``), ``<name>.wait``,
+  ``<name>.batch``, ``verify.launch``.  The snapshot carries ``<name>.count``,
   ``<name>.sum``, ``<name>.p50`` and ``<name>.p99``, and the series'
   fixed-bucket counts (:data:`BUCKETS`, whole run), one key
   ``<name>.bucket{...,le=…}`` per non-empty bucket, as the reference
@@ -173,6 +183,7 @@ class Registry:
         # Fixed-bucket counts per series (len(BUCKETS) + 1, the last the
         # +Inf overflow), over the whole run.
         self._buckets: dict[tuple, list[int]] = defaultdict(lambda: [0] * (len(BUCKETS) + 1))
+        self._collectors: list = []
 
     def _local_counters(self) -> dict:
         d = getattr(self._tl, "counters", None)
@@ -190,7 +201,16 @@ class Registry:
             # One C-level copy under the GIL: the owner cannot tear it.
             for k, v in d.copy().items():
                 totals[k] += v
+        for fn in list(self._collectors):
+            for name, v in fn().items():
+                totals[(name, ())] = v
         return dict(totals)
+
+    def add_collector(self, fn) -> None:
+        """``fn()`` returns unlabelled counters by name, read whenever
+        :meth:`snapshot` or :meth:`prometheus` reads the counters (their
+        values are the collector's, untouched by :meth:`reset`)."""
+        self._collectors.append(fn)
 
     def incr(self, name: str, n: int = 1, labels: dict | None = None) -> None:
         self._local_counters()[_key(name, labels)] += n

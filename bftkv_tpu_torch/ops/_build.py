@@ -8,7 +8,9 @@ into one library under ``bftkv_tpu_torch/_build/`` (listed in
 ``.gitignore``) and loads it; ninja runs one ``nvcc`` per source, in
 parallel.  The sources have a plain C interface and include no PyTorch
 header, so the build takes seconds; the library is loaded with
-``ctypes`` (``is_python_module=False``).  The build runs
+``ctypes`` (``is_python_module=False``).  Each launcher takes two
+optional CUDA events that it records on the stream right around its
+kernel (:func:`~bftkv_tpu_torch.ops.idle.kernel_events`).  The build runs
 under a lock because dispatcher threads race to the first launch; a
 build error raises — there is no fallback to the plain versions.
 """
@@ -39,15 +41,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # K1 and K2: (halves, em_halves | nibbles, idx, T, n_keys, 6 key-row
 #  arrays, 5 channel vectors, mu_all and 3 Shoup vectors, E_mma, D,
-#  invMq_pr, invM_pr, k, digits, out, stream, smem_need, smem_limit)
+#  invMq_pr, invM_pr, k, digits, out, stream, smem_need, smem_limit, and the
+#  events recorded around the kernel)
 _LAUNCH_ARGS = ([_P, _P, _P, _I, _I] + [_P] * 6 + [_P] * 9 + [_P] * 2 + [_I] * 4
-                + [_P, _P] + [ctypes.POINTER(_I)] * 2)
+                + [_P, _P] + [ctypes.POINTER(_I)] * 2 + [_P, _P])
 
 # K5: (res, nib, chan, T, 3 key-row arrays, 5 channel vectors, mu_all and 3
 #  Shoup vectors, E_mma, field, invMq_pr, invM_pr, k, out, stream,
-#  smem_need, smem_limit)
+#  smem_need, smem_limit, and the events recorded around the kernel)
 _EC_LAUNCH_ARGS = ([_P, _P, _I, _I] + [_P] * 3 + [_P] * 9 + [_P, _P] + [_I] * 3
-                   + [_P, _P] + [ctypes.POINTER(_I)] * 2)
+                   + [_P, _P] + [ctypes.POINTER(_I)] * 2 + [_P, _P])
 
 
 def library() -> ctypes.CDLL:
@@ -90,8 +93,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     for fn in (lib.rns_verify_attrs, lib.rns_pow_attrs):
         fn.argtypes = [ctypes.POINTER(_I)] * 3
         fn.restype = ctypes.c_int
-    # (sig, em, n, nprime, r2, T, out, stream)
-    lib.mont_verify_launch.argtypes = [_P] * 5 + [_I, _P, _P]
+    # (sig, em, n, nprime, r2, T, out, stream, the events around the kernel)
+    lib.mont_verify_launch.argtypes = [_P] * 5 + [_I, _P, _P, _P, _P]
     lib.mont_verify_launch.restype = ctypes.c_int
     lib.mont_kernel_attrs.argtypes = [ctypes.POINTER(_I), ctypes.POINTER(_I)]
     lib.mont_kernel_attrs.restype = ctypes.c_int

@@ -512,6 +512,8 @@ extern "C" {
 // out are (3, chan, T) int32 with chan = 2 kK + 1, nib (64, T) uint8; the key
 // rows are P-256's prime's ((1, 2k), (1, 1), (1, k)), the channel vectors and
 // E_mma those of rns.consts(16, 256) at k = kK, field (kFieldRows, chan).
+// ev_before and ev_after, where not null, are cudaEvent_t recorded around the
+// kernel.
 int ec_scalar_mult_launch(const int32_t* res, const uint8_t* nib, int chan, int T,
                           const int32_t* n_all, const int32_t* n_r, const int32_t* neg_ninv_b,
                           const int32_t* p_all, const int32_t* invMi_b, const int32_t* invMi_q,
@@ -520,7 +522,7 @@ int ec_scalar_mult_launch(const int32_t* res, const uint8_t* nib, int chan, int 
                           const uint32_t* Mq_mod_b_sh,
                           const uint32_t* invM_q_sh, const int8_t* E_mma, const int32_t* field,
                           int invMq_pr, int invM_pr, int k, int32_t* out, void* stream,
-                          int* smem_need, int* smem_limit) {
+                          int* smem_need, int* smem_limit, void* ev_before, void* ev_after) {
   if (T <= 0 || chan != kChan || k != kK) return (int)cudaErrorInvalidValue;
   const KeyRows key{n_all, n_r, neg_ninv_b, nullptr, nullptr, nullptr};
   const RnsConsts cc{p_all, mu_all, invMi_b, invMi_b_sh, invMi_q,
@@ -528,8 +530,8 @@ int ec_scalar_mult_launch(const int32_t* res, const uint8_t* nib, int chan, int 
                      reinterpret_cast<const uint4*>(E_mma), nullptr,
                      (uint32_t)invMq_pr, (uint32_t)invM_pr, k, 0};
   return rns_mma::launch(ec_scalar_mult_kernel, ec_geo(), (T + kSlots - 1) / kSlots,
-                         (cudaStream_t)stream, smem_need, smem_limit, res, nib, T, key, cc,
-                         field, out);
+                         (cudaStream_t)stream, smem_need, smem_limit, (cudaEvent_t)ev_before,
+                         (cudaEvent_t)ev_after, res, nib, T, key, cc, field, out);
 }
 
 // Registers and local-memory bytes (spills and stack) per thread of K5 as

@@ -243,14 +243,22 @@ extern "C" {
 
 // Returns a cudaError_t value (0 = launched).  All operands are (T, 128) int32
 // 16-bit digits, row-major; T must be a positive multiple of kRows (the wrapper
-// asks for a multiple of 256).
+// asks for a multiple of 256).  ev_before and ev_after, where not null, are
+// cudaEvent_t recorded just before and just after the kernel.
 int mont_verify_launch(const int32_t* sig, const int32_t* em, const int32_t* n,
                        const int32_t* nprime, const int32_t* r2, int T, int32_t* out,
-                       void* stream) {
+                       void* stream, void* ev_before, void* ev_after) {
   if (T <= 0 || T % kRows != 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  if (ev_before != nullptr &&
+      (err = cudaEventRecord((cudaEvent_t)ev_before, (cudaStream_t)stream)) != cudaSuccess)
+    return (int)err;
   mont_verify_kernel<<<T / kRows, kThreads, 0, (cudaStream_t)stream>>>(sig, em, n, nprime, r2,
                                                                       out);
-  return (int)cudaGetLastError();
+  err = cudaGetLastError();
+  if (err == cudaSuccess && ev_after != nullptr)
+    err = cudaEventRecord((cudaEvent_t)ev_after, (cudaStream_t)stream);
+  return (int)err;
 }
 
 // Registers and local-memory bytes (spills and stack) per thread, as compiled.

@@ -124,7 +124,8 @@ extern "C" {
 // Returns a cudaError_t value (0 = launched), or rns_mma::kErrSharedMemory
 // when the block's shared memory does not fit the card; writes the need and
 // the device's opt-in limit per block to smem_need and smem_limit.  The
-// arguments are K2's (rns_pow_launch), with sig_h, em_h and out.
+// arguments are K2's (rns_pow_launch), with sig_h, em_h and out; ev_before
+// and ev_after, where not null, are cudaEvent_t recorded around the kernel.
 int rns_verify_launch(const uint8_t* sig_h, const uint8_t* em_h, const int32_t* idx, int T,
                       int n_keys, const int32_t* n_all, const int32_t* n_r, const int32_t* neg_ninv_b,
                       const int32_t* ninv_all, const int32_t* m2_all, const int32_t* m2_r,
@@ -134,7 +135,8 @@ int rns_verify_launch(const uint8_t* sig_h, const uint8_t* em_h, const int32_t* 
                       const uint32_t* Mq_mod_b_sh, const uint32_t* invM_q_sh,
                       const int8_t* E_mma, const uint16_t* D,
                       int invMq_pr, int invM_pr, int k, int digits,
-                      int32_t* out, void* stream, int* smem_need, int* smem_limit) {
+                      int32_t* out, void* stream, int* smem_need, int* smem_limit,
+                      void* ev_before, void* ev_after) {
   // k <= kMaxK keeps the M tiles within the kernel's 12 warps (and every
   // extension sum below 2^32).
   if (T <= 0 || n_keys <= 0 || k <= 0 || k > kMaxK || digits <= 0 || digits > 256)
@@ -146,6 +148,7 @@ int rns_verify_launch(const uint8_t* sig_h, const uint8_t* em_h, const int32_t* 
                      (uint32_t)invMq_pr, (uint32_t)invM_pr, k, digits};
   return rns_mma::launch(rns_verify_kernel, Geo(k, digits, kCheckBytes),
                          (T + kSlots - 1) / kSlots, (cudaStream_t)stream, smem_need, smem_limit,
+                         (cudaEvent_t)ev_before, (cudaEvent_t)ev_after,
                          sig_h, em_h, idx, T, n_keys, key, cc, out);
 }
 

@@ -431,11 +431,14 @@ struct Chain {
 
 // Launches kernel<<<grid, 32 * geo.mt, geo.bytes(), stream>>>(args...) after
 // checking its dynamic shared memory against the device's opt-in limit per
-// block, which it writes with the need to smem_need and smem_limit.  Returns
-// a cudaError_t value (0 = launched) or kErrSharedMemory.
+// block, which it writes with the need to smem_need and smem_limit.  The
+// events before and after, where not null, are recorded on the stream just
+// before and just after the kernel, so that their interval is the kernel's
+// own.  Returns a cudaError_t value (0 = launched) or kErrSharedMemory.
 template <typename... Params, typename... Args>
 int launch(void (*kernel)(Params...), const Geo& geo, int grid, cudaStream_t stream,
-           int* smem_need, int* smem_limit, Args... args) {
+           int* smem_need, int* smem_limit, cudaEvent_t before, cudaEvent_t after,
+           Args... args) {
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
@@ -447,8 +450,11 @@ int launch(void (*kernel)(Params...), const Geo& geo, int grid, cudaStream_t str
   if (smem > (size_t)optin) return kErrSharedMemory;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
+  if (before != nullptr && (err = cudaEventRecord(before, stream)) != cudaSuccess) return (int)err;
   kernel<<<grid, 32 * geo.mt, smem, stream>>>(args...);
-  return (int)cudaGetLastError();
+  err = cudaGetLastError();
+  if (err == cudaSuccess && after != nullptr) err = cudaEventRecord(after, stream);
+  return (int)err;
 }
 
 // Registers and local-memory bytes (spills and stack) per thread of a kernel

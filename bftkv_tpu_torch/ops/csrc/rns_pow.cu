@@ -166,7 +166,8 @@ extern "C" {
 
 // Returns a cudaError_t value (0 = launched), or rns_mma::kErrSharedMemory
 // when the block's shared memory does not fit the card; writes the need and
-// the device's opt-in limit per block to smem_need and smem_limit.
+// the device's opt-in limit per block to smem_need and smem_limit.  ev_before
+// and ev_after, where not null, are cudaEvent_t recorded around the kernel.
 int rns_pow_launch(const uint8_t* base_h, const uint8_t* nib_t, const int32_t* idx, int T,
                    int n_keys, const int32_t* n_all, const int32_t* n_r, const int32_t* neg_ninv_b,
                    const int32_t* ninv_all, const int32_t* m2_all, const int32_t* m2_r,
@@ -176,7 +177,8 @@ int rns_pow_launch(const uint8_t* base_h, const uint8_t* nib_t, const int32_t* i
                    const uint32_t* Mq_mod_b_sh, const uint32_t* invM_q_sh,
                    const int8_t* E_mma, const uint16_t* D,
                    int invMq_pr, int invM_pr, int k, int digits,
-                   int32_t* sigma_out, void* stream, int* smem_need, int* smem_limit) {
+                   int32_t* sigma_out, void* stream, int* smem_need, int* smem_limit,
+                   void* ev_before, void* ev_after) {
   // k <= 255 keeps every extension sum below 2^32 and the M tiles within
   // kMaxWarps warps.
   if (T <= 0 || n_keys <= 0 || k <= 0 || k > 255 || digits <= 0 || digits > 256)
@@ -188,7 +190,8 @@ int rns_pow_launch(const uint8_t* base_h, const uint8_t* nib_t, const int32_t* i
                      (uint32_t)invMq_pr, (uint32_t)invM_pr, k, digits};
   return rns_mma::launch(rns_pow_kernel<kPowRows>, pow_geo<kPowRows>(k, digits),
                          (T + kPowRows - 1) / kPowRows, (cudaStream_t)stream, smem_need,
-                         smem_limit, base_h, nib_t, idx, T, n_keys, key, cc, sigma_out);
+                         smem_limit, (cudaEvent_t)ev_before, (cudaEvent_t)ev_after,
+                         base_h, nib_t, idx, T, n_keys, key, cc, sigma_out);
 }
 
 // Registers and local-memory bytes (spills and stack) per thread of K2 as

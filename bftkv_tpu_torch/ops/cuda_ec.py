@@ -25,7 +25,7 @@ import threading
 
 import torch
 
-from bftkv_tpu_torch.ops import _build
+from bftkv_tpu_torch.ops import _build, idle
 
 __all__ = ["LAUNCHES", "kernel_attrs", "reset_launches", "scalar_mult_cuda"]
 
@@ -99,7 +99,7 @@ def _launch(res: torch.Tensor, nib: torch.Tensor, eng, out: torch.Tensor) -> tor
             )),
             eng.field.data_ptr(), cn.invMq_pr, cn.invM_pr, cn.k,
             out.data_ptr(), torch.cuda.current_stream(res.device).cuda_stream,
-            ctypes.byref(need), ctypes.byref(limit),
+            ctypes.byref(need), ctypes.byref(limit), *idle.kernel_events(),
         )
     if rc == _build.ERR_SHARED_MEMORY:
         raise RuntimeError(

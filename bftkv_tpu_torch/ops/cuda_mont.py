@@ -20,7 +20,7 @@ import threading
 
 import torch
 
-from bftkv_tpu_torch.ops import _build
+from bftkv_tpu_torch.ops import _build, idle
 
 __all__ = ["LAUNCHES", "ROWS_PER_BLOCK", "THREADS_PER_ROW", "TILE", "kernel_attrs",
            "reset_launches", "verify_cuda", "verify_diff"]
@@ -91,7 +91,7 @@ def verify_diff(sig, em, n, nprime, r2) -> torch.Tensor:
     with torch.cuda.device(sig.device):  # launch on the operands' card
         rc = lib.mont_verify_launch(
             sig.data_ptr(), em.data_ptr(), n.data_ptr(), nprime.data_ptr(),
-            r2.data_ptr(), sig.shape[0], out.data_ptr(), stream,
+            r2.data_ptr(), sig.shape[0], out.data_ptr(), stream, *idle.kernel_events(),
         )
     if rc != 0:
         raise RuntimeError(

@@ -29,7 +29,7 @@ import threading
 
 import torch
 
-from bftkv_tpu_torch.ops import _build
+from bftkv_tpu_torch.ops import _build, idle
 from bftkv_tpu_torch.ops import rns
 
 __all__ = ["LAUNCHES", "kernel_attrs", "pow_cuda", "reset_launches", "verify_cuda"]
@@ -114,7 +114,7 @@ def _launch(which: str, a, b, idx, ukey, cn, out: torch.Tensor) -> torch.Tensor:
             )),
             cn.invMq_pr, cn.invM_pr, k, digits,
             out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-            ctypes.byref(need), ctypes.byref(limit),
+            ctypes.byref(need), ctypes.byref(limit), *idle.kernel_events(),
         )
     if rc == _build.ERR_SHARED_MEMORY:
         raise RuntimeError(

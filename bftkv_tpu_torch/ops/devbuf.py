@@ -35,6 +35,15 @@ A launch holds its slot through a :class:`Lease` (:func:`lease`):
 the kernel on the stream, and :meth:`Lease.collect` waits for the event,
 copies the result out and returns the slot.
 
+Each lease times its launch for the card's idle-state ledger and its
+flush's phases (``ops/idle.py``): its first :meth:`Slot.upload` stamps
+the host clock; inside its launch block the kernel launchers record a
+pair of the slot's timing events around each kernel
+(:func:`~bftkv_tpu_torch.ops.idle.kernel_events`); once the wait returns, the
+time between them is the launch's device time, on the card's clock (on
+the CPU, the host time from the first upload to the end of the launch
+block).
+
 ``devbuf.saturation{width=…}`` and ``devbuf.in_flight{width=…}`` are
 the rings' gauges, as in the reference.
 """
@@ -50,6 +59,7 @@ import torch
 from bftkv_tpu_torch import flags
 from bftkv_tpu_torch.devtools.lockwatch import named_lock
 from bftkv_tpu_torch.metrics import registry as metrics
+from bftkv_tpu_torch.ops import idle
 
 __all__ = ["BufferRing", "Lease", "Slot", "enabled", "lease", "ring_for", "reset", "stats"]
 
@@ -71,7 +81,8 @@ class Slot:
     until ``release()``; ``seq`` increments per acquisition.
     """
 
-    __slots__ = ("host", "dev", "arrays", "event", "in_flight", "seq", "_cuda")
+    __slots__ = ("host", "dev", "arrays", "event", "kernel_events", "launch", "in_flight", "seq",
+                 "_cuda")
 
     def __init__(self, spec: dict, device: torch.device):
         self._cuda = device.type == "cuda"
@@ -88,6 +99,10 @@ class Slot:
         )
         self.arrays = {name: t.numpy() for name, t in self.host.items()}
         self.event = torch.cuda.Event(enable_timing=True) if self._cuda else None
+        #: Event pairs around this slot's kernels, made at first use.
+        self.kernel_events: list | None = [] if self._cuda else None
+        #: The timing of the lease that holds the slot (:class:`idle.Launch`).
+        self.launch: idle.Launch | None = None
         self.in_flight = False
         self.seq = 0
 
@@ -96,7 +111,11 @@ class Slot:
 
     def upload(self, names) -> dict:
         """Copies the host tensors ``names`` into the device tensors on the
-        current stream, without waiting; returns the device tensors."""
+        current stream, without waiting; returns the device tensors.  The
+        first upload of a lease's launch stamps its enqueue."""
+        lt = self.launch
+        if lt is not None and lt.h_enq is None:
+            lt.enqueue()
         if self._cuda:
             for name in names:
                 self.dev[name].copy_(self.host[name], non_blocking=True)
@@ -112,6 +131,8 @@ class Slot:
         stream: its last use so far."""
         if self.event is not None:
             self.event.record()
+        if self.launch is not None:
+            self.launch.h_rec = time.perf_counter()
 
     def wait(self) -> None:
         """Blocks until the recorded event has completed (host side)."""
@@ -213,6 +234,7 @@ class Lease:
     def __init__(self, ring: BufferRing | None, slot: Slot):
         self.ring, self.slot, self.seq = ring, slot, slot.seq
         self._released = False
+        slot.launch = idle.Launch(slot.kernel_events)
 
     @contextlib.contextmanager
     def launch(self):
@@ -221,7 +243,8 @@ class Lease:
         error releases the slot (after the event behind whatever reached
         the stream) and propagates."""
         try:
-            yield self.slot
+            with idle.launching(self.slot.launch):
+                yield self.slot
         except BaseException:
             self.slot.record()
             self.release()
@@ -232,19 +255,26 @@ class Lease:
         """Waits for the event, returns ``read(slot)`` (which copies the
         result out of the slot), and releases the slot."""
         try:
-            self.slot.wait()
+            self._settle()
             return read(self.slot)
         finally:
             self.release()
+
+    def _settle(self) -> None:
+        """Waits for the event and books the launch's times."""
+        slot = self.slot
+        slot.wait()
+        lt, slot.launch = slot.launch, None
+        if lt is not None:
+            lt.settle()
 
     def release(self) -> None:
         if self._released:
             return
         self._released = True
+        self._settle()
         if self.ring is not None:
             self.ring.release(self.slot, self.seq)
-        else:
-            self.slot.wait()
 
 
 def lease(key: str, spec: dict, device: torch.device, *, width: str) -> Lease:

@@ -32,7 +32,14 @@ The plane is the reference's:
   there.  :func:`note_launch_rtt` feeds observed round trips into an
   EWMA that :func:`recalibrate` prefers over a fresh probe;
 - hooks: the ``dispatch.flush`` failpoint and the ``<name>.launch`` /
-  ``<name>.flush`` / ``dispatch.wait`` trace spans.
+  ``<name>.flush`` / ``dispatch.wait`` trace spans (with
+  ``torch.profiler.record_function`` ranges of the same names while
+  tracing is on);
+- accounting (``ops/idle.py``): each flush runs under a
+  :class:`~bftkv_tpu_torch.ops.idle.FlushClock` (its encode, device and
+  decode phases, and ``<name>.launches`` as the launches its leases
+  made), and the queues and flushes tell the card's idle-state ledger
+  when items wait and when a flush holds them.
 
 Two departures from the reference, both deliberate:
 
@@ -63,6 +70,7 @@ from bftkv_tpu_torch import flags, trace
 from bftkv_tpu_torch.devtools.lockwatch import named_lock
 from bftkv_tpu_torch.faults import failpoint as fp
 from bftkv_tpu_torch.metrics import registry as metrics
+from bftkv_tpu_torch.ops import idle
 
 __all__ = [
     "ALWAYS_HOST",
@@ -414,6 +422,8 @@ class _BatchDispatcher:
             # this entry behind an exited collector.
             running = self._running
             if running:
+                if not self._queue:
+                    idle.ledger.queue_filled()
                 self._queue.append(p)
                 self._queued_items += len(items)
                 self._cv.notify_all()
@@ -421,7 +431,8 @@ class _BatchDispatcher:
             return self._run_batch(items)
         if trace.capture() is not None:
             # Inside a request trace, the queue wait is its "dispatch" phase.
-            with trace.span("dispatch.wait", attrs={"items": len(items), "pool": self.name}):
+            with trace.span("dispatch.wait", attrs={"items": len(items), "pool": self.name},
+                            profile=True):
                 p.event.wait()
         else:
             p.event.wait()
@@ -458,6 +469,8 @@ class _BatchDispatcher:
                         batch.append(p)
                         taken += len(p.items)
                     self._queued_items -= taken
+                    if not self._queue:
+                        idle.ledger.queue_emptied()
                 if pool.work is None:
                     self._flush(batch, pool)
                     continue
@@ -483,59 +496,67 @@ class _BatchDispatcher:
         metrics.gauge(f"{self.name}.occupancy", occupancy)
         metrics.incr(f"{self.name}.flushes")
         metrics.incr(f"{self.name}.items", len(flat))
-        launches = max(1, -(-len(flat) // self.max_batch))
-        metrics.incr(f"{self.name}.launches", launches)
+        chunks = max(1, -(-len(flat) // self.max_batch))
         metrics.gauge(
             f"{self.name}.device_occupancy",
-            len(flat) / (launches * self.max_batch),
+            len(flat) / (chunks * self.max_batch),
             labels={"width": "all"},
         )
-        t0 = time.perf_counter()
+        rf = trace.profile_open(f"{self.name}.flush")
+        clock = idle.FlushClock(
+            self.name, {"batch_size": len(flat), "occupancy": round(occupancy, 4)})
+        try:
+            with idle.flushing(clock), trace.attach(clock.span and clock.span.context()):
+                self._flush_in(batch, flat, pool, clock)
+        finally:
+            trace.profile_close(rf)
+
+    def _flush_in(self, batch: list[_Pending], flat: list, pool: _Pool,
+                  clock: idle.FlushClock) -> None:
+        """The flush's launches and answers, under its clock."""
         if self._async and pool.completions is not None and len(flat) <= self.max_batch:
             slots = pool.async_slots
             slots.acquire()
             try:
                 with trace.span(
-                    f"{self.name}.launch", attrs={"batch_size": len(flat)}, phase="dispatch"
+                    f"{self.name}.launch", attrs={"batch_size": len(flat)}, profile=True
                 ):
                     completion = self._launch_batch(flat)
             except Exception as e:
                 slots.release()
+                clock.finish(ok=False, error=repr(e))
                 _fail(batch, e)
                 return
             if completion is not None:
-                entry = (batch, len(flat), completion, t0, slots)
+                entry = (batch, len(flat), completion, slots, clock)
                 if not pool.complete_later(entry):
                     self._finalize(entry)  # the drain is closed: finalize here
                 return
             slots.release()
-        with trace.span(
-            f"{self.name}.flush",
-            attrs={"batch_size": len(flat), "occupancy": round(occupancy, 4)},
-            phase="dispatch",
-        ) as sp:
-            try:
-                if len(flat) <= self.max_batch:
-                    out = self._run_batch(flat)
-                else:
-                    # An oversized entry: chunk the launches so padded
-                    # batch shapes stay bounded by max_batch.
-                    out = self._combine([
-                        self._run_batch(flat[i : i + self.max_batch])
-                        for i in range(0, len(flat), self.max_batch)
-                    ])
-            except Exception as e:
-                # Never raise here (it would kill the collector or the
-                # worker): the error reaches every caller of this flush.
-                sp.attrs["error"] = repr(e)
-                _fail(batch, e)
-                return
-            dt = time.perf_counter() - t0
-            metrics.observe(f"{self.name}.flush.seconds", dt)
-            if dt > 0:
-                sp.attrs["items_per_s"] = round(len(flat) / dt, 1)
-                metrics.gauge(f"{self.name}.throughput", len(flat) / dt)
+        try:
+            if len(flat) <= self.max_batch:
+                out = self._run_batch(flat)
+            else:
+                # An oversized entry: chunk the launches so padded
+                # batch shapes stay bounded by max_batch.
+                out = self._combine([
+                    self._run_batch(flat[i : i + self.max_batch])
+                    for i in range(0, len(flat), self.max_batch)
+                ])
+        except Exception as e:
+            # Never raise here (it would kill the collector or the
+            # worker): the error reaches every caller of this flush.
+            clock.finish(ok=False, error=repr(e))
+            _fail(batch, e)
+            return
+        dt = time.perf_counter() - clock.t0
+        metrics.observe(f"{self.name}.flush.seconds", dt)
+        if dt > 0:
+            if clock.span is not None:
+                clock.span.attrs["items_per_s"] = round(len(flat) / dt, 1)
+            metrics.gauge(f"{self.name}.throughput", len(flat) / dt)
         _scatter(batch, out)
+        clock.finish()
 
     def _completion_drain(self, completions: queue.SimpleQueue) -> None:
         # Finalizes async launches strictly FIFO; like the flush workers
@@ -547,20 +568,22 @@ class _BatchDispatcher:
             self._finalize(entry)
 
     def _finalize(self, entry) -> None:
-        batch, n_items, completion, t0, slots = entry
+        batch, n_items, completion, slots, clock = entry
         try:
             out = completion()
         except Exception as e:
+            clock.finish(ok=False, error=repr(e))
             _fail(batch, e)
             return
         finally:
             slots.release()
-        dt = time.perf_counter() - t0
+        dt = time.perf_counter() - clock.t0
         metrics.observe(f"{self.name}.flush.seconds", dt)
         if dt > 0:
             metrics.gauge(f"{self.name}.throughput", n_items / dt)
         note_launch_rtt(dt)
         _scatter(batch, out)
+        clock.finish()
 
 
 def _scatter(batch: list[_Pending], out) -> None:

@@ -1,8 +1,19 @@
 """A copy of ``bftkv_tpu/trace.py`` (imports rewritten to the port's
 ``flags``, ``metrics`` and ``devtools.lockwatch``); the port's dispatch
-plane opens its ``<name>.launch`` / ``<name>.flush`` / ``dispatch.wait``
-spans through it.  Modules named below without ``_torch`` are the
-reference's, not yet ported.
+plane opens its ``<name>.launch`` / ``<name>.flush`` (with the phase
+children ``<name>.flush.encode`` / ``.device`` / ``.decode``) /
+``dispatch.wait`` spans through it.  Modules named below without
+``_torch`` are the reference's, not yet ported.
+
+Two additions of the port.  A span's ``start`` is epoch time from
+``time.time_ns()``, the clock of ``torch.profiler``'s chrome trace
+(``ts`` · 1000 + ``baseTimeNanoseconds``), and the dispatch plane's
+spans also open a ``torch.profiler.record_function`` range of their
+name (``span(..., profile=True)``, :func:`profile_open`) while tracing
+is on, so a profile shows the host phases over the kernels they feed.
+A span whose end is known only on another thread or after the fact is
+made with :func:`detached`, given children with :func:`child` and
+recorded by :func:`close`.
 
 End-to-end request tracing: trace-id/span primitives, a bounded ring
 collector, and structured slow-request logging.
@@ -78,8 +89,13 @@ __all__ = [
     "Tracer",
     "attach",
     "capture",
+    "child",
+    "close",
+    "detached",
     "new_id",
     "phase_of",
+    "profile_close",
+    "profile_open",
     "span",
     "tracer",
 ]
@@ -135,10 +151,11 @@ SPAN_PHASES: dict[str, str] = {
     "phase.ack": "combine",
     "verify.collective": "combine",
     # batching dispatcher + shared crypto service
-    "dispatch.wait": "dispatch",
-    "verify.flush": "dispatch",
-    "sign.flush": "dispatch",
-    "modexp.flush": "dispatch",
+    # (dispatch.wait, and each dispatcher's <name>.flush, its phase
+    # children <name>.flush.encode / .device / .decode and <name>.launch)
+    "dispatch.": "dispatch",
+    "signdispatch.": "dispatch",
+    "modexpdispatch.": "dispatch",
     "sidecar.call": "sidecar",
     # async tails + repair/anti-entropy planes
     "backfill.": "backfill",
@@ -219,7 +236,8 @@ class Span:
         self.span_id = span_id
         self.parent_id = parent_id
         self.name = name
-        self.start = time.time()
+        # Epoch seconds, the clock of torch.profiler's chrome trace.
+        self.start = time.time_ns() * 1e-9
         self.duration = 0.0
         self.attrs = attrs
         self.seq = 0  # assigned by Tracer.record under its lock
@@ -303,15 +321,17 @@ class span:
     (``sp.attrs["batch_size"] = n``).  On exit the span is recorded in
     the process tracer; an exception leaving the block lands in
     ``attrs["error"]`` (interned error message when available) and
-    still propagates."""
+    still propagates.  ``profile=True`` also opens a
+    ``torch.profiler.record_function`` range of the span's name."""
 
-    __slots__ = ("name", "attrs", "phase", "_sp")
+    __slots__ = ("name", "attrs", "phase", "profile", "_sp", "_rf")
 
     def __init__(self, name: str, attrs: dict | None = None,
-                 phase: str | None = None):
+                 phase: str | None = None, profile: bool = False):
         self.name = name
         self.attrs = attrs
         self.phase = phase
+        self.profile = profile
 
     def __enter__(self) -> Span:
         if not tracer.enabled:
@@ -332,12 +352,14 @@ class span:
                   phase=self.phase)
         st.append(sp)
         self._sp = sp
+        self._rf = profile_open(self.name) if self.profile else None
         return sp
 
     def __exit__(self, etype, exc, tb) -> bool:
         sp = self._sp
         if sp is None:
             return False
+        profile_close(self._rf)
         _stack().pop()
         sp.duration = time.perf_counter() - sp._t0
         if etype is not None:
@@ -345,6 +367,54 @@ class span:
             sp.attrs["error"] = msg if isinstance(msg, str) else repr(exc)
         tracer.record(sp)
         return False
+
+
+def profile_open(name: str):
+    """Opens a ``torch.profiler.record_function`` range named ``name``
+    while tracing is on (``None`` otherwise); :func:`profile_close` ends
+    it."""
+    if not tracer.enabled:
+        return None
+    from torch.profiler import record_function
+
+    rf = record_function(name)
+    rf.__enter__()
+    return rf
+
+
+def profile_close(rf) -> None:
+    if rf is not None:
+        rf.__exit__(None, None, None)
+
+
+def detached(name: str, attrs: dict | None = None) -> Span | None:
+    """A span opened now under the current context but kept off the
+    thread's stack, for one that ends elsewhere; ``None`` with tracing
+    off.  :func:`close` records it."""
+    if not tracer.enabled:
+        return None
+    parent = capture()
+    if parent is None:
+        trace_id, parent_id = new_id(), None
+    else:
+        trace_id, parent_id = parent.trace_id, parent.span_id
+    return Span(trace_id, new_id(), parent_id, name, dict(attrs) if attrs else {})
+
+
+def child(parent: Span, name: str, t0: float, t1: float, attrs: dict | None = None) -> None:
+    """Records a finished child of ``parent`` over the
+    ``time.perf_counter()`` interval ``[t0, t1]``."""
+    sp = Span(parent.trace_id, new_id(), parent.span_id, name, dict(attrs) if attrs else {})
+    sp.start = parent.start + (t0 - parent._t0)
+    sp.duration = max(0.0, t1 - t0)
+    tracer.record(sp)
+
+
+def close(sp: Span, t1: float | None = None) -> None:
+    """Records a :func:`detached` span as ending at the
+    ``time.perf_counter()`` reading ``t1`` (default now)."""
+    sp.duration = (time.perf_counter() if t1 is None else t1) - sp._t0
+    tracer.record(sp)
 
 
 class Tracer:
