@@ -44,7 +44,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from bftkv_tpu_torch import device as devmod
 from bftkv_tpu_torch.errors import ERR_NOT_FOUND, Error
 from bftkv_tpu_torch.metrics import registry as metrics
-from bftkv_tpu_torch import flags
+from bftkv_tpu_torch import flags, gcpolicy
 
 MAX_UINT64 = (1 << 64) - 1
 
@@ -575,6 +575,9 @@ def main(argv: list[str] | None = None) -> int:
             "(/profile?seconds=N)", flush=True,
         )
 
+    # The daemon's long-lived state is built: from here it serves under
+    # the collector's policy, whether or not it holds a dispatch plane.
+    gcpolicy.apply("bftkv daemon")
     server.start(bind_host=args.bind_host)
     where = (
         f"{args.bind_host} (cert addr {graph.address})"

@@ -97,7 +97,7 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from bftkv_tpu_torch import device as devmod
-from bftkv_tpu_torch import flags
+from bftkv_tpu_torch import flags, gcpolicy
 from bftkv_tpu_torch.admission import AdmissionQueue
 from bftkv_tpu_torch.metrics import registry as metrics
 from bftkv_tpu_torch.packet import read_chunk, write_chunk
@@ -389,6 +389,9 @@ class SidecarService:
         ).start()
         self._cal: dict = {}
         self.apply_calibration(cal)
+        # The process that owns the card serves every tenant's flushes:
+        # the collector's policy holds while the service runs.
+        gcpolicy.apply(self)
         self.admission = admission or AdmissionQueue(
             max_inflight=flags.get_int("BFTKV_SIDECAR_MAX_INFLIGHT"),
             max_queue=flags.get_int("BFTKV_SIDECAR_MAX_QUEUE"),
@@ -475,6 +478,7 @@ class SidecarService:
         self.verify.stop()
         self.sign.stop()
         self.modexp.stop()
+        gcpolicy.release(self)
 
     def stats(self) -> dict:
         """The ``/metrics``-style stats frame (OP_STATS and the stats

@@ -14,7 +14,8 @@ so a run of the port reads like a run of the reference:
   ``device.busy.seconds``, ``device.idle.gc.seconds``,
   ``device.idle.flush_host.seconds``, ``device.idle.queued.seconds``,
   ``device.idle.no_work.seconds`` (they sum to the process's life), and
-  the process's ``process.gc.seconds``, ``process.gc.collections`` and
+  the process's ``process.gc.seconds``, ``process.gc.collections``, the
+  same by generation (``process.gc.gen2.seconds``, ...) and
   ``process.cpu_seconds`` (user + system, ``os.times()``; on
   ``/metrics`` ``bftkv_process_cpu_seconds_total``);
 - gauges (``gauge``, last write wins): ``dispatch.launch_rtt``,

@@ -39,7 +39,9 @@ The plane is the reference's:
   :class:`~bftkv_tpu_torch.ops.idle.FlushClock` (its encode, device and
   decode phases, and ``<name>.launches`` as the launches its leases
   made), and the queues and flushes tell the card's idle-state ledger
-  when items wait and when a flush holds them.
+  when items wait and when a flush holds them;
+- the collector's policy (``gcpolicy.py``): the plane holds it from its
+  first installed dispatcher to its last.
 
 Two departures from the reference, both deliberate:
 
@@ -66,7 +68,7 @@ import numpy as np
 import torch
 
 from bftkv_tpu_torch import device as devmod
-from bftkv_tpu_torch import flags, trace
+from bftkv_tpu_torch import flags, gcpolicy, trace
 from bftkv_tpu_torch.devtools.lockwatch import named_lock
 from bftkv_tpu_torch.faults import failpoint as fp
 from bftkv_tpu_torch.metrics import registry as metrics
@@ -904,16 +906,27 @@ class ModexpDispatcher(_BatchDispatcher):
 _global: VerifyDispatcher | None = None
 _global_signer: SignDispatcher | None = None
 _global_lock = named_lock("dispatch.install")
+#: The plane's name as an owner of the collector's policy.
+_GC_OWNER = "dispatch"
 
 
 def install(dispatcher: VerifyDispatcher | None = None) -> VerifyDispatcher:
-    """Install (and start) the process-wide verify dispatcher."""
+    """Install (and start) the process-wide verify dispatcher; the plane
+    holds the collector's policy (:mod:`bftkv_tpu_torch.gcpolicy`)."""
     global _global
     with _global_lock:
         if _global is not None:
             _global.stop()
         _global = (dispatcher or VerifyDispatcher()).start()
+        gcpolicy.apply(_GC_OWNER)
         return _global
+
+
+def _release_if_empty() -> None:
+    """Holding ``_global_lock``: the plane's last dispatcher went, so its
+    hold on the collector's policy goes with it."""
+    if _global is None and _global_signer is None:
+        gcpolicy.release(_GC_OWNER)
 
 
 def uninstall() -> None:
@@ -922,6 +935,7 @@ def uninstall() -> None:
         if _global is not None:
             _global.stop()
             _global = None
+        _release_if_empty()
 
 
 def get() -> VerifyDispatcher | None:
@@ -929,12 +943,14 @@ def get() -> VerifyDispatcher | None:
 
 
 def install_signer(dispatcher: SignDispatcher | None = None) -> SignDispatcher:
-    """Install (and start) the process-wide sign dispatcher."""
+    """Install (and start) the process-wide sign dispatcher (and the
+    collector's policy, as :func:`install`)."""
     global _global_signer
     with _global_lock:
         if _global_signer is not None:
             _global_signer.stop()
         _global_signer = (dispatcher or SignDispatcher()).start()
+        gcpolicy.apply(_GC_OWNER)
         return _global_signer
 
 
@@ -944,6 +960,7 @@ def uninstall_signer() -> None:
         if _global_signer is not None:
             _global_signer.stop()
             _global_signer = None
+        _release_if_empty()
 
 
 def get_signer() -> SignDispatcher | None:
@@ -970,5 +987,7 @@ def recalibrate(device=None) -> dict:
 
 
 def uninstall_all() -> None:
+    """Uninstalls both dispatchers, and with them the plane's hold on
+    the collector's policy."""
     uninstall()
     uninstall_signer()

@@ -34,17 +34,21 @@ launches the flush's leases made.  With tracing on, the flush is a
 ``<name>.flush`` span whose phases are child spans and
 ``torch.profiler.record_function`` ranges, on the profiler's clock.
 
-**The process**: a ``gc.callbacks`` hook times each collection (it
-takes no lock: a collection can start while its thread holds the
-ledger's), and ``os.times()`` gives the CPU seconds at read time.
+**The process**: a ``gc.callbacks`` hook times each collection, in all
+and by generation (it takes no lock: a collection can start while its
+thread holds the ledger's), and ``os.times()`` gives the CPU seconds at
+read time.
 
 All of it reaches the registry through one collector
 (:meth:`Registry.add_collector`), which settles the ledger whenever the
 registry is read: counters ``device.busy.seconds``,
 ``device.idle.gc.seconds``, ``device.idle.flush_host.seconds``,
 ``device.idle.queued.seconds``, ``device.idle.no_work.seconds``,
-``process.gc.seconds``, ``process.gc.collections`` and
-``process.cpu_seconds``.
+``process.gc.seconds``, ``process.gc.collections``, the same by
+generation ``process.gc.gen<g>.seconds`` and
+``process.gc.gen<g>.collections`` (``g`` 0–2; generation 2 is the full
+pass that :mod:`bftkv_tpu_torch.gcpolicy` keeps off the serving path),
+and ``process.cpu_seconds``.
 """
 
 from __future__ import annotations
@@ -82,11 +86,12 @@ _clock = time.perf_counter
 _gc_open: list = [None]
 #: Finished collections as (start, end), consumed by the process ledger.
 _gc_done: deque = deque(maxlen=1 << 16)
-#: [collections, seconds] since the hook went in.
+#: [collections, seconds] since the hook went in, in all and by generation.
 _gc_total = [0, 0.0]
+_gc_by_gen = [[0, 0.0] for _ in range(3)]
 
 
-def _on_gc(phase: str, _info: dict) -> None:
+def _on_gc(phase: str, info: dict) -> None:
     if phase == "start":
         _gc_open[0] = _clock()
         return
@@ -97,8 +102,9 @@ def _on_gc(phase: str, _info: dict) -> None:
     # not at all.
     _gc_done.append((t0, t))
     _gc_open[0] = None
-    _gc_total[0] += 1
-    _gc_total[1] += t - t0
+    for tot in (_gc_total, _gc_by_gen[info["generation"]]):
+        tot[0] += 1
+        tot[1] += t - t0
 
 
 class IdleLedger:
@@ -435,6 +441,9 @@ def _collect() -> dict[str, float]:
     out = {BUCKETS[k]: v for k, v in ledger.totals().items()}
     out["process.gc.collections"] = _gc_total[0]
     out["process.gc.seconds"] = _gc_total[1]
+    for g, (n, sec) in enumerate(_gc_by_gen):
+        out[f"process.gc.gen{g}.collections"] = n
+        out[f"process.gc.gen{g}.seconds"] = sec
     t = os.times()
     out["process.cpu_seconds"] = t.user + t.system
     return out

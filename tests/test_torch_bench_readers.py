@@ -1,7 +1,8 @@
 """The benchmark's readers of the idle-state ledger, the flush phases, the
 process's cores and the transport's traffic (``portbench/layer_metrics``),
 on synthetic windows: each reads its registry deltas, and returns
-``None`` where its counters did not move (a program without them)."""
+``None`` where its counters did not move (a program without them); the
+full collections' readers read 0 in a window without one."""
 
 from __future__ import annotations
 
@@ -65,3 +66,21 @@ def test_the_ledgers_shares_sum_to_a_hundred():
     shares = [find_reader(n)(Context(50.0, dict(LEDGER), [], None))
               for n in CASES if n.startswith(("device_busy", "idle_"))]
     assert len(shares) == 5 and sum(shares) == pytest.approx(100.0)
+
+
+GC_FULL = {"process.gc.gen2.collections": 4, "process.gc.gen2.seconds": 1.2,
+           "process.gc.collections": 400, "process.gc.seconds": 2.0}
+
+
+@pytest.mark.parametrize("name, value", [("gc_full_collections.write", 4), ("gc_full_ms.write", 1200.0)])
+def test_a_full_collection_reader_reads_its_window_and_none_without_the_counter(name, value):
+    read = find_reader(name)
+    assert read(Context(50.0, {**LEDGER, **GC_FULL}, _calls(64), None)) == pytest.approx(value)
+    # A program without the counters by generation (the parent of the change).
+    assert read(Context(50.0, {**LEDGER, "process.gc.collections": 400}, _calls(64), None)) is None
+
+
+def test_a_window_without_a_full_collection_reads_zero_not_a_division_by_zero():
+    still = {**GC_FULL, "process.gc.gen2.collections": 0, "process.gc.gen2.seconds": 0.0}
+    assert find_reader("gc_full_collections.write")(Context(50.0, still, [], None)) == 0
+    assert find_reader("gc_full_ms.write")(Context(50.0, still, [], None)) == 0
