@@ -29,15 +29,15 @@ def reading(workload: str, seed: int) -> dict:
     _manifest, _cell, config, mix_path = run.load_cell(workload)
     mix = load_mix(mix_path)
     n, n_rw = config["servers"], config["storage_nodes"]
-    keys = [k.as_tuple() for k in keysmod.make_keys(seed, n + n_rw + mix.clients, config["key_bits"])]
+    keys = keysmod.make_keys(seed, n + n_rw + mix.clients, config["key_bits"], algorithm=config["key_algorithm"])
     wl = Workload(mix, seed)
     if mix.recordcount:
         items = [(k, v, 0) for k, v in wl.preload(0)]
     else:
         items = [(op.key, op.value, 0) for op in next(itertools.islice(wl.stream(0), 1))]
-    stored = control.records(keys[:n], keys[n + n_rw:], n_rw, items)
+    stored = control.records([k.private for k in keys[:n]], [k.private for k in keys[n + n_rw:]], n_rw, items)
     history = {var: (w, [check.Version(v, 0.0, 1.0, True)]) for var, v, w in items}
-    uni = check.Universe([k[:2] for k in keys[:n]], [k[:2] for k in keys[n + n_rw:]], n_rw)
+    uni = check.Universe([k.public for k in keys[:n]], [k.public for k in keys[n + n_rw:]], n_rw)
     numbers = check.check(uni, history, [], stored, sorted(history))
     return {"workload": workload, "seed": seed, "records": len(items),
             "correct": all(v <= 0 for v in numbers.values()), "numbers": numbers}

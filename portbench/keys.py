@@ -1,10 +1,15 @@
-"""Seeded RSA identity keys, made by the benchmark for both sides.
+"""Seeded identity keys, made by the benchmark for both sides, in the
+configuration's key algorithm.
 
-Key ``i`` of a run is drawn from ``random.Random(f"{seed}/{bits}/{i}")``:
-two primes of ``bits/2`` bits found by a sieve over small primes and
-Miller-Rabin, with ``e = 65537``.  The keys are made anew in every run,
-in a pool of worker processes, and count as set-up: a seed's work is the
-same in each of its runs, so no run finds them ready and another not.
+- RSA: key ``i`` of a run is drawn from ``random.Random(f"{seed}/{bits}/{i}")``:
+  two primes of ``bits/2`` bits found by a sieve over small primes and
+  Miller-Rabin, with ``e = 65537``, in a pool of worker processes;
+- P-256: key ``i`` is the scalar ``d`` in [1, n-1] drawn from
+  ``random.Random(f"{seed}/p256/{i}")``, its public point ``Q = d·G``
+  worked out by the reference's plain curve code.
+
+The keys are made anew in every run and count as set-up: a seed's work is
+the same in each of its runs, so no run finds them ready and another not.
 """
 
 from __future__ import annotations
@@ -14,7 +19,9 @@ import os
 import random
 from concurrent.futures import ProcessPoolExecutor
 
-__all__ = ["E", "RsaKey", "generate", "make_keys"]
+from portbench.reference import p256, sigs
+
+__all__ = ["E", "EcKey", "RsaKey", "generate", "make_keys"]
 
 E = 65537
 
@@ -44,6 +51,32 @@ class RsaKey:
 
     def as_tuple(self) -> tuple[int, int, int, int, int]:
         return (self.n, self.e, self.d, self.p, self.q)
+
+    @property
+    def public(self) -> tuple:
+        """The reference's tagged public key (:mod:`portbench.reference.sigs`)."""
+        return (sigs.RSA, (self.n, self.e))
+
+    @property
+    def private(self) -> tuple:
+        return (sigs.RSA, self.as_tuple())
+
+
+class EcKey:
+    """A P-256 private key ``d`` and its public point ``(x, y) = d·G``."""
+
+    __slots__ = ("d", "x", "y")
+
+    def __init__(self, d: int, x: int, y: int):
+        self.d, self.x, self.y = d, x, y
+
+    @property
+    def public(self) -> tuple:
+        return (sigs.P256, (self.x, self.y))
+
+    @property
+    def private(self) -> tuple:
+        return (sigs.P256, (self.d, self.x, self.y))
 
 
 def _miller_rabin(n: int, rng: random.Random) -> bool:
@@ -100,8 +133,21 @@ def _generate_job(job: tuple[int, str]) -> tuple[int, int, int, int, int]:
     return generate(*job)
 
 
-def make_keys(seed: int, count: int, bits: int, *, workers: int | None = None) -> list[RsaKey]:
-    """``count`` keys of ``bits`` bits for ``seed``."""
+def _p256_key(label: str) -> EcKey:
+    d = 1 + random.Random(label).randrange(p256.N - 1)
+    return EcKey(d, *p256.base_mult(d))
+
+
+def make_keys(seed: int, count: int, bits: int, *, algorithm: str = sigs.RSA,
+              workers: int | None = None) -> list:
+    """``count`` keys of ``algorithm`` ("rsa" of ``bits`` bits, or "p256",
+    whose ``bits`` is 256) for ``seed``."""
+    if algorithm == sigs.P256:
+        if bits != 256:
+            raise ValueError(f"P-256 keys are 256 bits, not {bits}")
+        return [_p256_key(f"{seed}/p256/{i}") for i in range(count)]
+    if algorithm != sigs.RSA:
+        raise ValueError(f"key algorithm {algorithm!r}: the harness makes {sigs.ALGORITHMS}")
     jobs = [(bits, f"{seed}/{bits}/{i}") for i in range(count)]
     workers = workers or min(count, os.cpu_count() or 1)
     if workers <= 1:

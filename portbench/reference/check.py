@@ -8,8 +8,9 @@ system's reads returned, and each storage node's latest record of every
 variable written.  It works the quorum sizes out again from the number of
 servers and storage nodes, parses the records with its own frozen copy of
 the wire format (:mod:`portbench.reference.wire`) and verifies signatures
-with the host's ``pow``.  It returns counts, each of which a correct run
-holds at 0:
+in the host's integers, by each signer's key algorithm
+(:mod:`portbench.reference.sigs`: RSA with ``pow``, or plain P-256
+ECDSA).  It returns counts, each of which a correct run holds at 0:
 
 - ``missing_writes``: acknowledged writes that fewer storage nodes than
   the write quorum's threshold hold with their value (or a value the same
@@ -26,7 +27,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
-from portbench.reference import wire
+from portbench.reference import sigs, wire
 
 __all__ = ["Version", "Read", "Universe", "bmasking", "check", "write_threshold"]
 
@@ -65,24 +66,25 @@ class Read:
 
 @dataclass
 class Universe:
-    """The public keys the benchmark made: servers' and clients' (n, e)."""
+    """The public keys the benchmark made, servers' and clients', each
+    tagged by its algorithm (:mod:`portbench.reference.sigs`)."""
 
-    servers: list[tuple[int, int]]
-    clients: list[tuple[int, int]]
+    servers: list[tuple]
+    clients: list[tuple]
     n_storage: int
-    server_ids: dict[int, tuple[int, int]] = field(init=False)
+    server_ids: dict[int, tuple] = field(init=False)
 
     def __post_init__(self):
-        self.server_ids = {wire.key_id(n, e): (n, e) for n, e in self.servers}
+        self.server_ids = {sigs.signer_id(k): k for k in self.servers}
 
 
-def _certificate_ok(raw: bytes, rec: wire.Record, writer: tuple[int, int], uni: Universe, suff: int) -> bool:
+def _certificate_ok(raw: bytes, rec: wire.Record, writer: tuple, uni: Universe, suff: int) -> bool:
     if rec.sig is None or rec.ss is None:
         return False
     try:
-        wid = wire.key_id(*writer)
+        wid = sigs.signer_id(writer)
         wsigs = [s for sid, s in wire.parse_entries(rec.sig.data) if sid == wid]
-        if not wsigs or not wire.rsa_verify(wire.tbs(raw), wsigs[0], *writer):
+        if not wsigs or not sigs.verify(writer, wire.tbs(raw), wsigs[0]):
             return False
         body = wire.tbss(raw)
         valid: set[int] = set()
@@ -90,7 +92,7 @@ def _certificate_ok(raw: bytes, rec: wire.Record, writer: tuple[int, int], uni: 
             if len(valid) >= suff:
                 break
             key = uni.server_ids.get(sid)
-            if key is not None and sid not in valid and wire.rsa_verify(body, s, *key):
+            if key is not None and sid not in valid and sigs.verify(key, body, s):
                 valid.add(sid)
         return len(valid) >= suff
     except ValueError:

@@ -40,14 +40,23 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "bftkv_tpu")
 CERT_SAMPLE = 256
 #: Seconds past the window's close that a call in flight may take.
 GRACE_S = 60.0
-#: Operations each client issues in the warm-up, at the least two calls.
+#: Operations each client issues in the warm-up, in one call at the least:
+#: the first call makes every node check the client's certificate and
+#: drives every kernel and stage of the path.
 WARM_OPS = 16
+#: Threads of the numeric libraries' pools (OpenMP, OpenBLAS, MKL).  The
+#: port's host math is small products between the interpreter's turns; at
+#: the libraries' default, a thread per core, 14 idle workers spun on 3.3-3.9
+#: of an H100 host's 8 cores beside the interpreter's 1.5, for no more writes.
+HOST_MATH_THREADS = "1"
 
 
 def environment() -> None:
     """The program's switches and every build cache, set before the port
-    is imported: tracing off, one card, the verify memo off, caches in
-    fixed directories of the checkout."""
+    is imported: tracing off, one card, the verify memo off, the numeric
+    libraries on one thread, caches in fixed directories of the checkout."""
+    for var in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS"):
+        os.environ[var] = HOST_MATH_THREADS
     os.environ["BFTKV_TRACE"] = "off"
     os.environ["BFTKV_SHARD"] = "off"
     # One process holds every node here, and the port's process-wide memo of
@@ -181,7 +190,8 @@ def run_cell(cell: dict, config: dict, mix_path: str, seed: int, seconds: float,
 
     mix = load_mix(mix_path)
     n, n_rw = config["servers"], config["storage_nodes"]
-    keys = keysmod.make_keys(seed, n + n_rw + mix.clients, config["key_bits"])
+    keys = keysmod.make_keys(seed, n + n_rw + mix.clients, config["key_bits"],
+                             algorithm=config["key_algorithm"])
     t_keys = time.perf_counter()
     cl = clustermod.build(config, mix.clients, keys, device)
     t_cluster = time.perf_counter()
@@ -199,7 +209,7 @@ def run_cell(cell: dict, config: dict, mix_path: str, seed: int, seconds: float,
                     for op in call.ops:
                         preload[op.key] = (call.client, op.value, call.answered)
         driver = Driver(cl.clients, [wl.stream(c) for c in range(mix.clients)])
-        driver.warm(max(2, -(-WARM_OPS // mix.batch)), timeout=300.0)
+        driver.warm(-(-WARM_OPS // mix.batch), timeout=300.0)
         if torch.cuda.is_available():
             torch.cuda.synchronize()
         log(f"portbench: set-up keys {t_keys - t_start:.1f} s, cluster {t_cluster - t_keys:.1f} s, "
@@ -259,8 +269,8 @@ def run_cell(cell: dict, config: dict, mix_path: str, seed: int, seconds: float,
         rng = random.Random(f"{seed}/sample")
         acked = sorted(v for v, (_o, vs) in history.items() if any(x.acked for x in vs))
         sample = rng.sample(acked, min(CERT_SAMPLE, len(acked)))
-        uni = ref.Universe(servers=[(k.n, k.e) for k in keys[:n]],
-                           clients=[(k.n, k.e) for k in keys[n + n_rw:]], n_storage=n_rw)
+        uni = ref.Universe(servers=[k.public for k in keys[:n]],
+                           clients=[k.public for k in keys[n + n_rw:]], n_storage=n_rw)
         numbers = ref.check(uni, history, reads, stored, sample)
         numbers["unanswered"] = unanswered
         log(f"portbench: reference over {len(history)} variables, {len(reads)} reads, "
@@ -274,7 +284,8 @@ def run_cell(cell: dict, config: dict, mix_path: str, seed: int, seconds: float,
                       calls=done, trace=dtrace, launches=launches, unmodelled=unmodelled)
         values = {m["name"]: find_reader(m["name"], readers)(ctx) for m in wanted}
         log(f"portbench: K1 launches {sum(x.kernel == 'k1' for x in launches)}, "
-            f"K2 {sum(x.kernel == 'k2' for x in launches)}, unmodelled {unmodelled}", file=sys.stderr)
+            f"K2 {sum(x.kernel == 'k2' for x in launches)}, K5 {sum(x.kernel == 'k5' for x in launches)}, "
+            f"unmodelled {unmodelled}", file=sys.stderr)
         counters = {k: v for k, v in sorted(ctx.registry.items())
                     if k.split(".")[0] in ("dispatch", "signdispatch", "verify", "sign")
                     and not k.endswith((".p50", ".p99")) and ".bucket" not in k and v}

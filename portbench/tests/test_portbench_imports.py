@@ -31,7 +31,7 @@ def test_harness_imports_no_jax_and_not_the_jax_package():
 
 def test_reference_imports_nothing_of_the_program():
     bad = {}
-    for p in (HARNESS / "reference").rglob("*.py"):
+    for p in [*(HARNESS / "reference").rglob("*.py"), HARNESS / "keys.py"]:
         found = _imports(p) & (FORBIDDEN | {"bftkv_tpu_torch", "torch"})
         if found:
             bad[p.name] = found
@@ -45,6 +45,18 @@ def test_loading_the_harness_loads_no_forbidden_module():
             "import bftkv_tpu_torch.protocol.client, bftkv_tpu_torch.protocol.server\n"
             "print(sorted({m.split('.')[0] for m in sys.modules} & set(sys.argv[1:])))\n")
     out = subprocess.run([sys.executable, "-c", code, *sorted(FORBIDDEN)], cwd=HARNESS.parent,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_the_keys_and_the_reference_load_nothing_of_the_program():
+    code = ("import sys\n"
+            "import portbench.keys, portbench.reference.check, portbench.reference.control\n"
+            "import portbench.reference.p256, portbench.reference.sigs, portbench.reference.wire\n"
+            "print(sorted({m.split('.')[0] for m in sys.modules} & set(sys.argv[1:])))\n")
+    loaded = FORBIDDEN | {"bftkv_tpu_torch", "torch"}
+    out = subprocess.run([sys.executable, "-c", code, *sorted(loaded)], cwd=HARNESS.parent,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"

@@ -26,7 +26,7 @@ def written():
         stored = {var: cl.stored(var) for var, _ in items}
     finally:
         cl.stop()
-    uni = check.Universe([(k.n, k.e) for k in keys[:N]], [(k.n, k.e) for k in keys[N + N_RW:]], N_RW)
+    uni = check.Universe([k.public for k in keys[:N]], [k.public for k in keys[N + N_RW:]], N_RW)
     history = {var: (0, [check.Version(v, 0.0, 1.0, True)]) for var, v in items}
     return keys, uni, history, stored
 
@@ -108,9 +108,9 @@ def test_rejects_a_stale_or_unwritten_read(written):
 def test_control_fails_every_record(written):
     keys, uni, _history, _stored = written
     items = [(b"ctl/%d" % i, bytes([7 + i]) * 1024, 0) for i in range(3)]
-    stored = control.records([k.as_tuple() for k in keys[:N]], [k.as_tuple() for k in keys[N + N_RW:]], N_RW, items)
+    servers, writers = [k.private for k in keys[:N]], [k.private for k in keys[N + N_RW:]]
+    stored = control.records(servers, writers, N_RW, items)
     history = {var: (w, [check.Version(v, 0.0, 1.0, True)]) for var, v, w in items}
     assert _numbers(uni, history, stored)["bad_certificates"] == len(items)
-    full = control.records([k.as_tuple() for k in keys[:N]], [k.as_tuple() for k in keys[N + N_RW:]], N_RW,
-                           items, short_by=0)
+    full = control.records(servers, writers, N_RW, items, short_by=0)
     assert _numbers(uni, history, full)["bad_certificates"] == 0
